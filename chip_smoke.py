@@ -11,7 +11,7 @@ Phases, each printing one line (or a few):
 2. build  — compile every kernel from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` per source, in parallel);
 3. kernels — each kernel against its plain PyTorch version on the card,
-   at the serving path's shapes, with its time, the plain version's, one
+   at its main path's shapes, with its time, the plain version's, one
    library call's, and the least time the card could take (its bound);
 4. serving — the port's serving plane end to end: 4 clients × 8 requests
    of flat-plate snapshots [4, 4096] through ``continuous_batch`` (max
@@ -25,7 +25,21 @@ Phases, each printing one line (or a few):
    time per launch);
 5. three-step — the same requests through the ``three_step`` tier;
 6. threaded — the continuous-batching session once more with one host
-   thread per component (the default ``run()``), responses checked.
+   thread per component (the default ``run()``), responses checked;
+7. grad — one training microstep of the autoencoder at the same widths
+   and 2,048 points: the loss and every parameter gradient with the
+   contraction kernel's forward against the plain einsum's (and, as a
+   control that must fail the same limit, the einsum's with TF32
+   matmuls), and where the microstep's device time goes;
+8. train — the paper's in-situ workflow: a flat-plate producer (40
+   steps, every 2nd emitted, ring of 24), the fused trainer (8 epochs,
+   gather 6, batch 4, lr 1e-3) and 5 in-situ inference calls, first
+   sequential then threaded; one line per epoch (losses, relative
+   Frobenius error, device ms), the plan's dispatches against
+   ``stats()``, the launch counts, the peak memory, and every inference
+   output against the plain encoder with the trained weights;
+9. launch — ``repro_torch.launch.insitu.run(points="medium", epochs=4,
+   sim_steps=40)``, the launcher a user calls.
 
 Kernel, plain and library times in the kernels line are device times per
 call (``torch.profiler``: the summed device time of every kernel and copy
@@ -42,6 +56,7 @@ before doing anything.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -54,6 +69,9 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32, outside the tensor cores
 SEED = 0
 CLIENTS, REQUESTS, MAX_BATCH = 4, 8, 8
+# the training slice (paper §4, reference launcher's "medium" grid)
+SIM_STEPS, EMIT_EVERY, RING, EPOCHS, GATHER, BATCH, N_INF = \
+    40, 2, 24, 8, 6, 4, 5
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -125,6 +143,7 @@ def profile(run) -> str:
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     per_launch = {}
     for name, pattern in (("probe_slots", "probe_kernel"),
+                          ("sample_slots", "sample_kernel"),
                           ("gather_rows", "gather_kernel"),
                           ("quadconv_contract", "quadconv_contract_kernel")):
         hits = [e for e in kernels if pattern in e.key]
@@ -168,11 +187,47 @@ def check_probe(dev) -> dict:
             "shape": f"capacity={capacity} n={n}"}
 
 
-def check_gather(dev) -> dict:
+def check_sample(dev) -> dict:
+    """The sample kernel against its plain version, exactly: at the
+    trainer's shapes (C = 24, n = 6) and at C = 4096, n = 256, with dead
+    slots, an empty table, and ranks below 0 and past the live count."""
     from repro_torch.kernels.store import ops, ref
     gen = torch.Generator().manual_seed(SEED)
-    capacity, n = 32, 8
-    slab = torch.randn((capacity, 4, 4096), generator=gen).to(dev)
+    cases = []
+    for capacity, n, live in ((RING, GATHER, 0.75), (4096, 256, 0.5),
+                              (RING, GATHER, 0.0)):
+        version = torch.randint(1, 100, (capacity,), generator=gen,
+                                dtype=torch.int32)
+        version[torch.rand(capacity, generator=gen) >= live] = 0
+        nvalid = int((version > 0).sum())
+        ranks = torch.randint(0, max(nvalid, 1), (n,), generator=gen,
+                              dtype=torch.int32)
+        ranks[:3] = torch.tensor([-1, nvalid, nvalid + 5])
+        cases.append((version.to(dev), ranks.to(dev)))
+    for version, ranks in cases:
+        got = ops.sample_slots(version, ranks)
+        want = ref.sample_slots_ref(version, ranks)
+        if not torch.equal(got, want):
+            raise AssertionError(f"sample kernel disagrees at C="
+                                 f"{version.numel()}: {got} vs {want}")
+    version, ranks = cases[0]
+    kernel = timed(lambda: ops.sample_slots(version, ranks), 200)
+    plain = timed(lambda: ref.sample_slots_ref(version, ranks), 200)
+    b, by = bound((version.numel() + 2 * ranks.numel()) * 4)
+    return {"name": "sample_slots", "route": "cuda",
+            "source": "src/repro_torch/kernels/store/csrc/store.cu",
+            "replaces": "src/repro/kernels/store/kernel.py:99",
+            "max_abs_err": 0, **kernel, "plain_ms": plain["ms"],
+            "plain_wall_ms": plain["wall_ms"], "library_ms": None,
+            "bound_ms": b, "bound_by": by,
+            "shape": f"capacity={version.numel()} n={ranks.numel()} "
+                     "(also checked: C=4096 n=256, an empty table)"}
+
+
+def check_gather(dev, capacity: int, n: int, points: int) -> dict:
+    from repro_torch.kernels.store import ops, ref
+    gen = torch.Generator().manual_seed(SEED)
+    slab = torch.randn((capacity, 4, points), generator=gen).to(dev)
     slots = torch.randint(0, capacity, (n,), generator=gen,
                           dtype=torch.int32).to(dev)
     out = ops.gather_rows(slab, slots)
@@ -191,7 +246,7 @@ def check_gather(dev) -> dict:
             "max_abs_err": err, **kernel, "plain_ms": plain["ms"],
             "plain_wall_ms": plain["wall_ms"], "library_ms": library["ms"],
             "bound_ms": b, "bound_by": by,
-            "shape": f"n={n} rows of [4, 4096] f32"}
+            "shape": f"capacity={capacity} n={n} rows of [4, {points}] f32"}
 
 
 def check_quadconv(dev, B: int, I: int, C: int, O: int) -> dict:
@@ -221,6 +276,277 @@ def check_quadconv(dev, B: int, I: int, C: int, O: int) -> dict:
             "plain_ms": plain["ms"], "plain_wall_ms": plain["wall_ms"],
             "library_ms": library["ms"], "bound_ms": b, "bound_by": by,
             "shape": f"B={B} I=J={I} C={C} O={O}"}
+
+
+def leaves(tree) -> list:
+    """Tensor leaves of nested dicts/lists, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+def grad_errors(got: list, want: list) -> tuple[float, float, bool]:
+    """The largest gradient difference over the microstep's largest
+    gradient entry and over the leaf's own largest entry, and whether
+    every leaf is within the ``[grad]`` limit (1e-4 and 1e-3 of those)."""
+    gmax = max(float(b.abs().max()) for b in want)
+    worst_global = worst_own = 0.0
+    within = True
+    for a, b in zip(got, want):
+        own = float(b.abs().max())
+        err = float((a - b).abs().max())
+        within &= (err <= 1e-4 * gmax and err <= 1e-3 * own
+                   and bool(torch.isfinite(a).all()))
+        worst_global = max(worst_global, err / gmax)
+        worst_own = max(worst_own, err / own if own else 0.0)
+    return worst_global, worst_own, within
+
+
+def check_grad(cfg, levels, params, batch) -> dict:
+    """One microstep's loss and parameter gradients with the contraction
+    kernel's forward against the plain einsum's.
+
+    Every leaf must agree within 1e-4 of the largest gradient entry of
+    the microstep, and within 1e-3 of its own largest entry; the loss
+    within 1e-4 relative.  (A bias leaf's gradient is a sum of B·N terms
+    of both signs, so its own maximum can be far below the terms it
+    sums, and fp32 summation order alone moves it by about 1e-4 of that
+    maximum at 2,048 points; ``PERF.md`` has the measurement.)  As a
+    control, the einsum microstep with TF32 matmuls (10-bit mantissas)
+    is held to the same limit and must fail it.
+    """
+    from repro_torch.ml import autoencoder as ae
+    from repro_torch.ml import trainer as tr
+    out = {}
+    for mode, tf32 in ((None, False), ("ref", False), ("ref", True)):
+        mcfg = replace(cfg, mode=mode)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = tr.value_and_grad(
+            lambda p: ae.loss_fn(p, mcfg, levels, batch), params)
+        torch.cuda.synchronize()
+        out[mode, tf32] = (float(loss), leaves(grads),
+                           torch.cuda.max_memory_allocated() / 1e9)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (lk, gk, peak_k), (lr, gr, peak_r), (lt, gt, _) = out.values()
+    worst_global, worst_own, within = grad_errors(gk, gr)
+    if not within:
+        raise AssertionError(f"a gradient leaf differs by {worst_global} "
+                             f"of the microstep's largest gradient and "
+                             f"{worst_own} of its own")
+    if not abs(lk - lr) <= 1e-4 * abs(lr):
+        raise AssertionError(f"loss {lk} (kernel) vs {lr} (einsum)")
+    tf32_global, tf32_own, tf32_within = grad_errors(gt, gr)
+    if tf32_within:
+        raise AssertionError("the TF32 control passed the [grad] limit: "
+                             "the limit no longer tells fp32 from TF32")
+    return {"loss_kernel": lk, "loss_einsum": lr, "leaves": len(gk),
+            "max_err_over_grad_max": worst_global,
+            "max_err_over_leaf_max": worst_own,
+            "grad_max": max(float(b.abs().max()) for b in gr),
+            "tf32_loss_rel": abs(lt - lr) / abs(lr),
+            "tf32_max_err_over_grad_max": tf32_global,
+            "tf32_max_err_over_leaf_max": tf32_own,
+            "peak_gb_kernel": peak_k, "peak_gb_einsum": peak_r}
+
+
+def microstep_breakdown(cfg, levels, params, batch) -> dict:
+    """Device time of one training microstep by part (CUDA events): the
+    filter MLPs building the four kernel tensors G, the four contraction
+    forwards, the rest of the forward, the backward, the Adam update; and
+    of the backward, the four contractions' own (einsum) backward with
+    the device memory it takes beyond its inputs."""
+    from repro_torch.kernels.quadconv import ops as qops
+    from repro_torch.ml import autoencoder as ae
+    from repro_torch.ml import trainer as tr
+    from repro_torch.ml.quadconv import QuadConv
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_map
+    blocks = []
+    for b in range(cfg.blocks):
+        blocks.append((cfg.channels if b == 0 else cfg.internal,
+                       params["enc"][b], levels[b]))
+    for b in range(cfg.blocks):
+        blocks.append((cfg.internal, params["dec"][b],
+                       levels[cfg.blocks - b - 1]))
+    convs = [(QuadConv(c_in=c, c_out=cfg.internal, mlp_width=cfg.mlp_width,
+                       mlp_depth=cfg.mlp_depth, support=cfg.support), p, lv)
+             for c, p, lv in blocks]
+    t_g = time_ms(lambda: [conv.kernel_tensor(p, lv, lv)
+                           for conv, p, lv in convs], 3, warmup=1)
+    gs = [conv.kernel_tensor(p, lv, lv).requires_grad_(True)
+          for conv, p, lv in convs]
+    fs = [torch.randn((batch.shape[0], lv.shape[0], conv.c_in),
+                      device=batch.device, requires_grad=True)
+          for conv, _, lv in convs]
+    ws = [p["quad_w"].detach().requires_grad_(True) for _, p, _ in convs]
+    t_c = time_ms(lambda: [qops.quadconv_contract(f, w, g)
+                           for f, w, g in zip(fs, ws, gs)], 5)
+    # the contraction's backward alone: the reference's einsums
+    outs = [qops.quadconv_contract(f, w, g) for f, w, g in zip(fs, ws, gs)]
+    cts = [torch.randn_like(o) for o in outs]
+
+    def contraction_backward():
+        for o, ct, f, w, g in zip(outs, cts, fs, ws, gs):
+            torch.autograd.grad(o, (f, w, g), ct, retain_graph=True)
+
+    t_cb = time_ms(contraction_backward, 3, warmup=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    contraction_backward()
+    torch.cuda.synchronize()
+    cb_extra = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del gs, fs, ws, outs, cts
+
+    def forward():
+        tracked = tree_map(lambda t: t.detach().requires_grad_(True),
+                               params)
+        with torch.enable_grad():
+            return ae.loss_fn(tracked, cfg, levels, batch)
+
+    def step():
+        return tr.value_and_grad(
+            lambda p: ae.loss_fn(p, cfg, levels, batch), params)
+
+    t_f = time_ms(forward, 3, warmup=1)
+    t_vg = time_ms(step, 3, warmup=1)
+    _, grads = step()
+    tx = opt.adam(1e-3)
+    st = tx.init(params)
+    t_o = time_ms(lambda: opt.apply_updates(
+        params, tx.update(grads, st, params)[0]), 10)
+    return {"total_ms": t_vg + t_o, "g_build_ms": t_g,
+            "contraction_fwd_ms": t_c, "rest_fwd_ms": t_f - t_g - t_c,
+            "backward_ms": t_vg - t_f, "optimizer_ms": t_o,
+            "of_which_contraction_bwd_ms": t_cb,
+            "contraction_bwd_extra_gb": cb_extra}
+
+
+def train_session(dev, cfg, fcfg, sequential: bool, counters,
+                  label: str | None = None) -> dict:
+    """The paper's workflow as one session: flat-plate producer → fused
+    trainer → in-situ inference, checked end to end."""
+    from repro_torch.core import TableSpec
+    from repro_torch.core import store as S
+    from repro_torch.insitu import (InferenceConsumer, InSituSession,
+                                    Producer, TrainerConsumer)
+    from repro_torch.ml import autoencoder as ae
+    from repro_torch.ml import trainer as tr
+    from repro_torch.sim import flatplate as fp
+    gen = torch.Generator().manual_seed(SEED)
+    modes = fp.draw_modes(fcfg, gen, dev)
+    inf_modes = fp.draw_modes(fcfg, gen, dev)
+    coords = fp.grid_coords(fcfg, dev)
+    tcfg = tr.TrainerConfig(ae=cfg, epochs=EPOCHS, gather=GATHER,
+                            batch_size=BATCH, lr=1e-3, seed=SEED)
+    draws = tr.default_draws(tcfg, dev)
+    starts, ends, history, inputs = [], [], [], {}
+
+    def timed_epochs():
+        for d in draws.epochs:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            yield d
+
+    def on_epoch(r):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+        history.append(r)
+
+    def step_fn(carry, rank, t):
+        return carry, S.make_key(rank, t), fp.snapshot(fcfg, modes, t,
+                                                       coords)
+
+    def feed(client, step):
+        mu, sd = client.get_metadata("norm_stats")
+        x = (fp.snapshot(fcfg, inf_modes, SIM_STEPS + step, coords).T
+             - mu) / sd
+        inputs[step] = x
+        return x
+
+    sess = InSituSession(
+        tables=[TableSpec("field", shape=(4, fcfg.n_points),
+                          capacity=RING)],
+        components=[
+            Producer(step_fn, table="field", steps=SIM_STEPS,
+                     carry=torch.zeros((), device=dev),
+                     emit_every=EMIT_EVERY),
+            TrainerConsumer(tcfg, coords, model_key="encoder",
+                            on_epoch=on_epoch,
+                            draws=tr.TrainDraws(draws.bootstrap,
+                                                timed_epochs())),
+            InferenceConsumer("encoder", feed, steps=N_INF)],
+        device=dev)
+    plan = sess.plan()
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sess.run(plan=plan, sequential=sequential, max_wall_s=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in counters}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    mode = label or ("sequential" if sequential else "threaded")
+    if not res.ok:
+        raise AssertionError({n: c.error for n, c in
+                              res.run.components.items() if c.error})
+    stats = res.server.stats()
+    for r, a, b in zip(history, starts, ends):
+        print(f"[train {mode}] epoch {r.epoch} train_loss={r.train_loss:.6f} "
+              f"val_loss={r.val_loss:.6f} rel_frobenius="
+              f"{r.val_rel_error:.6f} ms={a.elapsed_time(b):.3f} "
+              f"watermark={r.watermark}", flush=True)
+    losses = [x for r in history
+              for x in (r.train_loss, r.val_loss, r.val_rel_error)]
+    if len(history) != EPOCHS or not all(map(math.isfinite, losses)) \
+            or not history[-1].train_loss < history[0].train_loss:
+        raise AssertionError(f"{mode}: losses not finite and falling: "
+                             f"{history}")
+    if stats["op_count"] != plan.store_dispatches:
+        raise AssertionError(f"{mode}: plan {plan.explain()} != stats "
+                             f"{stats}")
+    microsteps = EPOCHS * -(-(GATHER - 1) // BATCH)
+    need = {"sample_slots": EPOCHS + 1, "gather_rows": EPOCHS + 1,
+            "quadconv_contract": 4 * microsteps}
+    for sym, least in need.items():
+        if launches[sym] < least:
+            raise AssertionError(f"{mode}: {sym} launched {launches[sym]} "
+                                 f"times, expected >= {least}")
+    trainer = res.output("trainer")
+    inf = res.output("inference")
+    ref_cfg = replace(cfg, mode="ref")
+    err, zmax = 0.0, 0.0
+    for step, z in enumerate(inf.outputs):
+        want = ae.encode(trainer.state.params, ref_cfg, trainer.levels,
+                         inputs[step][None])[0]
+        if z.shape != (cfg.latent,) or not bool(torch.isfinite(z).all()):
+            raise AssertionError(f"inference output {step}: {z.shape}")
+        err = max(err, float((z - want).abs().max()))
+        zmax = max(zmax, float(want.abs().max()))
+    tol = 1e-4 * (1.0 + zmax)
+    if inf.steps != N_INF or not err <= tol:
+        raise AssertionError(f"{mode}: {inf.steps} inference outputs, max "
+                             f"err vs plain encoder {err} > {tol}")
+    walls = {n: round(c.wall_s, 4) for n, c in res.run.components.items()}
+    verbs = {n: round(t["mean_s"] * 1e3, 3)
+             for n, t in res.run.timers.summary().items()}
+    print(f"[train {mode}] predicted_dispatches={plan.store_dispatches} "
+          f"op_count={stats['op_count']} "
+          f"per_component={ {c.name: c.store_dispatches for c in plan.components} } "
+          f"launches={launches} peak_mem_gb={peak:.2f} wall_s={wall:.4f} "
+          f"component_wall_s={walls} verb_mean_ms={verbs} "
+          f"inference_max_err_vs_plain={err:.3g} (tol {tol:.3g})",
+          flush=True)
+    return {"launches": launches, "peak_gb": peak, "wall_s": wall,
+            "op_count": stats["op_count"]}
 
 
 def main() -> int:
@@ -261,23 +587,41 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"[build] {lib.name}: {line.strip()}")
 
-    # 3. kernels vs their plain versions, at the serving path's shapes
+    # 3. kernels vs their plain versions, at their main paths' shapes:
+    # the serving plane's (B = 8, 4,096 points) and the trainer's (B = 4,
+    # 2,048 points; a ring of 24, 6 rows gathered per epoch)
     probe = check_probe(dev)
-    gather = check_gather(dev)
-    blocks = [check_quadconv(dev, MAX_BATCH, 4096, 4, 16),
-              check_quadconv(dev, MAX_BATCH, 1024, 16, 16)]
-    for row in (probe, gather, *blocks):
+    sample = check_sample(dev)
+    gather_serving = check_gather(dev, CLIENTS * REQUESTS, MAX_BATCH, 4096)
+    gather = check_gather(dev, RING, GATHER, 2048)
+    serve_blocks = [check_quadconv(dev, MAX_BATCH, 4096, 4, 16),
+                    check_quadconv(dev, MAX_BATCH, 1024, 16, 16)]
+    enc0, mid, dec1 = (check_quadconv(dev, BATCH, 2048, 4, 16),
+                       check_quadconv(dev, BATCH, 512, 16, 16),
+                       check_quadconv(dev, BATCH, 2048, 16, 16))
+    train_blocks = [enc0, mid, mid, dec1]   # encoder 0, 1; decoder 0, 1
+    for row in (probe, sample, gather_serving, gather, *serve_blocks,
+                enc0, mid, dec1):
         print(f"[kernels] {json.dumps(row)}", flush=True)
+    timing_keys = ("ms", "wall_ms", "plain_ms", "plain_wall_ms",
+                   "library_ms", "bound_ms")
     quad = {"name": "quadconv_contract", "route": "cuda",
             "source": "src/repro_torch/kernels/quadconv/csrc/quadconv.cu",
             "replaces": "src/repro/kernels/quadconv/kernel.py:39",
-            "max_abs_err": max(b["max_abs_err"] for b in blocks),
+            "max_abs_err": max(b["max_abs_err"] for b in train_blocks),
             "bound_by": "bytes",
-            "timed_by": "+".join(sorted({b["timed_by"] for b in blocks})),
-            "shape": "encoder blocks 0 + 1 at B=8 (times summed)"}
-    for k in ("ms", "wall_ms", "plain_ms", "plain_wall_ms", "library_ms",
-              "bound_ms"):
-        quad[k] = sum(b[k] for b in blocks)
+            "timed_by": "+".join(sorted({b["timed_by"]
+                                         for b in train_blocks})),
+            "shape": "one training forward at B=4: encoder 0 (I=J=2048, "
+                     "C=4), encoder 1 and decoder 0 (I=J=512, C=16), "
+                     "decoder 1 (I=J=2048, C=16); times summed",
+            **{k: sum(b[k] for b in train_blocks) for k in timing_keys},
+            "serving": {"shape": "encoder blocks 0 + 1 at B=8, 4,096 "
+                                 "points (times summed)",
+                        **{k: sum(b[k] for b in serve_blocks)
+                           for k in timing_keys}}}
+    gather["serving"] = {k: gather_serving[k] for k in
+                         ("shape", *timing_keys)}
 
     # 4. serving: continuous batching through the kernels
     fcfg = fp.FlatPlateConfig(nx=16, ny=16, nz=16)
@@ -390,10 +734,11 @@ def main() -> int:
                         support=cfg.support)
         t_g.append(time_ms(lambda: conv.kernel_tensor(
             params["enc"][b], levels[b], levels[b]), 5))
-    rest = t_enc - sum(t_g) - quad["ms"]
+    t_contract = quad["serving"]["ms"]
+    rest = t_enc - sum(t_g) - t_contract
     print(f"[breakdown] encode B={MAX_BATCH}: {t_enc:.3f} ms = filter-MLP "
           f"kernel tensor G block0 {t_g[0]:.3f} + block1 {t_g[1]:.3f} + "
-          f"quadconv_contract {quad['ms']:.3f} + rest {rest:.3f} ms",
+          f"quadconv_contract {t_contract:.3f} + rest {rest:.3f} ms",
           flush=True)
 
     print("[profile] continuous_batch session: " + profile(
@@ -410,10 +755,59 @@ def main() -> int:
     # 6. threaded: one host thread per component, as run() defaults to
     drive("continuous_batch", sequential=False)
 
+    # 7. grad: one training microstep at the paper's widths, 2,048 points
+    tfcfg = fp.FlatPlateConfig(nx=16, ny=16, nz=8)
+    tcfg = replace(cfg, n_points=tfcfg.n_points)
+    tgen = torch.Generator().manual_seed(SEED + 1)
+    tparams = ae.init_autoencoder(tcfg, tgen, dev)
+    tmodes = fp.draw_modes(tfcfg, tgen, dev)
+    tcoords = fp.grid_coords(tfcfg, dev)
+    tlevels = ae.coords_pyramid(tcfg, tcoords)
+    batch = torch.stack([fp.snapshot(tfcfg, tmodes, t, tcoords).T
+                         for t in range(BATCH)])
+    batch = (batch - batch.mean(dim=(0, 1))) / batch.std(dim=(0, 1))
+    grad = check_grad(tcfg, tlevels, tparams, batch)
+    print(f"[grad] B={BATCH} N={tcfg.n_points} {json.dumps(grad)}",
+          flush=True)
+    bd = microstep_breakdown(tcfg, tlevels, tparams, batch)
+    print("[breakdown] training microstep: " + " ".join(
+        f"{k}={v:.3f}" for k, v in bd.items()), flush=True)
+    del tparams, batch
+    torch.cuda.empty_cache()
+
+    # 8. train: the paper's in-situ workflow, sequential then threaded
+    counters = [sops.PROBE, sops.SAMPLE, sops.GATHER, qops.QUADCONV]
+    trained = train_session(dev, tcfg, tfcfg, True, counters)
+    train_session(dev, tcfg, tfcfg, False, counters)
+    print("[profile] training session (sequential): " + profile(
+        lambda: train_session(dev, tcfg, tfcfg, True, counters,
+                              label="profiled")), flush=True)
+
+    # 9. launch: the launcher a user calls, at its own defaults
+    from repro_torch.launch import insitu as launcher
+    t0 = time.perf_counter()
+    res = launcher.run(points="medium", epochs=4, sim_steps=40, device=dev)
+    torch.cuda.synchronize()
+    if res.server.stats()["op_count"] != res.plan.store_dispatches:
+        raise AssertionError(f"launcher: {res.server.stats()} vs "
+                             f"{res.plan.explain()}")
+    print(f"[launch] run(points='medium', epochs=4, sim_steps=40) ok in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    serving_launches = launches
     rows = []
-    for row in (probe, gather, quad):
+    for row, path in ((probe, "serving"), (sample, "training"),
+                      (gather, "training"), (quad, "training")):
         row = dict(row)
-        row["launches"] = launches[row["name"]]
+        name = row["name"]
+        row["path"] = path
+        row["launches"] = (serving_launches if path == "serving"
+                           else trained["launches"])[name]
+        row["launches_by_path"] = {
+            "serving": serving_launches.get(name, 0),
+            "training": trained["launches"][name]}
+        if row["launches"] < 1:
+            raise AssertionError(f"{name} never launched on its path")
         row["kernel_ms"] = row["ms"]
         rows.append(row)
     print(json.dumps({"kernels": rows}))

@@ -2,7 +2,8 @@
 
 Port of ``src/repro/core/server.py`` — the local deployment only: tables
 on one device, per-table locks, host metadata with cached (lock-free)
-watermarks, the fused serving dispatch, the model registry and ``stats()``.
+watermarks, capture transactions, the fused serving dispatch, the random
+gather, the model registry and ``stats()``.
 
 Host threads call the server's verbs; each verb launches the store op on
 the device (asynchronously, on PyTorch's current stream) while holding the
@@ -14,6 +15,7 @@ write-ahead log (A4) are later slices and raise here.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any, Callable
 
@@ -22,10 +24,29 @@ import torch
 
 from ..device import resolve_device
 from . import store as S
-from .faults import FaultPlan, WatermarkTimeout
+from .faults import FaultPlan, StoreTimeout, WatermarkTimeout
 from .telemetry import poll_backoff
 
-__all__ = ["StoreServer"]
+__all__ = ["StoreServer", "CaptureTxn"]
+
+
+class CaptureTxn:
+    """One capture transaction on a single table.
+
+    ``state`` holds the checked-out ``TableState``; assign the updated
+    state back to commit, and set ``puts`` to the number of put operations
+    performed so the cached watermark stays exact
+    (``store.capture_emit_count``).  Read-only captures (consumers) leave
+    ``state`` untouched.
+    """
+
+    __slots__ = ("spec", "state", "puts", "_orig")
+
+    def __init__(self, spec: S.TableSpec, state: S.TableState):
+        self.spec = spec
+        self.state = state
+        self.puts = 0
+        self._orig = state
 
 
 class StoreServer:
@@ -81,6 +102,45 @@ class StoreServer:
             self._counts[spec.name] = 0
         return spec
 
+    def spec(self, table: str) -> S.TableSpec:
+        return self._specs[table]
+
+    # -- capture transactions ------------------------------------------------
+
+    def checkout(self, table: str) -> S.TableState:
+        with self._table_locks[table]:
+            return self._state[table]
+
+    def commit(self, table: str, new_state: S.TableState,
+               puts: int = 0) -> None:
+        """Swap in a state produced outside a capture; ``puts`` keeps the
+        cached watermark exact without a device read."""
+        with self._table_locks[table]:
+            self._state[table] = new_state
+            self._counts[table] += puts
+        self._bump_ops()
+
+    @contextlib.contextmanager
+    def capture(self, table: str):
+        """Checkout → work → commit, atomically under the table lock.
+        Yields a :class:`CaptureTxn`.
+
+        An assigned ``txn.state`` commits even if the body then raises:
+        the port's write verbs update the checked-out buffers in place
+        (the reference's donation), so there is nothing to roll back to.
+        A body that raises without assigning leaves the table untouched.
+        One capture is one store op, read-only captures included.
+        """
+        with self._table_locks[table]:
+            txn = CaptureTxn(self._specs[table], self._state[table])
+            try:
+                yield txn
+            finally:
+                if txn.state is not txn._orig:
+                    self._state[table] = txn.state
+                    self._counts[table] += txn.puts
+        self._bump_ops()
+
     # -- verbs ---------------------------------------------------------------
 
     def put(self, table: str, key, value) -> None:
@@ -88,6 +148,16 @@ class StoreServer:
         with self._table_locks[table]:
             self._state[table] = S.put(spec, self._state[table], key, value)
             self._counts[table] += 1
+        self._bump_ops()
+
+    def put_stream(self, table: str, keys, values) -> None:
+        """One op for a whole trajectory of sends (``store.put_stream``)."""
+        spec = self._specs[table]
+        n = int(np.prod(np.shape(keys)))
+        with self._table_locks[table]:
+            self._state[table] = S.put_stream(spec, self._state[table], keys,
+                                              values)
+            self._counts[table] += n
         self._bump_ops()
 
     def get(self, table: str, key):
@@ -116,6 +186,15 @@ class StoreServer:
             self._counts[res_table] += int(mask.sum())
         self._bump_ops()
         return ok
+
+    def sample(self, table: str, draw: torch.Tensor):
+        """The random gather (``store.sample``) under the table lock:
+        ``(values [n, *shape], keys [n], ok)`` with ``n = len(draw)``."""
+        spec = self._specs[table]
+        with self._table_locks[table]:
+            out = S.sample(spec, self._state[table], draw)
+        self._bump_ops()
+        return out
 
     def stats(self) -> dict:
         """Telemetry snapshot: dispatched-op count, staged transfers (0 on
@@ -161,6 +240,20 @@ class StoreServer:
     def get_meta(self, name: str, default=None):
         with self._lock:
             return self._meta.get(name, default)
+
+    def wait_meta(self, name: str, timeout: float = 60.0,
+                  strict: bool = True):
+        """Block until metadata ``name`` exists.  On timeout raises
+        :class:`~.faults.StoreTimeout` (``strict=False``: returns None —
+        the polling form inference consumers loop on)."""
+        with self._meta_event:
+            ok = self._meta_event.wait_for(lambda: name in self._meta,
+                                           timeout=timeout)
+            if ok:
+                return self._meta.get(name)
+        if strict:
+            raise StoreTimeout("metadata", name, timeout)
+        return None
 
     # -- model registry (RedisAI analogue) ------------------------------------
 

@@ -1,10 +1,12 @@
 """TensorStore: a device-resident in-memory key-value tensor store.
 
-Port of ``src/repro/core/store.py`` — the subset the serving plane runs.
-Each table is a fixed-capacity slab ``[capacity, *elem_shape]`` on the
-device plus per-slot metadata (``keys``, ``version``) and scalar cursors
-(``ptr``, ``count``), with two engines: ``ring`` (slots from a monotone
-write pointer) and ``hash`` (slot = key mod capacity).
+Port of ``src/repro/core/store.py`` — the single-device subset: tables,
+the write verbs, the batched gets, the serving dispatch, the trainer's
+random gather (``sample``) and the producer's capture family.  Each table
+is a fixed-capacity slab ``[capacity, *elem_shape]`` on the device plus
+per-slot metadata (``keys``, ``version``) and scalar cursors (``ptr``,
+``count``), with two engines: ``ring`` (slots from a monotone write
+pointer) and ``hash`` (slot = key mod capacity).
 
 Differences from the reference, all deliberate:
 
@@ -22,10 +24,20 @@ Differences from the reference, all deliberate:
   batch (the registry contract of the port takes a leading batch axis;
   see ``StoreServer.set_model``) instead of ``vmap``-ping a per-element
   function.
+* ``sample`` takes its random draw as a tensor instead of a ``jax.random``
+  key: uniforms in [0, 1) scaled on the device by the live count, so no
+  host read is needed (the parity tests feed uniforms that give the
+  reference's ranks back).
+* ``capture_scan[_multi]`` are host loops over steps (and ranks) that call
+  the single-step verbs, instead of one ``lax.scan`` dispatch; the state
+  and counters they leave are byte-identical to the reference's.  A step
+  that raises leaves the puts before it in place, which a caller commits
+  through ``on_put``.  Eager torch compiles nothing, so no chunk is
+  padded to its bucket (``bucket_length`` stays for the plan).
 
-``get_many`` routes through the hand-written probe and gather kernels
-(``repro_torch.kernels.store``) on the card and their plain versions on
-the CPU.  The training-side verbs come with later slices.
+``get_many`` and ``sample`` route through the hand-written probe, sample
+and gather kernels (``repro_torch.kernels.store``) on the card and their
+plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -39,12 +51,15 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.store import ops as _kops
+from ..tree import tree_map
 from ..kernels.store.ref import EMPTY_KEY, KEY_DTYPE
 
 __all__ = [
     "TableSpec", "TableState", "make_key", "name_key", "init_table",
-    "put", "put_many", "put_masked", "get", "get_many", "serve_batch",
-    "valid_count", "EMPTY_KEY", "KEY_DTYPE",
+    "put", "put_many", "put_masked", "put_stream", "get", "get_many",
+    "serve_batch", "sample", "valid_count", "capture_scan",
+    "capture_scan_multi", "capture_emit_count", "capture_emit_count_multi",
+    "capture_rows", "bucket_length", "MIN_BUCKET", "EMPTY_KEY", "KEY_DTYPE",
 ]
 
 
@@ -223,6 +238,22 @@ def put_masked(spec: TableSpec, state: TableState, keys, values,
     return state._replace(ptr=new_ptr, count=state.count + total)
 
 
+def put_stream(spec: TableSpec, state: TableState, keys,
+               values) -> TableState:
+    """A whole trajectory of sends as one ``put_many``: ``keys [T]`` /
+    ``values [T, *shape]``, or ``keys [T, R]`` / ``values [T, R, *shape]``
+    (T steps of R ranks, time-major) — equal to the sequence of
+    ``put``/``put_many`` calls, last writer winning on a slot."""
+    dev = state.slab.device
+    keys = _as_keys(keys, dev)
+    values = _as_values(spec, values, dev)
+    if keys.dim() == 2:
+        t, r = keys.shape
+        keys = keys.reshape(t * r)
+        values = values.reshape(t * r, *values.shape[2:])
+    return put_many(spec, state, keys, values)
+
+
 def get(spec: TableSpec, state: TableState, key):
     """Fetch by key → ``(value, found)``; zeros if absent.  The lowest live
     slot wins (the reference's argmax); ``EMPTY_KEY`` is never found."""
@@ -265,8 +296,138 @@ def serve_batch(req_spec: TableSpec, res_spec: TableSpec,
     return new_res, found & mask, ys
 
 
+def sample(spec: TableSpec, state: TableState, draw: torch.Tensor):
+    """Uniformly sample ``n = len(draw)`` live elements (with replacement):
+    the trainer's in-situ data loader.
+
+    ``draw`` holds float uniforms in ``[0, 1)``, turned into ranks on the
+    device as ``floor(u · max(nvalid, 1))`` — no host read, so a caller
+    holding the table lock never waits for the card.  Returns ``(values
+    [n, *shape], keys [n], ok)``; ``ok`` is False and the values are zeros
+    when the table is empty.
+    """
+    dev = state.version.device
+    nvalid = (state.version > 0).sum(dtype=torch.int32)
+    ok = nvalid > 0
+    top = nvalid.clamp(min=1)
+    ranks = torch.minimum((draw.to(dev) * top).floor().to(torch.int32),
+                          top - 1)
+    slots = _kops.sample_slots(state.version, ranks.contiguous())
+    slots = slots.clamp(max=spec.capacity - 1)
+    values = _kops.gather_rows(state.slab, slots)
+    values = torch.where(ok, values, torch.zeros((), dtype=values.dtype,
+                                                 device=dev))
+    return values, state.keys.index_select(0, slots), ok
+
+
 def valid_count(spec: TableSpec, state: TableState) -> torch.Tensor:
     return (state.version > 0).sum(dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The producer's capture family
+# ---------------------------------------------------------------------------
+
+#: The data plane's bucket floor: the smallest power-of-two bucket a fused
+#: chunk pads to in the reference (the plan's ``default_chunk`` derives its
+#: floor from it).
+MIN_BUCKET = 8
+
+
+def bucket_length(length: int, min_bucket: int = MIN_BUCKET) -> int:
+    """Round a chunk length up to the next power-of-two bucket ``>=
+    min_bucket``.  The reference compiles one executable per bucket; the
+    port runs eagerly and never pads, but the plan still reports it."""
+    if length < 1:
+        raise ValueError("length must be >= 1")
+    n = max(length, min_bucket)
+    return 1 << (n - 1).bit_length()
+
+
+def capture_scan(spec: TableSpec, state: TableState, step_fn: Callable,
+                 carry, length: int, emit_every: int = 1, t0: int = 0,
+                 on_put: Callable | None = None):
+    """Run ``length`` producer steps and their puts: ``step_fn(carry, t)
+    -> (carry, key, value)`` for ``t`` in ``t0 .. t0+length-1``; steps
+    where ``t % emit_every == 0`` put their value.
+
+    A host loop over the single-step verb, so the puts land in ring order
+    exactly as the reference's one-dispatch scan leaves them — including
+    last-writer-wins when more than ``capacity`` steps emit in one call.
+    The puts write the table's buffers in place, so ``on_put(state, n)``,
+    when given, is called after each put with the state so far and the
+    ``n`` puts it added: a caller commits there, and a step that raises
+    leaves the earlier puts committed with their ``ptr`` and ``count``.
+    Returns ``(state, carry)``; ``capture_emit_count`` gives the put count.
+    """
+    for t in range(t0, t0 + length):
+        carry, key, value = step_fn(carry, t)
+        if t % emit_every == 0:
+            state = put(spec, state, key, value)
+            if on_put is not None:
+                on_put(state, 1)
+    return state, carry
+
+
+def capture_emit_count(length: int, emit_every: int = 1, t0: int = 0) -> int:
+    """Host-side count of puts a ``capture_scan`` call performs."""
+    return sum(1 for t in range(t0, t0 + length) if t % emit_every == 0)
+
+
+def _rank_clocks(t0, n_ranks: int) -> list[int]:
+    """Per-rank start steps from an int or a length-``n_ranks`` sequence."""
+    if isinstance(t0, int):
+        return [t0] * n_ranks
+    clocks = [int(t) for t in (t0.tolist() if isinstance(t0, torch.Tensor)
+                               else t0)]
+    if len(clocks) != n_ranks:
+        raise ValueError(f"t0 has {len(clocks)} clocks for {n_ranks} ranks")
+    return clocks
+
+
+def capture_scan_multi(spec: TableSpec, state: TableState,
+                       step_fn: Callable, carry, length: int, n_ranks: int,
+                       emit_every: int = 1, t0=0,
+                       on_put: Callable | None = None):
+    """``n_ranks`` producers advancing in lockstep for ``length`` steps.
+
+    ``step_fn(carry_r, rank, t) -> (carry_r, key, value)`` is one rank's
+    step; every leaf of ``carry`` stacks the per-rank states on a leading
+    ``[R]`` axis.  ``t0`` is an int or one start step per rank; emission is
+    gated on rank 0's clock, and each emitting step writes all R snapshots
+    with one ``put_many`` (rank-major), byte-identical to R sequential puts.
+    ``on_put`` is called after each ``put_many`` as in :func:`capture_scan`.
+    Returns ``(state, carry)``; ``capture_emit_count_multi`` gives the put
+    count.
+    """
+    clocks = _rank_clocks(t0, n_ranks)
+    for i in range(length):
+        carries, keys, values = [], [], []
+        for r in range(n_ranks):
+            c_r, key, value = step_fn(tree_map(lambda x: x[r], carry), r,
+                                      clocks[r] + i)
+            carries.append(c_r)
+            keys.append(_as_keys(key, state.slab.device).reshape(()))
+            values.append(_as_values(spec, value, state.slab.device))
+        carry = tree_map(lambda *xs: torch.stack(xs), *carries)
+        if (clocks[0] + i) % emit_every == 0:
+            state = put_many(spec, state, torch.stack(keys),
+                             torch.stack(values))
+            if on_put is not None:
+                on_put(state, n_ranks)
+    return state, carry
+
+
+def capture_emit_count_multi(n_ranks: int, length: int, emit_every: int = 1,
+                             t0: int = 0) -> int:
+    """Host-side count of puts a ``capture_scan_multi`` call performs
+    (``t0`` is rank 0's start step, the emission gate's clock)."""
+    return n_ranks * capture_emit_count(length, emit_every, t0)
+
+
+def capture_rows(length: int, emit_every: int = 1) -> int:
+    """The most emissions any ``length``-step window can hold."""
+    return -(-length // emit_every)
 
 
 def _not_ported(name: str, item: str) -> Callable:
@@ -276,16 +437,15 @@ def _not_ported(name: str, item: str) -> Callable:
     return fn
 
 
-sample = _not_ported("sample", "A2 (training slice)")
-capture_scan = _not_ported("capture_scan", "A2 (training slice)")
-capture_scan_multi = _not_ported("capture_scan_multi", "A2 (training slice)")
-put_stream = _not_ported("put_stream", "A2 (training slice)")
-sample_and_step = _not_ported("sample_and_step", "A2 (training slice)")
+sample_and_step = _not_ported("sample_and_step",
+                              "A8 (what the training slice left out)")
 latest = _not_ported("latest", "A3 (reproducer)")
 poll = _not_ported("poll", "A3 (reproducer)")
 delete = _not_ported("delete", "A4 (fault recovery)")
 capture_scan_collect = _not_ported("capture_scan_collect",
                                    "A5 (multi-device tiers)")
+capture_scan_collect_multi = _not_ported("capture_scan_collect_multi",
+                                         "A5 (multi-device tiers)")
 sample_sharded_impl = _not_ported("sample_sharded_impl",
                                   "A5 (multi-device tiers)")
 make_clustered_gather = _not_ported("make_clustered_gather",

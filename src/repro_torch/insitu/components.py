@@ -1,41 +1,162 @@
 """Declarative in-situ components: *what* runs, never *how*.
 
-Port of ``src/repro/insitu/components.py`` — the serving plane's two
-components and their outputs.  ``Producer``, ``TrainerConsumer`` and
-``InferenceConsumer`` are the training slice (``ROADMAP.md`` A2) and raise
-here.
+Port of ``src/repro/insitu/components.py`` — the single-device
+components: the simulation ``Producer``, the ``TrainerConsumer``, the
+``InferenceConsumer`` and the serving plane's two components, each with
+its typed output.  What needs several devices raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item: a sharded
+producer element (``elem_sharding``) and multi-consumer training
+(``count > 1``), both A5.
+
+Two contracts differ from the reference: ``TrainerConsumer`` takes the
+trainer's random ``draws`` (see ``ml.trainer``), and an inference
+``feed`` returns ONE element, ``[N, C]`` — the registry adds the batch
+axis (``StoreServer.run_model``), where the reference's feed returns
+``[1, N, C]`` itself.  ``InferenceOutput`` keeps every output, not only
+the last.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+from ..ml.trainer import EpochResult, TrainDraws, TrainerConfig, TrainState
 
 __all__ = [
     "Producer", "TrainerConsumer", "InferenceConsumer",
     "ServingClients", "ServingConsumer",
+    "ProducerOutput", "TrainerOutput", "InferenceOutput",
     "ServingClientsOutput", "ServingOutput",
 ]
 
 
-class _NotPorted:
-    item = ""
+@dataclass
+class Producer:
+    """A data-producing component (the paper's simulation ranks).
 
-    def __init__(self, *_args, **_kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__}: ROADMAP.md {self.item}")
+    ``step_fn(carry, rank, t) -> (carry, key, value)`` is one rank's
+    single step: advance the solver carry, return the key/value to store
+    when step ``t`` emits.  With ``ranks > 1`` the carry stacks the
+    per-rank states on a leading ``[ranks]`` axis and the plan picks the
+    multi-producer capture.  ``traceable=False`` (e.g. an emulated solver
+    that sleeps) pins the per-verb tier, as in the reference.  ``warmup``
+    runs one step off the clock (timed as ``warmup``) and drops it.
+    """
+
+    step_fn: Callable
+    table: str
+    steps: int
+    ranks: int = 1
+    carry: Any = None
+    emit_every: int = 1
+    traceable: bool = True
+    chunk: int | None = None      # fused chunk length (None: plan default)
+    bucket: bool = True           # report the tail's pow2 bucket in the plan
+    tier: str | None = None       # force a producer tier (see plan module)
+    elem_sharding: Any = None
+    warmup: bool = True
+    name: str = "producer"
+
+    def __post_init__(self):
+        if self.steps < 1:
+            raise ValueError("steps must be >= 1")
+        if self.ranks < 1:
+            raise ValueError("ranks must be >= 1")
+        if self.emit_every < 1:
+            raise ValueError("emit_every must be >= 1")
+        if self.elem_sharding is not None:
+            raise NotImplementedError(
+                "Producer.elem_sharding (capture_scan_sharded): ROADMAP.md "
+                "A5")
 
 
-class Producer(_NotPorted):
-    item = "A2 (training slice)"
+@dataclass
+class ProducerOutput:
+    steps: int
 
 
-class TrainerConsumer(_NotPorted):
-    item = "A2 (training slice)"
+@dataclass
+class TrainerConsumer:
+    """A training component (the paper's ML ranks).
+
+    ``cfg`` carries the numerics; the tier (per-verb or fused) is resolved
+    by the plan from ``cfg`` unless forced via ``tier``.  Set
+    ``model_key`` to publish the trained encoder into the model registry
+    (plus a ``"trained"`` metadata flag) for downstream
+    :class:`InferenceConsumer`\\ s; ``publish_every`` also publishes a
+    versioned checkpoint every that many epochs.  ``draws`` are the
+    trainer's random draws (``ml.trainer.TrainDraws``; default: from
+    ``cfg.seed``).  ``count > 1`` (multi-consumer training) is
+    ``ROADMAP.md`` A5.
+    """
+
+    cfg: TrainerConfig
+    coords: Any
+    count: int = 1
+    tier: str | None = None
+    model_key: str | None = None
+    on_epoch: Callable[[EpochResult], None] | None = None
+    publish_every: int | None = None
+    draws: TrainDraws | None = None
+    name: str = "trainer"
+
+    def __post_init__(self):
+        if self.count < 1:
+            raise ValueError("count must be >= 1")
+        if self.count > 1:
+            raise NotImplementedError(
+                "TrainerConsumer(count > 1), multi-consumer training: "
+                "ROADMAP.md A5")
+        if self.publish_every is not None:
+            if self.publish_every < 1:
+                raise ValueError("publish_every must be >= 1")
+            if self.model_key is None:
+                raise ValueError("publish_every requires model_key")
 
 
-class InferenceConsumer(_NotPorted):
-    item = "A2 (training slice)"
+@dataclass
+class TrainerOutput:
+    steps: int
+    state: TrainState
+    history: list[EpochResult]
+    levels: Any
+    norm_stats: Any
+
+
+@dataclass
+class InferenceConsumer:
+    """An in-situ inference component (paper §3.2 / Fig. 1b).
+
+    Evaluates the registered model ``model_key`` on inputs produced by
+    ``feed(client, step)`` (one element each).  The default tier is the
+    fused registry call (no store round-trip); ``tier="three_step"`` runs
+    the paper's put → run_model → get protocol through scratch tables.
+    ``wait_meta`` blocks until a metadata flag (a trainer's ``"trained"``)
+    appears; ``wait_timeout_s=None`` waits as long as the session's wall
+    budget allows.  ``warmup`` runs one untimed evaluation first.
+    """
+
+    model_key: str
+    feed: Callable
+    steps: int = 5
+    wait_meta: str | None = "trained"
+    wait_timeout_s: float | None = None
+    warmup: bool = True
+    tier: str | None = None
+    name: str = "inference"
+
+    def __post_init__(self):
+        if self.steps < 1:
+            raise ValueError("steps must be >= 1")
+
+
+@dataclass
+class InferenceOutput:
+    steps: int
+    last: Any
+    #: every step's output, in step order
+    outputs: list = field(default_factory=list)
 
 
 @dataclass

@@ -1,6 +1,6 @@
 """Public entry point for the QuadConv contraction.
 
-Port of ``src/repro/kernels/quadconv/ops.py``, forward only:
+Port of ``src/repro/kernels/quadconv/ops.py``:
 
     quadconv_contract(f, w, g, mode=None)
         out[b, j, o] = Σ_{i,c} w[i] · G[j, i, o, c] · f[b, i, c]
@@ -11,8 +11,19 @@ einsum (``ref.py``), CUDA tensors launch the hand-written kernel in
 for the plain einsum on any device (the reference the kernel is held to on
 the card, as the JAX package's ``mode="ref"``).  The kernel reads ``g`` in
 its native ``[J, I, O, C]`` layout, so no transpose or padding happens
-here.  The backward (three einsums in the reference) comes with the
-training slice as a ``torch.autograd.Function`` (``ROADMAP.md`` A2).
+here.
+
+The contraction is a ``torch.autograd.Function``.  Its backward is the
+reference's own VJP (``_bwd``, three einsums — not a Pallas kernel there
+either), with the shared intermediate ``t[b,i,c] = Σ_{j,o} G[j,i,o,c]
+ct[b,j,o]`` computed once:
+
+    df[b,i,c]   = w[i] · t[b,i,c]
+    dw[i]       = Σ_{b,c} f[b,i,c] · t[b,i,c]
+    dG[j,i,o,c] = Σ_b ct[b,j,o] · w[i] · f[b,i,c]
+
+Both big contractions are torch products; ``t`` reads G once through a
+transposed copy that ``torch.einsum`` makes (G's size, freed on return).
 """
 
 from __future__ import annotations
@@ -60,10 +71,38 @@ def _check(f, w, g) -> None:
 def quadconv_contract(f: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                       mode: str | None = None) -> torch.Tensor:
     """out[b,j,o] = Σ_{i,c} w[i] G[j,i,o,c] f[b,i,c].  See module docstring."""
-    if mode == "ref" or (mode is None and f.device.type == "cpu"):
-        return quadconv_contract_ref(f, w, g)
-    if mode is not None:
+    if mode not in (None, "ref"):
         raise ValueError(f"unknown quadconv mode {mode!r} (None or 'ref')")
+    return _Contract.apply(f, w, g, mode)
+
+
+class _Contract(torch.autograd.Function):
+    """The contraction with the reference's einsum VJP."""
+
+    @staticmethod
+    def forward(ctx, f, w, g, mode):
+        ctx.save_for_backward(f, w, g)
+        return _forward(f, w, g, mode)
+
+    @staticmethod
+    def backward(ctx, ct):
+        f, w, g = ctx.saved_tensors
+        need_f, need_w, need_g = ctx.needs_input_grad[:3]
+        df = dw = dg = None
+        if need_f or need_w:
+            t = torch.einsum("jioc,bjo->bic", g, ct)
+            if need_f:
+                df = t * w[None, :, None]
+            if need_w:
+                dw = torch.einsum("bic,bic->i", f, t)
+        if need_g:
+            dg = torch.einsum("bjo,bic->jioc", ct, f * w[None, :, None])
+        return df, dw, dg, None
+
+
+def _forward(f, w, g, mode):
+    if mode == "ref" or f.device.type == "cpu":
+        return quadconv_contract_ref(f, w, g)
     if f.device.type != "cuda":
         raise ValueError(f"quadconv_contract: no kernel for {f.device}")
     _check(f, w, g)

@@ -3,8 +3,8 @@
 Port of ``src/repro/kernels/store/ops.py``.  The wrapper dispatches on the
 device of the tensors it is given: CPU tensors take the plain PyTorch
 version (``ref.py``); CUDA tensors launch the hand-written kernel in
-``csrc/store.cu`` or raise — there is no fallback.  ``sample_slots`` and
-``gather_rows_sharded`` belong to later slices (``ROADMAP.md`` B1, B2).
+``csrc/store.cu`` or raise — there is no fallback.  ``gather_rows_sharded``
+belongs to a later slice (``ROADMAP.md`` B2).
 """
 
 from __future__ import annotations
@@ -15,10 +15,10 @@ from pathlib import Path
 import torch
 
 from .. import _build
-from .ref import KEY_DTYPE, gather_rows_ref, probe_slots_ref
+from .ref import KEY_DTYPE, gather_rows_ref, probe_slots_ref, sample_slots_ref
 
 __all__ = ["probe_slots", "gather_rows", "sample_slots",
-           "gather_rows_sharded", "PROBE", "GATHER"]
+           "gather_rows_sharded", "PROBE", "GATHER", "SAMPLE"]
 
 _P = ctypes.c_void_p
 _LIB = _build.Library("store", Path(__file__).parent / "csrc" / "store.cu")
@@ -29,6 +29,9 @@ PROBE = _build.Kernel(_LIB, "probe_slots",
 GATHER = _build.Kernel(_LIB, "gather_rows",
                        [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, _P])
+#: ``kernel.py::sample`` on Hopper (see ``csrc/store.cu``).
+SAMPLE = _build.Kernel(_LIB, "sample_slots",
+                       [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P])
 
 
 def _stream(t: torch.Tensor) -> _P:
@@ -90,8 +93,27 @@ def gather_rows(slab: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def sample_slots(*_args, **_kwargs):
-    raise NotImplementedError("sample_slots: ROADMAP.md B1 (training slice)")
+def sample_slots(version: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
+    """Slot of the ``r``-th live entry per rank → ``int32[n]``:
+    ``capacity`` where ``r >= nvalid``, 0 where ``r < 0``."""
+    if version.device.type == "cpu":
+        return sample_slots_ref(version, ranks)
+    _check_cuda("sample_slots", version, ranks)
+    if (version.dtype, ranks.dtype) != (torch.int32, torch.int32) \
+            or version.dim() != 1 or ranks.dim() != 1:
+        raise TypeError("sample_slots takes int32 version [C] and int32 "
+                        f"ranks [n]; got {version.dtype} "
+                        f"{tuple(version.shape)}, {ranks.dtype} "
+                        f"{tuple(ranks.shape)}")
+    capacity, n = version.shape[0], ranks.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=ranks.device)
+    if n:
+        rank_map = torch.empty(capacity, dtype=torch.int32,
+                               device=version.device)
+        SAMPLE.launch(version.data_ptr(), ranks.data_ptr(),
+                      rank_map.data_ptr(), out.data_ptr(), capacity, n,
+                      _stream(version))
+    return out
 
 
 def gather_rows_sharded(*_args, **_kwargs):

@@ -5,7 +5,8 @@ path off the card: the CUDA wrappers in ``ops.py`` take these for CPU
 tensors, and ``chip_smoke.py`` holds the kernels to them on the card.  They
 share the kernels' complexity contract — no ``[n, capacity]`` match
 matrix: key probing sorts the slot keys once and binary-searches the
-queries.
+queries; sampling maps ranks onto live slots through the cumulative
+live count with the same binary search.
 
 Keys are int64 tensors carrying the uint32 key value (torch has no uint32
 ``searchsorted`` or ``remainder``).  Tie-break: the *lowest* live slot
@@ -16,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["probe_slots_ref", "gather_rows_ref", "EMPTY_KEY", "KEY_DTYPE"]
+__all__ = ["probe_slots_ref", "sample_slots_ref", "gather_rows_ref",
+           "EMPTY_KEY", "KEY_DTYPE"]
 
 EMPTY_KEY = 0xFFFFFFFF
 KEY_DTYPE = torch.int64
@@ -46,6 +48,18 @@ def probe_slots_ref(table_keys: torch.Tensor, version: torch.Tensor,
         & (pos < capacity)
     idx = torch.where(found, order[pos_c], capacity).to(torch.int32)
     return idx, found
+
+
+def sample_slots_ref(version: torch.Tensor,
+                     ranks: torch.Tensor) -> torch.Tensor:
+    """Slot index of the ``r``-th live slot for each rank ``r`` (int32).
+
+    A rank >= nvalid gives ``capacity`` and a rank < 0 gives 0 (the
+    reference's ``searchsorted(cumsum(valid), r, side="right")``).
+    """
+    cum = torch.cumsum((version > 0).to(torch.int32), 0, dtype=torch.int32)
+    return torch.searchsorted(cum, ranks.to(torch.int32), right=True,
+                              out_int32=True)
 
 
 def gather_rows_ref(slab: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:

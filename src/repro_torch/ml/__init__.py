@@ -1,8 +1,7 @@
-"""Data-consumer substrate — port of ``src/repro/ml``: the QuadConv layer
-and autoencoder (the served model).  The in-situ trainer is the next slice
-(``ROADMAP.md`` A2)."""
+"""Data-consumer substrate — port of ``src/repro/ml``: the QuadConv layer,
+the autoencoder and the in-situ trainer (single device)."""
 
-from . import autoencoder, quadconv
+from . import autoencoder, quadconv, trainer
 from .autoencoder import AEConfig
 
-__all__ = ["autoencoder", "quadconv", "AEConfig"]
+__all__ = ["autoencoder", "quadconv", "trainer", "AEConfig"]

@@ -10,8 +10,8 @@ reference's weights carry across with :func:`params_from_numpy`.
             LayerNorm] → linear channel head
 
 LayerNorm uses the population variance (``jnp.var``'s default); GELU is
-the tanh approximation.  The training-side functions (loss, relative
-Frobenius error) come with the training slice (``ROADMAP.md`` A2).
+the tanh approximation.  ``loss_fn`` (MSE) and ``rel_frobenius`` (paper
+Eq. 1) are the trainer's metrics.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from ..device import resolve_device
 from .quadconv import QuadConv
 
 __all__ = ["AEConfig", "init_autoencoder", "params_from_numpy", "encode",
-           "decode", "coords_pyramid"]
+           "decode", "reconstruct", "loss_fn", "rel_frobenius",
+           "compression_factor", "coords_pyramid"]
 
 
 @dataclass(frozen=True)
@@ -49,6 +50,11 @@ class AEConfig:
     @property
     def bottleneck(self) -> int:
         return self.level_points(self.blocks) * self.internal
+
+
+def compression_factor(cfg: AEConfig) -> float:
+    """Paper: size of the per-rank simulation data / latent dimension."""
+    return (cfg.n_points * cfg.channels) / cfg.latent
 
 
 def coords_pyramid(cfg: AEConfig, coords: torch.Tensor) -> list[torch.Tensor]:
@@ -157,3 +163,22 @@ def decode(params: dict, cfg: AEConfig, levels: list[torch.Tensor],
         x = F.gelu(x, approximate="tanh")
         x = _layernorm(x, p["ln_scale"], p["ln_bias"])
     return x @ params["out_head"]["w"] + params["out_head"]["b"]
+
+
+def reconstruct(params: dict, cfg: AEConfig, levels: list[torch.Tensor],
+                f: torch.Tensor) -> torch.Tensor:
+    return decode(params, cfg, levels, encode(params, cfg, levels, f))
+
+
+def loss_fn(params: dict, cfg: AEConfig, levels: list[torch.Tensor],
+            f: torch.Tensor) -> torch.Tensor:
+    """Mean-squared reconstruction error (paper: MSE loss)."""
+    rec = reconstruct(params, cfg, levels, f)
+    return torch.mean(torch.square(rec - f))
+
+
+def rel_frobenius(f: torch.Tensor, rec: torch.Tensor) -> torch.Tensor:
+    """Paper Eq. 1: mean over samples of ‖F−F̂‖_F / ‖F‖_F."""
+    num = torch.sqrt(torch.sum(torch.square(f - rec), dim=(-2, -1)))
+    den = torch.sqrt(torch.sum(torch.square(f), dim=(-2, -1)))
+    return torch.mean(num / torch.clamp(den, min=1e-12))

@@ -95,7 +95,11 @@ class QuadConv:
         g = mlp_apply(params["mlp"], deltas.reshape(j * i, 3))
         g = g.reshape(j, i, self.c_out, self.c_in)
         win = _bump((deltas * deltas).sum(-1), self.support)     # [J,I]
-        return g.mul_(win[:, :, None, None])   # in place: g is fresh
+        # In place: g is a fresh addmm output that addmm's backward does
+        # not keep, and win carries no gradient (the coordinates are
+        # constants), so mul_'s backward needs win alone.  A gradient
+        # through win would need the pre-multiply g, which this overwrites.
+        return g.mul_(win[:, :, None, None])
 
     def apply(self, params: dict, f: torch.Tensor, coords_in: torch.Tensor,
               coords_out: torch.Tensor) -> torch.Tensor:

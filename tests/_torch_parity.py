@@ -7,16 +7,23 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.ml import autoencoder as tae
 
-
-def torch_ae_config(jcfg) -> tae.AEConfig:
+def torch_ae_config(jcfg):
     """The port's ``AEConfig`` with the reference config's widths."""
+    from repro_torch.ml import autoencoder as tae
     return tae.AEConfig(n_points=jcfg.n_points, channels=jcfg.channels,
                         internal=jcfg.internal, latent=jcfg.latent,
                         blocks=jcfg.blocks, pool=jcfg.pool,
                         mlp_width=jcfg.mlp_width, mlp_depth=jcfg.mlp_depth,
                         support=jcfg.support)
+
+
+def uniforms_for_ranks(ranks, nvalid: int) -> np.ndarray:
+    """Uniform draws that ``store.sample`` turns back into exactly
+    ``ranks`` over ``nvalid`` live elements: the middle of each rank's
+    interval, ``(r + 0.5) / max(nvalid, 1)``, in float32."""
+    top = max(int(nvalid), 1)
+    return ((np.asarray(ranks, np.float64) + 0.5) / top).astype(np.float32)
 
 
 def np_quadconv_params(rng, c_in, c_out, width, depth, n_in) -> dict:

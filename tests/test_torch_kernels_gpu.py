@@ -7,18 +7,28 @@ machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-probe and gather must agree exactly; the QuadConv contraction within
-fp32 rounding (1e-5 relative to the output's magnitude), and bit for bit
-between batch sizes (its summation order does not depend on B).
+probe, sample and gather must agree exactly; the QuadConv contraction
+within fp32 rounding (1e-5 relative to the output's magnitude), and bit
+for bit between batch sizes (its summation order does not depend on B).
+The contraction's autograd Function with the kernel forward gives the
+same gradients as with ``mode="ref"`` (its backward is the same einsums
+either way) and an output within the forward's tolerance.
 """
 
 import pytest
-import torch
 
-from repro_torch.kernels.quadconv import ops as qops
-from repro_torch.kernels.quadconv import ref as qref
-from repro_torch.kernels.store import ops as sops
-from repro_torch.kernels.store import ref as sref
+
+def setup_module():
+    """Import torch and the port when this file's tests start, not at
+    collection: every xdist worker collects every test file, and
+    torch takes seconds to import."""
+    global torch, qops, qref, sops, sref
+    import torch
+    from repro_torch.kernels.quadconv import ops as qops
+    from repro_torch.kernels.quadconv import ref as qref
+    from repro_torch.kernels.store import ops as sops
+    from repro_torch.kernels.store import ref as sref
+
 
 pytestmark = pytest.mark.gpu
 
@@ -50,11 +60,55 @@ def test_probe_kernel_exact(cuda, capacity, n):
     assert torch.equal(idx, want_idx) and torch.equal(found, want_found)
 
 
-@pytest.mark.parametrize("dtype,elem", [(torch.float32, (4, 4096)),
-                                        (torch.int16, (3,))])
+@pytest.mark.parametrize("capacity,n,live", [(24, 6, 0.7), (4096, 256, 0.5),
+                                             (1000, 37, 0.9), (300, 9, 0.0),
+                                             (1, 4, 1.0)])
+def test_sample_kernel_exact(cuda, capacity, n, live):
+    """Dead slots, an empty table (live 0), and ranks from -2 to past the
+    live count, against the plain version."""
+    gen = torch.Generator().manual_seed(capacity)
+    version = torch.randint(1, 100, (capacity,), generator=gen,
+                            dtype=torch.int32)
+    version[torch.rand(capacity, generator=gen) >= live] = 0
+    nvalid = int((version > 0).sum())
+    ranks = torch.randint(-2, nvalid + 3, (n,), generator=gen,
+                          dtype=torch.int32)
+    version, ranks = version.to(cuda), ranks.to(cuda)
+    launches = sops.SAMPLE.launches
+    slots = sops.sample_slots(version, ranks)
+    want = sref.sample_slots_ref(version, ranks)
+    torch.cuda.synchronize()
+    assert sops.SAMPLE.launches == launches + 1
+    assert torch.equal(slots, want)
+
+
+@pytest.mark.parametrize("B,I,C,J,O", [(4, 512, 4, 128, 16),
+                                       (1, 96, 16, 40, 16)])
+def test_quadconv_grads_with_kernel_forward(cuda, B, I, C, J, O):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    f = torch.randn((B, I, C), generator=gen, device=cuda)
+    w = torch.rand((I,), generator=gen, device=cuda) / I
+    g = torch.randn((J, I, O, C), generator=gen, device=cuda)
+    ct = torch.randn((B, J, O), generator=gen, device=cuda)
+    grads, outs = {}, {}
+    for mode in (None, "ref"):
+        leaves = [t.clone().requires_grad_(True) for t in (f, w, g)]
+        outs[mode] = qops.quadconv_contract(*leaves, mode)
+        outs[mode].backward(ct)
+        grads[mode] = [t.grad for t in leaves]
+    tol = 1e-5 * float(outs["ref"].detach().abs().max())
+    assert float((outs[None] - outs["ref"]).abs().max()) <= tol
+    for got, want in zip(grads[None], grads["ref"]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,elem", [("float32", (4, 4096)),
+                                        ("int16", (3,))],
+                         ids=["dtype0-elem0", "dtype1-elem1"])
 def test_gather_kernel_exact(cuda, dtype, elem):
     gen = torch.Generator().manual_seed(1)
-    slab = (torch.randn((32, *elem), generator=gen) * 100).to(dtype)
+    slab = (torch.randn((32, *elem), generator=gen) * 100).to(
+        getattr(torch, dtype))
     slots = torch.randint(0, 32, (9,), generator=gen, dtype=torch.int32)
     slab, slots = slab.to(cuda), slots.to(cuda)
     out = sops.gather_rows(slab, slots)

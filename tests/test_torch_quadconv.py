@@ -12,7 +12,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from _torch_parity import (np_autoencoder_params, np_quadconv_params,
                            torch_ae_config)
@@ -20,12 +19,19 @@ from repro.configs.quadconv_ae import smoke_config
 from repro.kernels.quadconv import quadconv_contract as jcontract
 from repro.ml import autoencoder as jae
 from repro.ml.quadconv import QuadConv as JQuadConv
-from repro_torch.kernels.quadconv import quadconv_contract as tcontract
-from repro_torch.ml import autoencoder as tae
-from repro_torch.ml.quadconv import QuadConv as TQuadConv
 
-# tiny shapes: one core, leaving the rest to the other test workers
-torch.set_num_threads(1)
+
+def setup_module():
+    """Import torch and the port when this file's tests start, not at
+    collection: every xdist worker collects every test file, and
+    torch takes seconds to import."""
+    global torch, tcontract, tae, TQuadConv
+    import torch
+    from repro_torch.kernels.quadconv import quadconv_contract as tcontract
+    from repro_torch.ml import autoencoder as tae
+    from repro_torch.ml.quadconv import QuadConv as TQuadConv
+    # tiny shapes: one core, leaving the rest to the other test workers
+    torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("mode", ["ref", "interpret"])

@@ -20,7 +20,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from _torch_parity import np_autoencoder_params, torch_ae_config
 from repro.configs.quadconv_ae import smoke_config, smoke_grid_config
@@ -34,27 +33,41 @@ from repro.insitu import ServingConsumer as JConsumer
 from repro.ml import autoencoder as jae
 from repro.serve.engine import ServeLoop as JServeLoop
 from repro.sim import flatplate as jfp
-from repro_torch.core import Client as TClient
-from repro_torch.core import StoreServer as TServer
-from repro_torch.core import TableSpec as TTableSpec
-from repro_torch.core import faults as tfaults
-from repro_torch.core import store as TS
-from repro_torch.insitu import InSituSession as TSession
-from repro_torch.insitu import ServingClients as TClients
-from repro_torch.insitu import ServingConsumer as TConsumer
-from repro_torch.ml import autoencoder as tae
-from repro_torch.serve.engine import ServeLoop as TServeLoop
-from repro_torch.serve.engine import request_key, submitted_meta
-from repro_torch.sim import flatplate as tfp
 
-# tiny shapes: one core, leaving the rest to the other test workers
-torch.set_num_threads(1)
+
+def setup_module():
+    """Import torch and the port when this file's tests start, not at
+    collection: every xdist worker collects every test file, and
+    torch takes seconds to import."""
+    global torch, TClient, TServer, TTableSpec, tfaults, TS, TSession, TClients
+    global TConsumer, tae, TServeLoop, request_key, submitted_meta, tfp
+    import torch
+    from repro_torch.core import Client as TClient
+    from repro_torch.core import StoreServer as TServer
+    from repro_torch.core import TableSpec as TTableSpec
+    from repro_torch.core import faults as tfaults
+    from repro_torch.core import store as TS
+    from repro_torch.insitu import InSituSession as TSession
+    from repro_torch.insitu import ServingClients as TClients
+    from repro_torch.insitu import ServingConsumer as TConsumer
+    from repro_torch.ml import autoencoder as tae
+    from repro_torch.serve.engine import ServeLoop as TServeLoop
+    from repro_torch.serve.engine import request_key, submitted_meta
+    from repro_torch.sim import flatplate as tfp
+    # tiny shapes: one core, leaving the rest to the other test workers
+    torch.set_num_threads(1)
+    PACKAGES["torch"] = dict(
+        session=TSession, spec=TTableSpec, clients=TClients,
+        consumer=TConsumer, server=TServer, client=TClient, loop=TServeLoop,
+        faults=tfaults, kw={"device": "cpu"},
+        full=lambda v: torch.full(SMALL, v), scalar=torch.tensor)
+
 
 CLIENTS, REQUESTS, MAX_BATCH = 2, 3, 4
 TOL = 1e-4
 
 
-def _jax_modes(fcfg, key) -> tfp.Modes:
+def _jax_modes(fcfg, key) -> "tfp.Modes":
     """The reference's draws inside ``flatplate.snapshot``, as port modes."""
     km = jax.random.split(key, 4)
     kvec = jax.random.normal(km[0], (fcfg.n_modes, 3)) \
@@ -167,11 +180,7 @@ PACKAGES = {
                 consumer=JConsumer, server=JServer, client=JClient,
                 loop=JServeLoop, faults=jfaults, kw={},
                 full=lambda v: jnp.full(SMALL, v), scalar=jnp.asarray),
-    "torch": dict(session=TSession, spec=TTableSpec, clients=TClients,
-                  consumer=TConsumer, server=TServer, client=TClient,
-                  loop=TServeLoop, faults=tfaults, kw={"device": "cpu"},
-                  full=lambda v: torch.full(SMALL, v), scalar=torch.tensor),
-}
+}   # the "torch" entry is added by setup_module
 
 
 def _affine(p, x):

@@ -10,10 +10,18 @@ the uint32 value in int64), version, ptr and count are compared exactly.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro.core import store as JS
-from repro_torch.core import store as TS
+
+
+def setup_module():
+    """Import torch and the port when this file's tests start, not at
+    collection: every xdist worker collects every test file, and
+    torch takes seconds to import."""
+    global torch, TS
+    import torch
+    from repro_torch.core import store as TS
+
 
 SHAPE = (2, 3)
 EMPTY = 0xFFFFFFFF
