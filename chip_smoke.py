@@ -39,7 +39,24 @@ Phases, each printing one line (or a few):
    ``stats()``, the launch counts, the peak memory, and every inference
    output against the plain encoder with the trained weights;
 9. launch — ``repro_torch.launch.insitu.run(points="medium", epochs=4,
-   sim_steps=40)``, the launcher a user calls.
+   sim_steps=40)``, the launcher a user calls;
+10. lm phi4 — LM serving at Phi-4-mini's full width (32 layers, d_model
+   3072, GQA 24/8, vocab 200,064) in bf16 with random seeded weights:
+   ``greedy_generate`` of 32 tokens after a 2,048-token prompt at B = 4
+   with ``attn_impl="flash"`` (exactly 32 flash launches, one prefill);
+   the prefill's time, a decode step's, decode tokens/s, peak memory and
+   where the device time goes (``torch.profiler``); then the kernel path
+   against the port's plain attention (``attn_impl="xla"``): every
+   layer's attention output on the same input within ``LAYER_LIMIT``, the
+   prefill's last-position logits within ``LM_LIMIT`` — and, as a
+   control that must FAIL both, the kernel path with its causal mask off;
+11. lm mamba2 — the same at Mamba-2 1.3B's full width (48 layers,
+   d_model 2048, 64 SSD heads of 64, state 128, chunk 256) with
+   ``ssd_impl="kernel"`` (exactly 48 ``ssd_intra`` launches) against
+   ``"xla"`` (the chunked scan);
+12. serve_loop — ``repro_torch.launch.serve.run`` at Phi-4-mini's full
+   width: 8 requests, B = 4, prompts of 8, 16 new tokens, every 8th
+   step's logits captured into a ring table through ``send_step``.
 
 Kernel, plain and library times in the kernels line are device times per
 call (``torch.profiler``: the summed device time of every kernel and copy
@@ -57,6 +74,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -67,11 +85,21 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32, outside the tensor cores
+PEAK_BF16_FLOPS = 989e12        # H100 SXM bf16 tensor cores, dense
 SEED = 0
 CLIENTS, REQUESTS, MAX_BATCH = 4, 8, 8
 # the training slice (paper §4, reference launcher's "medium" grid)
 SIM_STEPS, EMIT_EVERY, RING, EPOCHS, GATHER, BATCH, N_INF = \
     40, 2, 24, 8, 6, 4, 5
+# LM serving: a batch of 4 prompts of 2,048 tokens, 32 new tokens each
+LM_BATCH, PROMPT, NEW_TOKENS = 4, 2048, 32
+# Kernel path against plain path, in bf16 (relative Frobenius; PERF.md):
+# each layer's mixer output on the same input (the plain path's hidden
+# state), where bf16 rounding is all that may differ; and the prefill's
+# last-position logits, where that rounding has grown through every
+# random-weight layer (~1.17x a layer: 0.15 after Mamba-2's 48 layers)
+LAYER_LIMIT = 1e-2
+LM_LIMIT = 0.4
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -117,9 +145,10 @@ def timed(fn, iters: int) -> dict:
             "timed_by": "cuda_events" if dev is None else "torch.profiler"}
 
 
-def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, flops: float = 0.0,
+          peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FP32_FLOPS * 1e3
+    by_ops = flops / peak_flops * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -145,8 +174,13 @@ def profile(run) -> str:
     for name, pattern in (("probe_slots", "probe_kernel"),
                           ("sample_slots", "sample_kernel"),
                           ("gather_rows", "gather_kernel"),
-                          ("quadconv_contract", "quadconv_contract_kernel")):
-        hits = [e for e in kernels if pattern in e.key]
+                          ("quadconv_contract", "quadconv_contract_kernel"),
+                          ("flash_attention", "flash_fwd_kernel"),
+                          ("ssd_intra", "ssd_")):
+        # not preceded by a letter or "_": PyTorch's own
+        # ``vectorized_gather_kernel`` is not the port's ``gather_kernel``
+        hits = [e for e in kernels
+                if re.search(rf"(?<![A-Za-z_]){pattern}", e.key)]
         if hits:
             per_launch[name] = round(
                 sum(e.self_device_time_total for e in hits)
@@ -549,6 +583,236 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
             "op_count": stats["op_count"]}
 
 
+def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
+                causal: bool = True, iters: int = 10) -> dict:
+    """The flash-attention forward against its plain version (output and
+    log-sum-exp) and against ``scaled_dot_product_attention``, timed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).mul(0.5)
+               .to(dtype) for shape in ((B, S, H, dh), (B, S, K, dh),
+                                        (B, S, K, dh)))
+    o, lse = ops.flash_attention(q, k, v, causal, return_lse=True)
+    o_r, lse_r = ref.flash_attention_ref(q, k, v, causal)
+    err = float((o.float() - o_r.float()).abs().max())
+    lse_err = float((lse - lse_r).abs().max())
+    # fp32: sums in another order; bf16: one bf16 rounding of |o|
+    tol = 2e-5 if dtype == torch.float32 else \
+        2.0 ** -8 * float(o_r.float().abs().max())
+    lse_tol = 2e-5 if dtype == torch.float32 else 1e-4
+    if not (err <= tol and lse_err <= lse_tol):
+        raise AssertionError(f"flash kernel disagrees at {q.shape} {dtype}: "
+                             f"o {err} > {tol} or lse {lse_err} > {lse_tol}")
+    del o_r, lse_r
+    kernel = timed(lambda: ops.flash_attention(q, k, v, causal), iters)
+    plain = timed(lambda: ref.flash_attention_ref(q, k, v, causal), 3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = timed(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    flops = 4.0 * pairs * dh                     # q.k and p.v
+    nbytes = (q.numel() * 2 + k.numel() * 2) * q.element_size() \
+        + lse.numel() * 4
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    b, by = bound(nbytes, flops, peak)
+    b32, _ = bound(nbytes, flops)
+    return {"max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
+            "lse_tol": lse_tol, **kernel, "plain_ms": plain["ms"],
+            "plain_wall_ms": plain["wall_ms"], "library_ms": library["ms"],
+            "library_wall_ms": library["wall_ms"], "bound_ms": b,
+            "bound_by": by, "bound_ms_at_fp32_rate": b32,
+            "shape": f"B={B} S=T={S} H={H} K={K} dh={dh} "
+                     f"{str(dtype).split('.')[-1]} causal={causal}"}
+
+
+def check_ssd(dev, BC: int, Q: int, H: int, P: int, N: int) -> dict:
+    """The SSD intra-chunk kernel against its plain version, timed."""
+    from repro_torch.kernels.ssd import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xdt = torch.randn((BC, Q, H, P), generator=gen, device=dev) * 0.5
+    a = -torch.nn.functional.softplus(
+        torch.randn((BC, Q, H), generator=gen, device=dev))
+    b = torch.randn((BC, Q, N), generator=gen, device=dev) * 0.5
+    c = torch.randn((BC, Q, N), generator=gen, device=dev) * 0.5
+    got = ops.ssd_intra(xdt, a, b, c)
+    want = ref.ssd_intra_ref(xdt, a, b, c)
+    errs = {}
+    for name, g, w, rel in zip(("y", "state", "cum"), got, want,
+                               (1e-4, 1e-4, 3e-5)):
+        err = float((g - w).abs().max())
+        tol = rel * float(w.abs().max())
+        if not (bool(torch.isfinite(g).all()) and err <= tol):
+            raise AssertionError(f"ssd kernel disagrees on {name}: {err} > "
+                                 f"{tol}")
+        errs[name] = (err, tol)
+    del got, want
+    kernel = timed(lambda: ops.ssd_intra(xdt, a, b, c), 10)
+    plain = timed(lambda: ref.ssd_intra_ref(xdt, a, b, c), 3)
+    tri = Q * (Q + 1) // 2                       # pairs j <= i per chunk
+    flops = 2.0 * BC * (tri * N + H * tri * P + H * Q * P * N)
+    nbytes = 4 * (2 * xdt.numel() + 2 * a.numel() + b.numel() + c.numel()
+                  + BC * H * P * N)
+    bd, by = bound(nbytes, flops)
+    return {"max_abs_err": max(e for e, _ in errs.values()),
+            "errors_and_tols": errs, **kernel, "plain_ms": plain["ms"],
+            "plain_wall_ms": plain["wall_ms"], "library_ms": None,
+            "bound_ms": bd, "bound_by": by,
+            "shape": f"BC={BC} Q={Q} H={H} P={P} N={N} f32 (B=4, S=2048)"}
+
+
+def rel_frobenius(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(a.float() - b.float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
+def layer_check(params, cfg_k, cfg_p, prompt) -> list[float]:
+    """Each layer's mixer output (attention or SSD, after its output
+    projection) through the kernel path and the plain path on the same
+    input — the plain path's hidden state — as relative Frobenius
+    differences, layer by layer."""
+    from repro_torch.models import layers, lm
+    from repro_torch.models import ssd as ssd_mod
+    diffs = []
+    x, positions = lm._embed(params, cfg_p, prompt)
+    for period in range(cfg_p.n_periods):
+        bp = lm._slice_period(params["blocks"], period)
+        for i, (mixer, ffn) in enumerate(cfg_p.pattern):
+            h = layers.apply_norm(bp[i]["norm1"], x, cfg_p.norm)
+            if mixer == "attn":
+                outs = [layers.attention(bp[i]["attn"], c, h, positions)
+                        for c in (cfg_k, cfg_p)]
+            else:
+                outs = [ssd_mod.ssd_apply(bp[i]["mamba"], c, h)
+                        for c in (cfg_k, cfg_p)]
+            diffs.append(rel_frobenius(*outs))
+            x, _ = lm._apply_block(cfg_p, mixer, ffn, bp[i], x, positions)
+    return diffs
+
+
+def lm_phase(dev, arch: str, kernel_impl: dict, plain_impl: dict, kernel,
+             expect: int, control: bool = False) -> dict:
+    """Greedy generation at the config's full width through the kernel
+    path; its prefill against the plain path's, layer by layer and at the
+    last-position logits (and, with ``control``, a causal-mask-off
+    attention that must fail both limits); where a prefill's and a
+    decode step's device time goes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import model_specs
+    from repro_torch.models import layers, lm
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.serve.decode import greedy_generate
+    base = get_config(arch)
+    cfg, cfg_p = replace(base, **kernel_impl), replace(base, **plain_impl)
+    params = init_params(model_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(SEED),
+                         cfg.dtype, dev)
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, PROMPT),
+                           generator=torch.Generator().manual_seed(SEED))
+    prompt = prompt.to(dev)
+    with torch.no_grad():
+        lm.prefill(params, cfg, prompt[:, :256])       # cuBLAS warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    ids = greedy_generate(params, cfg, prompt, NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = kernel.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != expect:
+        raise AssertionError(f"{arch}: {kernel.symbol} launched {launches} "
+                             f"times in one greedy_generate, expected "
+                             f"{expect} (one prefill)")
+    if ids.shape != (LM_BATCH, NEW_TOKENS) or int(ids.min()) < 0 \
+            or int(ids.max()) >= cfg.vocab:
+        raise AssertionError(f"{arch}: generated ids {ids.shape}")
+    with torch.no_grad():
+        prefill_ms = time_ms(lambda: lm.prefill(params, cfg, prompt), 2,
+                             warmup=0)
+        logits_k, caches, pos = lm.prefill(params, cfg, prompt,
+                                           t_max=PROMPT + NEW_TOKENS)
+        token = logits_k.argmax(-1)[:, None]
+        decode_ms = time_ms(lambda: lm.decode_step(params, cfg, caches,
+                                                   token, pos), 8)
+        prefill_profile = profile(lambda: lm.prefill(params, cfg, prompt))
+        decode_profile = profile(lambda: [lm.decode_step(
+            params, cfg, caches, token, pos) for _ in range(4)])
+        del caches
+        logits_p = lm.prefill(params, cfg_p, prompt)[0]
+        err = rel_frobenius(logits_k, logits_p)
+        layer_errs = layer_check(params, cfg, cfg_p, prompt)
+        same_argmax = float((logits_k.argmax(-1) == logits_p.argmax(-1))
+                            .float().mean())
+        if not (bool(torch.isfinite(logits_k).all()) and err <= LM_LIMIT
+                and max(layer_errs) <= LAYER_LIMIT):
+            raise AssertionError(
+                f"{arch}: kernel prefill differs from the plain path: "
+                f"logits {err} (limit {LM_LIMIT}), worst layer "
+                f"{max(layer_errs)} (limit {LAYER_LIMIT})")
+        out = {"arch": arch, "impl": kernel_impl, "launches": launches,
+               "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+               "generate_s": gen_s,
+               "decode_tokens_per_s": LM_BATCH * NEW_TOKENS
+               / (gen_s - prefill_ms / 1e3),
+               "peak_mem_gb": peak, "logits_rel_frobenius_vs_plain": err,
+               "limit": LM_LIMIT, "layer_rel_frobenius_max": max(layer_errs),
+               "layer_rel_frobenius_median": sorted(layer_errs)[
+                   len(layer_errs) // 2],
+               "layer_limit": LAYER_LIMIT,
+               "first_token_argmax_agreement": same_argmax,
+               "params": cfg.param_count(),
+               "prefill_profile": prefill_profile,
+               "decode_4_steps_profile": decode_profile}
+        if control:
+            core = layers._attention_core
+
+            def non_causal(q, k, v, causal, cfg_):
+                # the kernel path only: the plain path stays the yardstick
+                return core(q, k, v, cfg_.attn_impl != cfg.attn_impl, cfg_)
+
+            layers._attention_core = non_causal
+            try:
+                logits_c = lm.prefill(params, cfg, prompt)[0]
+                layer_c = layer_check(params, cfg, cfg_p, prompt)
+            finally:
+                layers._attention_core = core
+            err_c = rel_frobenius(logits_c, logits_p)
+            if err_c <= LM_LIMIT or max(layer_c) <= LAYER_LIMIT:
+                raise AssertionError(f"{arch}: the causal-mask-off control "
+                                     f"passed a limit (logits {err_c}, "
+                                     f"worst layer {max(layer_c)})")
+            out["control_non_causal_rel_frobenius"] = err_c
+            out["control_layer_rel_frobenius_min"] = min(layer_c)
+            out["control_layer_rel_frobenius_max"] = max(layer_c)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_loop_phase(dev) -> dict:
+    """``launch.serve.run`` at Phi-4-mini's full width, capture on."""
+    from repro_torch.launch import serve as serve_launcher
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_launcher.run("phi4_mini_3_8b", capture=True, device=dev)
+    torch.cuda.synchronize()
+    table = res.server._state["serving"]
+    stats = res.server.stats()
+    if len(res.completed) != 8 \
+            or any(len(r.tokens) != 16 for r in res.completed) \
+            or int(table.count) != res.steps // 8 \
+            or not bool(torch.isfinite(table.slab).all()):
+        raise AssertionError(f"serve_loop: {len(res.completed)} requests, "
+                             f"{res.steps} steps, capture count "
+                             f"{int(table.count)}")
+    return {"requests": len(res.completed), "steps": res.steps,
+            "tokens_per_s": res.tokens_per_s, "wall_s": res.wall_s,
+            "capture_puts": int(table.count),
+            "capture_op_count": stats["op_count"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -558,7 +822,9 @@ def main() -> int:
     from repro_torch.insitu import (InSituSession, ServingClients,
                                     ServingConsumer)
     from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import ops as aops
     from repro_torch.kernels.quadconv import ops as qops
+    from repro_torch.kernels.ssd import ops as dops
     from repro_torch.kernels.store import ops as sops
     from repro_torch.ml import autoencoder as ae
     from repro_torch.ml.quadconv import QuadConv
@@ -600,8 +866,16 @@ def main() -> int:
                        check_quadconv(dev, BATCH, 512, 16, 16),
                        check_quadconv(dev, BATCH, 2048, 16, 16))
     train_blocks = [enc0, mid, mid, dec1]   # encoder 0, 1; decoder 0, 1
+    # LM serving: Phi-4-mini's prefill (B = 4, S = 2,048) in bf16 and fp32,
+    # one tile of the reference (S = 128); Mamba-2's prefill (32 chunks)
+    flash = check_flash(dev, LM_BATCH, PROMPT, 24, 8, 128, torch.bfloat16)
+    flash32 = check_flash(dev, LM_BATCH, PROMPT, 24, 8, 128, torch.float32,
+                          iters=3)
+    flash_edge = check_flash(dev, LM_BATCH, 128, 24, 8, 128, torch.bfloat16)
+    ssd = check_ssd(dev, LM_BATCH * PROMPT // 256, 256, 64, 64, 128)
+    torch.cuda.empty_cache()
     for row in (probe, sample, gather_serving, gather, *serve_blocks,
-                enc0, mid, dec1):
+                enc0, mid, dec1, flash, flash32, flash_edge, ssd):
         print(f"[kernels] {json.dumps(row)}", flush=True)
     timing_keys = ("ms", "wall_ms", "plain_ms", "plain_wall_ms",
                    "library_ms", "bound_ms")
@@ -793,6 +1067,18 @@ def main() -> int:
                              f"{res.plan.explain()}")
     print(f"[launch] run(points='medium', epochs=4, sim_steps=40) ok in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    # 10-12. LM serving at full width
+    phi4 = lm_phase(dev, "phi4_mini_3_8b", {"attn_impl": "flash"},
+                    {"attn_impl": "xla"}, aops.FLASH, 32, control=True)
+    print(f"[lm phi4] {json.dumps(phi4)}", flush=True)
+    mamba = lm_phase(dev, "mamba2_1_3b", {"ssd_impl": "kernel"},
+                     {"ssd_impl": "xla"}, dops.SSD_INTRA, 48)
+    print(f"[lm mamba2] {json.dumps(mamba)}", flush=True)
+    served = serve_loop_phase(dev)
+    print(f"[serve_loop] {json.dumps(served)}", flush=True)
 
     serving_launches = launches
     rows = []
@@ -809,6 +1095,21 @@ def main() -> int:
         if row["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
         row["kernel_ms"] = row["ms"]
+        rows.append(row)
+    for row, name, src, tpu, lm_run in (
+            (flash, "flash_attention", "attention/csrc/attention.cu",
+             "attention/kernel.py:39", phi4),
+            (ssd, "ssd_intra", "ssd/csrc/ssd.cu", "ssd/kernel.py:30", mamba)):
+        row = dict(row, name=name, route="cuda",
+                   source=f"src/repro_torch/kernels/{src}",
+                   replaces=f"src/repro/kernels/{tpu}",
+                   path=f"lm {lm_run['arch']} prefill",
+                   launches=lm_run["launches"], kernel_ms=row["ms"])
+        if name == "flash_attention":
+            row["fp32"] = {k: flash32[k] for k in ("shape", "max_abs_err",
+                                                   *timing_keys)}
+            row["edge"] = {k: flash_edge[k] for k in ("shape", "max_abs_err",
+                                                      *timing_keys)}
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(smi)

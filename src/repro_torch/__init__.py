@@ -2,11 +2,15 @@
 reference it is held against).
 
 The package mirrors the reference's subpackages and public names, slice by
-slice (``ROADMAP.md``).  This slice is the store-backed serving plane:
-``core`` (store, server, client, driver), ``serve`` (continuous batching),
-``insitu`` (serving session and plan), ``ml`` (the QuadConv encoder),
-``sim`` (flat-plate snapshots) and ``kernels`` (hand-written Hopper
-kernels for probe, gather and the QuadConv contraction).
+slice (``ROADMAP.md``): the store-backed serving plane and the paper's
+in-situ training workflow — ``core`` (store, server, client, driver),
+``serve`` (continuous batching), ``insitu`` (sessions and plans), ``ml``
+(the QuadConv autoencoder and its trainer), ``train``, ``sim``
+(flat-plate snapshots) — and LM serving (``models``, ``configs``,
+``parallel``, ``serve.decode``, ``launch.serve``: Phi-4-mini and
+Mamba-2), over ``kernels``: hand-written Hopper kernels for probe,
+sample, gather, the QuadConv contraction, the flash-attention forward
+and the SSD intra-chunk step.
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch path on the CPU.

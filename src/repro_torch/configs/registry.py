@@ -1,0 +1,66 @@
+"""Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``.
+
+Port of ``src/repro/configs/registry.py``.  Each ported
+``repro_torch/configs/<id>.py`` exports ``config()`` (the assigned
+configuration) and ``smoke_config()`` (a reduced same-family config for
+the CPU tests).  The port carries the dense Phi-4-mini and the Mamba-2
+configs; every other id of ``ARCH_IDS`` (MoE, hybrid, encoder-decoder,
+vision) raises ``NotImplementedError`` naming ``ROADMAP.md`` A7.  The
+reference's input-shape table and cell rules serve its mesh dry-run
+(A5, A7) and are not carried.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from ..models.config import ModelConfig
+
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
+
+ARCH_IDS = (
+    "llama4_scout_17b_a16e",
+    "qwen3_moe_235b_a22b",
+    "starcoder2_7b",
+    "phi4_mini_3_8b",
+    "nemotron_4_340b",
+    "starcoder2_3b",
+    "mamba2_1_3b",
+    "jamba_1_5_large_398b",
+    "whisper_large_v3",
+    "llava_next_34b",
+)
+_PORTED = ("phi4_mini_3_8b", "mamba2_1_3b")
+
+# canonical external ids (assignment spelling) -> module name
+_ALIASES = {
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "starcoder2-7b": "starcoder2_7b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "nemotron-4-340b": "nemotron_4_340b",
+    "starcoder2-3b": "starcoder2_3b",
+    "mamba2-1.3b": "mamba2_1_3b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "whisper-large-v3": "whisper_large_v3",
+    "llava-next-34b": "llava_next_34b",
+}
+
+
+def _module(name: str):
+    mod = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod not in _PORTED:
+        if mod in ARCH_IDS:
+            raise NotImplementedError(
+                f"{name}: the port carries {', '.join(_PORTED)}; "
+                f"the other architectures of the LM zoo are ROADMAP.md A7")
+        raise KeyError(f"unknown architecture {name!r}")
+    return importlib.import_module(f"{__package__}.{mod}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).config()
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke_config()

@@ -1,7 +1,8 @@
 """Client: the SmartRedis-verb API (paper §2.2).
 
 Port of ``src/repro/core/client.py`` — the single-device verbs: named
-tensors (``put_tensor``/``get_tensor``), pre-made-key ``put_kv``/``get_kv``,
+tensors (``put_tensor``/``get_tensor``), the rank/step-keyed ``send_step``
+(the LM serving loop's capture hook), pre-made-key ``put_kv``/``get_kv``,
 the producer's fused ``capture_scan``, the trainer's ``sample_batch`` and
 ``capture_epoch``, watermarks and metadata, the model registry verbs
 (``set_model``, ``run_model``, the fused ``infer``), the serving drain
@@ -81,6 +82,17 @@ class Client:
             value, found = self.server.get(table, S.name_key(name))
             box[0] = value
         return value, found
+
+    # -- rank/step-keyed streaming ---------------------------------------------
+
+    def send_step(self, table: str, step: int, value) -> None:
+        """Send this rank's contribution of one time step (unique key per
+        rank and step, exactly the paper's keying scheme)."""
+        with self.timers.time("send", payload=value):
+            self._call_verb(
+                "put", table,
+                lambda: self.server.put(table, S.make_key(self.rank, step),
+                                        value))
 
     # -- pre-made keys (the serving clients' path) ----------------------------
 

@@ -1,0 +1,228 @@
+"""Generic decoder LM over a repeating block pattern.
+
+Port of ``src/repro/models/lm.py`` for serving on one device.  One code
+path covers dense GQA (Phi-4-mini) and pure SSM (Mamba-2): the pattern
+(tuple of (mixer, ffn) pairs) is data, not code.  Parameters keep the
+reference's layout, stacked ``[n_periods, ...]`` per pattern position, so
+weights carry across leaf for leaf (``parallel.sharding
+.lm_params_from_numpy``); where the reference scans over periods, a
+Python loop walks them.
+
+Entry points:
+  forward      — forward to final hidden states (+ the MoE aux term, 0)
+  lm_logits    — hidden states → logits
+  prefill      — forward + per-layer KV/Mamba caches for serving
+  decode_step  — one-token serve step against the caches (IN PLACE)
+  init_caches  — zeroed caches for the continuous-batching loop
+
+MoE blocks (``ffn == "moe"``), multimodal prefixes and ``lm_loss`` (the
+LM training slice) are ``ROADMAP.md`` A7.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..tree import tree_map
+from . import ssd as ssd_mod
+from .layers import (KVCache, apply_norm, attention, attention_specs,
+                     decode_attention, embed_specs, mlp_apply, mlp_specs,
+                     norm_spec, prefill_attention)
+
+__all__ = ["lm_specs", "forward", "lm_logits", "prefill", "decode_step",
+           "init_caches"]
+
+
+def _no_moe() -> NotImplementedError:
+    return NotImplementedError("MoE blocks (ffn='moe') are ROADMAP.md A7")
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+def _block_specs(cfg, mixer: str, ffn: str) -> dict:
+    stacked = (cfg.n_periods,)
+    p: dict[str, Any] = {"norm1": norm_spec(cfg.d_model, cfg.norm, stacked)}
+    if mixer == "attn":
+        p["attn"] = attention_specs(cfg, stacked)
+    elif mixer == "mamba":
+        p["mamba"] = ssd_mod.ssd_specs(cfg, stacked)
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
+    if ffn == "moe":
+        raise _no_moe()
+    if ffn != "none":
+        p["norm2"] = norm_spec(cfg.d_model, cfg.norm, stacked)
+    if ffn == "mlp":
+        p["ffn"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_act, stacked)
+    return p
+
+
+def lm_specs(cfg) -> dict:
+    return {
+        **embed_specs(cfg),
+        "blocks": [_block_specs(cfg, m, f) for m, f in cfg.pattern],
+        "final_norm": norm_spec(cfg.d_model, cfg.norm),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _apply_block(cfg, mixer: str, ffn: str, p: dict, x, positions,
+                 mode: str = "full", cache=None, pos=None):
+    """One block.  Returns (x, new_cache)."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    new_cache = None
+    if mixer == "attn":
+        if mode == "full":
+            att = attention(p["attn"], cfg, h, positions, causal=True)
+        elif mode == "prefill":
+            att, new_cache = prefill_attention(p["attn"], cfg, h, positions)
+        else:  # decode
+            att, new_cache = decode_attention(p["attn"], cfg, h, cache, pos)
+    else:  # mamba
+        if mode == "full":
+            att = ssd_mod.ssd_apply(p["mamba"], cfg, h)
+        elif mode == "prefill":
+            att, new_cache = ssd_mod.ssd_apply(p["mamba"], cfg, h,
+                                               return_cache=True)
+        else:
+            att, new_cache = ssd_mod.ssd_decode(p["mamba"], cfg, h, cache)
+    x = x + att
+    if ffn == "moe":
+        raise _no_moe()
+    if ffn == "mlp":
+        x = x + mlp_apply(p["ffn"], apply_norm(p["norm2"], x, cfg.norm),
+                          cfg.mlp_act)
+    return x, new_cache
+
+
+def _embed(params, cfg, tokens):
+    x = params["embed"][tokens].to(cfg.dtype)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    return x, positions
+
+
+def _slice_period(tree, p: int):
+    return tree_map(lambda a: a[p], tree)
+
+
+def _unembed_matrix(params, cfg):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["unembed"]
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def forward(params: dict, cfg, tokens: torch.Tensor):
+    """tokens [B,S] → (hidden [B,S,D], aux).  ``aux`` is the reference's
+    MoE auxiliary loss: 0 for the dense and SSM patterns."""
+    x, positions = _embed(params, cfg, tokens)
+    for period in range(cfg.n_periods):
+        block_params = _slice_period(params["blocks"], period)
+        for i, (mixer, ffn) in enumerate(cfg.pattern):
+            x, _ = _apply_block(cfg, mixer, ffn, block_params[i], x,
+                                positions)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_logits(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
+    return hidden @ _unembed_matrix(params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Serving: caches, prefill, decode
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg, batch: int, t_max: int, device=None):
+    """Zeroed caches: one entry per pattern position, leaves stacked over
+    periods.  Attention: ``KVCache`` [n_periods, B, t_max, K·dh] in
+    ``cfg.dtype``; mamba: ``MambaCache``."""
+    if cfg.kv_cache_quant:
+        raise NotImplementedError("the int8 KV cache (kv_cache_quant) is "
+                                  "ROADMAP.md A7")
+    n = cfg.n_periods
+    caches = []
+    for mixer, _ in cfg.pattern:
+        if mixer == "attn":
+            shape = (n, batch, t_max, cfg.n_kv_heads * cfg.head_dim)
+            caches.append(KVCache(
+                k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+                v=torch.zeros(shape, dtype=cfg.dtype, device=device)))
+        else:
+            c = ssd_mod.init_mamba_cache(cfg, batch, cfg.dtype, device)
+            caches.append(tree_map(
+                lambda a: a[None].repeat(n, *([1] * a.dim())), c))
+    return caches
+
+
+def prefill(params: dict, cfg, tokens: torch.Tensor,
+            t_max: int | None = None):
+    """Process the prompt; returns (last-position logits, caches, next_pos).
+
+    ``t_max`` pads attention KV caches to a serving budget (default: the
+    prompt length).
+    """
+    x, positions = _embed(params, cfg, tokens)
+    B, S = tokens.shape
+    per_period = []
+    for period in range(cfg.n_periods):
+        block_params = _slice_period(params["blocks"], period)
+        made = []
+        for i, (mixer, ffn) in enumerate(cfg.pattern):
+            x, cache = _apply_block(cfg, mixer, ffn, block_params[i], x,
+                                    positions, mode="prefill")
+            made.append(cache)
+        per_period.append(made)
+    caches = []
+    for i, (mixer, _) in enumerate(cfg.pattern):
+        if mixer == "attn":
+            # written straight into the padded buffer (no stacked copy)
+            shape = (cfg.n_periods, B, max(t_max or S, S),
+                     cfg.n_kv_heads * cfg.head_dim)
+            kv = KVCache(k=torch.zeros(shape, dtype=x.dtype, device=x.device),
+                         v=torch.zeros(shape, dtype=x.dtype, device=x.device))
+            for period, made in enumerate(per_period):
+                kv.k[period, :, :S] = made[i].k
+                kv.v[period, :, :S] = made[i].v
+            caches.append(kv)
+        else:
+            caches.append(tree_map(lambda *xs: torch.stack(xs),
+                                   *[made[i] for made in per_period]))
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    logits = x[:, -1] @ _unembed_matrix(params, cfg)
+    return logits, caches, S
+
+
+def decode_step(params: dict, cfg, caches, token: torch.Tensor, pos):
+    """One serve step: token [B,1] at position ``pos`` (an int).
+
+    Returns (logits [B,V], caches).  The caches are updated IN PLACE —
+    the new K/V are written at ``pos`` and the mamba conv tails and states
+    replaced — and the same list is returned (the reference returns new
+    caches; copying them each step would move every layer's cache).
+    """
+    x = params["embed"][token].to(cfg.dtype)
+    for period in range(cfg.n_periods):
+        block_params = _slice_period(params["blocks"], period)
+        for i, (mixer, ffn) in enumerate(cfg.pattern):
+            cache = _slice_period(caches[i], period)
+            x, new = _apply_block(cfg, mixer, ffn, block_params[i], x, None,
+                                  mode="decode", cache=cache, pos=pos)
+            if mixer == "mamba":
+                for view, fresh in zip(cache, new):
+                    view.copy_(fresh)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    logits = x[:, 0] @ _unembed_matrix(params, cfg)
+    return logits, caches

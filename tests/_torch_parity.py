@@ -1,6 +1,6 @@
 """Shared inputs for the ``repro_torch`` parity tests: configs mirrored
-across the two packages and autoencoder weights made with numpy from a
-seed, in the reference's params layout (so both packages get the same
+across the two packages, and autoencoder and LM weights made with numpy
+from a seed, in the reference's params layout (so both packages get the same
 numbers without paying for the reference's ``jax.random`` init)."""
 
 from __future__ import annotations
@@ -69,3 +69,39 @@ def np_autoencoder_params(jcfg, seed: int) -> dict:
             "enc_head": _linear(rng, jcfg.bottleneck, jcfg.latent),
             "dec_head": _linear(rng, jcfg.latent, jcfg.bottleneck),
             "out_head": _linear(rng, jcfg.internal, jcfg.channels)}
+
+
+def np_lm_params(jcfg, seed: int) -> dict:
+    """LM params in the reference's ``lm.lm_specs`` layout (leaves stacked
+    ``[n_periods, ...]``), drawn with numpy from ``seed``: each spec's own
+    initializer (fan-in normal, embed std 0.02, its ``scale``), except
+    that ``ones`` / ``zeros`` leaves (norm scales, ``a_log``, ``d``,
+    ``dt_bias``) get a small random offset so the parity tests exercise
+    them."""
+    from repro.models import lm
+    from repro.parallel.sharding import ParamSpec
+    rng = np.random.default_rng(seed)
+
+    def draw(spec):
+        if spec.init in ("normal", "embed"):
+            if spec.scale is not None:
+                std = spec.scale
+            elif spec.init == "embed":
+                std = 0.02
+            else:
+                fan_in = spec.shape[-2] if len(spec.shape) >= 2 \
+                    else spec.shape[-1]
+                std = np.sqrt(1.0 / max(1, fan_in))
+            return (rng.standard_normal(spec.shape) * std).astype(np.float32)
+        base = 1.0 if spec.init == "ones" else 0.0
+        return (base + 0.1 * rng.standard_normal(spec.shape)) \
+            .astype(np.float32)
+
+    def walk(tree):
+        if isinstance(tree, ParamSpec):
+            return draw(tree)
+        if isinstance(tree, dict):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        return [walk(t) for t in tree]
+
+    return walk(lm.lm_specs(jcfg))

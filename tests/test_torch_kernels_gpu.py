@@ -13,6 +13,17 @@ for bit between batch sizes (its summation order does not depend on B).
 The contraction's autograd Function with the kernel forward gives the
 same gradients as with ``mode="ref"`` (its backward is the same einsums
 either way) and an output within the forward's tolerance.
+
+The flash-attention forward is held to its plain version (fp32 math on
+the same inputs) within 2e-5 in fp32 (output and log-sum-exp), and in
+bf16 within one bf16 rounding of the output's magnitude (2^-8 of max|o|;
+the two round the same fp32 value to bf16 after sums taken in another
+order) and 1e-4 for the fp32 log-sum-exp; at G = 3, at S equal to one
+tile, at S below a tile and without the causal mask.  The SSD intra-chunk
+kernel is held to its plain version within 1e-4 of each output's
+magnitude (3e-5 for ``cum``, a 256-term fp32 prefix sum taken in another
+order), with decays large enough that the masked entries above the
+diagonal overflow: a mask applied after the exp would show as NaN.
 """
 
 import pytest
@@ -22,8 +33,12 @@ def setup_module():
     """Import torch and the port when this file's tests start, not at
     collection: every xdist worker collects every test file, and
     torch takes seconds to import."""
-    global torch, qops, qref, sops, sref
+    global torch, qops, qref, sops, sref, aops, aref, dops, dref
     import torch
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.kernels.attention import ref as aref
+    from repro_torch.kernels.ssd import ops as dops
+    from repro_torch.kernels.ssd import ref as dref
     from repro_torch.kernels.quadconv import ops as qops
     from repro_torch.kernels.quadconv import ref as qref
     from repro_torch.kernels.store import ops as sops
@@ -147,3 +162,69 @@ def test_quadconv_kernel_refuses_what_it_does_not_take(cuda):
                                torch.zeros(8, device=cuda, dtype=torch.double),
                                torch.zeros((4, 8, 4, 4), device=cuda,
                                            dtype=torch.double))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,dh,causal", [
+    (2, 256, 6, 2, 128, True),      # G = 3 (Phi-4-mini's), dh 128
+    (1, 128, 3, 1, 64, True),       # S = one tile of the reference
+    (2, 48, 4, 2, 64, True),        # S below a tile: a ragged kernel tile
+    (1, 256, 4, 4, 64, False),      # no causal mask
+])
+def test_flash_kernel_close(cuda, dtype, B, S, H, K, dh, causal):
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).mul(0.5).to(dt)
+               for shape in ((B, S, H, dh), (B, S, K, dh), (B, S, K, dh)))
+    launches = aops.FLASH.launches
+    o, lse = aops.flash_attention(q, k, v, causal, return_lse=True)
+    o_r, lse_r = aref.flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert aops.FLASH.launches == launches + 1
+    assert o.dtype == dt and lse.dtype == torch.float32
+    o_tol = 2e-5 if dtype == "float32" else 2.0 ** -8 * float(
+        o_r.float().abs().max())
+    lse_tol = 2e-5 if dtype == "float32" else 1e-4
+    assert float((o.float() - o_r.float()).abs().max()) <= o_tol
+    assert float((lse - lse_r).abs().max()) <= lse_tol
+    # mha, the model's entry, is the same launch
+    assert torch.equal(aops.mha(q, k, v, causal), o)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 200, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="must divide blocks"):
+        aops.flash_attention(q, q, q)
+    q = torch.zeros((1, 128, 2, 64), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="B4/B5"):
+        aops.mha(q, q, q)
+    with pytest.raises(TypeError, match="bfloat16"):
+        aops.flash_attention(*(torch.zeros((1, 128, 2, 64), device=cuda,
+                                           dtype=torch.float16),) * 3)
+
+
+@pytest.mark.parametrize("BC,Q,H,P,N,decay", [
+    (4, 256, 8, 64, 128, 1.0),      # Mamba-2's chunk, state and head width
+    (3, 100, 5, 16, 40, 1.0),       # ragged tiles in Q, N and P
+    (2, 256, 4, 64, 128, 20.0),     # steep decay: cum_i - cum_j ~ 1e3
+])
+def test_ssd_intra_kernel_close(cuda, BC, Q, H, P, N, decay):
+    gen = torch.Generator(device=cuda).manual_seed(Q + H)
+    xdt = torch.randn((BC, Q, H, P), generator=gen, device=cuda) * 0.5
+    a = -torch.nn.functional.softplus(
+        torch.randn((BC, Q, H), generator=gen, device=cuda)) * decay
+    b = torch.randn((BC, Q, N), generator=gen, device=cuda) * 0.5
+    c = torch.randn((BC, Q, N), generator=gen, device=cuda) * 0.5
+    launches = dops.SSD_INTRA.launches
+    got = dops.ssd_intra(xdt, a, b, c)
+    want = dref.ssd_intra_ref(xdt, a, b, c)
+    torch.cuda.synchronize()
+    assert dops.SSD_INTRA.launches == launches + 1
+    if Q == 256:    # above the diagonal exp(cum_i - cum_j) overflows
+        assert float((a.cumsum(1)[:, 0] - a.cumsum(1)[:, -1]).max()) > 88.8
+    for name, g, w, rel in zip(("y", "state", "cum"), got, want,
+                               (1e-4, 1e-4, 3e-5)):
+        assert bool(torch.isfinite(g).all()), name
+        assert g.shape == w.shape, name
+        err = float((g - w).abs().max())
+        assert err <= rel * float(w.abs().max()), (name, err)

@@ -1,0 +1,133 @@
+"""Port parity for the LM serving slice's kernels: flash attention and the
+SSD intra-chunk step (``repro_torch``'s plain versions, what its wrappers
+run for CPU tensors) against the JAX reference's Pallas kernels in
+interpret mode.
+
+Inputs come from numpy seeds.  Flash attention is held to ``TOL`` 2e-5
+(rtol and atol, fp32, the reference's own ``tests/test_kernels.py``
+tolerance) on three of the reference's sweep shapes — GQA 2:1, MQA over
+three KV blocks, non-causal — for the output AND the log-sum-exp the
+backward kernels consume; both packages refuse a sequence that is not a
+multiple of the kernel's tile (S = 200).  The SSD step is held to 3e-5
+(the reference's ``test_ssd_kernel_sweep`` tolerance) for ``y``, the
+chunk ``state`` and ``cum``, and for the whole ``ssd_scan`` including
+``h_final``.  The CUDA kernels are held to these plain versions on the
+card (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.kernels.attention import mha as jmha
+from repro.kernels.attention.kernel import flash_attention as jflash
+from repro.kernels.ssd.kernel import ssd_intra as jssd_intra
+from repro.kernels.ssd.ops import ssd_scan
+
+# one compiled program per call site instead of one per eager op
+jssd_scan = jax.jit(ssd_scan, static_argnames=("chunk", "mode"))
+
+
+def setup_module():
+    """Import torch and the port when this file's tests start, not at
+    collection: every xdist worker collects every test file, and
+    torch takes seconds to import."""
+    global torch, tattn, tssd
+    import torch
+    from repro_torch.kernels.attention import ops as tattn
+    from repro_torch.kernels.ssd import ops as tssd
+    torch.set_num_threads(1)
+
+
+TOL = 2e-5
+SSD_TOL = 3e-5
+FLASH_SHAPES = [
+    (2, 256, 4, 2, 64, True),       # GQA 2:1
+    (1, 384, 2, 1, 64, True),       # MQA, 3 kv blocks
+    (1, 128, 4, 4, 64, False),      # bidirectional
+]
+
+
+def _qkv(B, S, H, K, dh, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(shape) * 0.5).astype(np.float32)
+            for shape in ((B, S, H, dh), (B, S, K, dh), (B, S, K, dh))]
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,causal", FLASH_SHAPES)
+def test_flash_attention_matches_reference(B, S, H, K, dh, causal):
+    q, k, v = _qkv(B, S, H, K, dh, seed=B * S + H)
+    o_j, lse_j = jflash(q, k, v, causal=causal, interpret=True,
+                        return_lse=True)
+    o_t, lse_t = tattn.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                       causal=causal, return_lse=True)
+    assert lse_t.shape == (B, S, H) and lse_t.dtype == torch.float32
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), rtol=TOL,
+                               atol=TOL)
+    # what the model calls: the reference's mha in interpret mode
+    m_j = jmha(q, k, v, causal, "interpret")
+    m_t = tattn.mha(*map(torch.from_numpy, (q, k, v)), causal)
+    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j), rtol=TOL,
+                               atol=TOL)
+
+
+def test_flash_attention_shape_contract():
+    """S = 200 is not a multiple of the 128-row tile: both raise."""
+    q, k, v = _qkv(1, 200, 2, 1, 64, seed=0)
+    with pytest.raises(ValueError, match="must divide blocks"):
+        jflash(q, k, v, interpret=True)
+    with pytest.raises(ValueError, match="must divide blocks"):
+        tattn.flash_attention(*map(torch.from_numpy, (q, k, v)))
+
+
+def _ssd_inputs(B, S, H, P, N, seed):
+    rng = np.random.default_rng(seed)
+    xdt = (rng.standard_normal((B, S, H, P)) * 0.5).astype(np.float32)
+    a = -np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    b = (rng.standard_normal((B, S, N)) * 0.5).astype(np.float32)
+    c = (rng.standard_normal((B, S, N)) * 0.5).astype(np.float32)
+    return xdt, a, b, c
+
+
+def test_ssd_intra_matches_reference():
+    BC, Q, H, P, N = 3, 16, 8, 16, 32
+    xdt, a, b, c = _ssd_inputs(BC, Q, H, P, N, seed=4)
+    got = tssd.ssd_intra(*map(torch.from_numpy, (xdt, a, b, c)))
+    want = jssd_intra(xdt, a, b, c, interpret=True)
+    for name, g, w in zip(("y", "state", "cum"), got, want):
+        assert g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=SSD_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_matches_reference(with_h0):
+    B, S, H, P, N, Q = 2, 32, 8, 16, 32, 16
+    xdt, a, b, c = _ssd_inputs(B, S, H, P, N, seed=5)
+    h0 = None
+    if with_h0:
+        h0 = (np.random.default_rng(6).standard_normal((B, H, P, N)) * 0.5) \
+            .astype(np.float32)
+    y_j, h_j = jssd_scan(xdt, a, b, c, chunk=Q, mode="interpret",
+                         h0=None if h0 is None else jnp.asarray(h0))
+    y_t, h_t = tssd.ssd_scan(*map(torch.from_numpy, (xdt, a, b, c)),
+                             chunk=Q,
+                             h0=None if h0 is None else torch.from_numpy(h0))
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=SSD_TOL)
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), atol=SSD_TOL)
+
+
+def test_lm_wrappers_never_fall_back():
+    """A tensor on neither the CPU nor a card has no kernel and no plain
+    path: the wrappers raise instead of computing elsewhere."""
+    q = torch.zeros((1, 128, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tattn.flash_attention(q, q, q)
+    x = torch.zeros((2, 16, 2, 16), device="meta")
+    a = torch.zeros((2, 16, 2), device="meta")
+    bc = torch.zeros((2, 16, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tssd.ssd_intra(x, a, bc, bc)
