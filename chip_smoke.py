@@ -56,7 +56,26 @@ Phases, each printing one line (or a few):
    ``"xla"`` (the chunked scan);
 12. serve_loop — ``repro_torch.launch.serve.run`` at Phi-4-mini's full
    width: 8 requests, B = 4, prompts of 8, 16 new tokens, every 8th
-   step's logits captured into a ring table through ``send_step``.
+   step's logits captured into a ring table through ``send_step``;
+13. lm train — LM training at Phi-4-mini's full width in bf16: (a) the
+   flash-attention backward kernels (dq; dk/dv) against their plain
+   version at the training shape (B = 1, S = 2,048, H = 24, K = 8,
+   dh = 128, bf16) and at one reference tile in fp32, timed beside the
+   backward of ``scaled_dot_product_attention``; (b) on every layer, the
+   attention mixer's input gradient and its ``wq/wk/wv/wo`` gradients
+   through the kernels (``attn_impl="flash"``) against the plain path
+   (``"xla"``) on the same input and cotangent, within
+   ``LAYER_GRAD_LIMIT`` — and, as a control that must FAIL it, the
+   backward kernels with their causal mask off under a causal forward;
+   then the whole model's loss and ``grad_norm`` on one micro-batch
+   through both paths; (c) the launcher a user calls,
+   ``repro_torch.launch.train.run(arch="phi4_mini_3_8b", steps=4,
+   batch=2, seq_len=2048, attn_impl="flash")``: exactly 128 forward and
+   64 dq and 64 dk/dv launches per step (32 layers, 2 micro-batches, the
+   forward run again by remat), finite losses and gradient norms, bf16
+   params in the reference's layout; its step time, tokens/s, peak memory
+   and, from one profiled step, each attention kernel's share of the
+   device time and the device's idle share.
 
 Kernel, plain and library times in the kernels line are device times per
 call (``torch.profiler``: the summed device time of every kernel and copy
@@ -100,6 +119,15 @@ LM_BATCH, PROMPT, NEW_TOKENS = 4, 2048, 32
 # random-weight layer (~1.17x a layer: 0.15 after Mamba-2's 48 layers)
 LAYER_LIMIT = 1e-2
 LM_LIMIT = 0.4
+# LM training at Phi-4-mini's full width: 4 steps of 2 x 2,048 tokens
+# (grad_accum 2: micro-batches of 1 x 2,048).  Kernel path against plain
+# path in bf16 (PERF.md): each layer's attention gradients (input, wq,
+# wk, wv, wo; relative Frobenius) on the same input and cotangent, and the
+# whole model's loss and grad_norm on one micro-batch (relative)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+LAYER_GRAD_LIMIT = 2e-2
+LOSS_LIMIT = 1e-3
+GRAD_NORM_LIMIT = 5e-2
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -153,9 +181,12 @@ def bound(nbytes: float, flops: float = 0.0,
                                                            "operations")
 
 
-def profile(run) -> str:
-    """Run ``run()`` under ``torch.profiler``: the device's busy share of
-    the wall clock and each port kernel's device time per launch."""
+def profile(run, top: int = 0) -> str:
+    """Run ``run()`` under ``torch.profiler``: the device's busy time (the
+    union of its kernels' and copies' intervals) and idle share of the
+    wall clock, each port kernel's device time per launch and share of
+    the summed device time, and with ``top`` the ``top`` largest entries
+    by summed device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -169,25 +200,81 @@ def profile(run) -> str:
                if e.device_type == DeviceType.CUDA]
     if not kernels:
         return "the profiler saw no device activity: not measured"
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    per_launch = {}
-    for name, pattern in (("probe_slots", "probe_kernel"),
-                          ("sample_slots", "sample_kernel"),
-                          ("gather_rows", "gather_kernel"),
-                          ("quadconv_contract", "quadconv_contract_kernel"),
-                          ("flash_attention", "flash_fwd_kernel"),
-                          ("ssd_intra", "ssd_")):
-        # not preceded by a letter or "_": PyTorch's own
-        # ``vectorized_gather_kernel`` is not the port's ``gather_kernel``
-        hits = [e for e in kernels
-                if re.search(rf"(?<![A-Za-z_]){pattern}", e.key)]
+    summed = sum(e.self_device_time_total for e in kernels) / 1e6
+    busy, end = 0.0, None
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in prof.events()
+                              if e.device_type == DeviceType.CUDA):
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    busy = busy / 1e6 if end is not None else summed
+    per_launch, share = {}, {}
+    for name, pattern in KERNEL_SYMBOLS:
+        hits = kernel_hits(kernels, pattern)
         if hits:
+            total = sum(e.self_device_time_total for e in hits)
             per_launch[name] = round(
-                sum(e.self_device_time_total for e in hits)
-                / sum(e.count for e in hits) / 1e3, 5)
-    return (f"wall_s={wall:.4f} device_busy_s={busy:.4f} "
-            f"idle_share={1 - busy / wall:.3f} "
-            f"device_ms_per_launch={per_launch}")
+                total / sum(e.count for e in hits) / 1e3, 5)
+            share[name] = round(total / 1e6 / summed, 4)
+    out = (f"wall_s={wall:.4f} device_busy_s={busy:.4f} "
+           f"summed_device_s={summed:.4f} idle_share={1 - busy / wall:.4f} "
+           f"device_ms_per_launch={per_launch} "
+           f"share_of_device_time={share}")
+    if top:
+        largest = sorted(kernels, key=lambda e: -e.self_device_time_total)
+        out += " largest=" + json.dumps([
+            [e.key[:80], e.count, round(e.self_device_time_total / 1e6
+                                        / summed, 4)]
+            for e in largest[:top]])
+    return out
+
+
+# the port's kernels by the name of their CUDA symbol
+KERNEL_SYMBOLS = (("probe_slots", "probe_kernel"),
+                  ("sample_slots", "sample_kernel"),
+                  ("gather_rows", "gather_kernel"),
+                  ("quadconv_contract", "quadconv_contract_kernel"),
+                  ("flash_attention", "flash_fwd_kernel"),
+                  ("flash_attention_bwd_dq", "flash_bwd_dq_kernel"),
+                  ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel"),
+                  ("ssd_intra", "ssd_"))
+
+
+def kernel_hits(events, pattern: str) -> list:
+    """Profiler events of one kernel: ``pattern`` not preceded by a letter
+    or "_" (PyTorch's own ``vectorized_gather_kernel`` is not the port's
+    ``gather_kernel``)."""
+    return [e for e in events
+            if re.search(rf"(?<![A-Za-z_]){pattern}", e.key)]
+
+
+def kernel_device_ms(fn, iters: int, patterns: dict) -> dict | None:
+    """Device time per launch of each named kernel over ``iters`` calls of
+    ``fn`` (``torch.profiler``); None when the profiler sees nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    out = {}
+    for name, pattern in patterns.items():
+        hits = kernel_hits(events, pattern)
+        if not hits:
+            return None
+        out[name] = sum(e.self_device_time_total for e in hits) \
+            / sum(e.count for e in hits) / 1e3
+    return out
 
 
 def check_probe(dev) -> dict:
@@ -675,8 +762,7 @@ def layer_check(params, cfg_k, cfg_p, prompt) -> list[float]:
     from repro_torch.models import ssd as ssd_mod
     diffs = []
     x, positions = lm._embed(params, cfg_p, prompt)
-    for period in range(cfg_p.n_periods):
-        bp = lm._slice_period(params["blocks"], period)
+    for bp in lm._periods(params["blocks"], cfg_p.n_periods):
         for i, (mixer, ffn) in enumerate(cfg_p.pattern):
             h = layers.apply_norm(bp[i]["norm1"], x, cfg_p.norm)
             if mixer == "attn":
@@ -811,6 +897,275 @@ def serve_loop_phase(dev) -> dict:
             "capture_puts": int(table.count),
             "capture_op_count": stats["op_count"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
+                    iters: int = 10) -> tuple[dict, dict]:
+    """The two flash-attention backward kernels against their plain
+    version on the forward kernel's own o and LSE (causal), timed beside
+    the backward of ``scaled_dot_product_attention``.  Returns the dq row
+    and the dk/dv row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).mul(0.5)
+                   .to(dtype) for shape in ((B, S, H, dh), (B, S, K, dh),
+                                            (B, S, K, dh), (B, S, H, dh)))
+    o, lse = ops.flash_attention(q, k, v, True, return_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
+    # fp32: sums in another order; bf16: one bf16 rounding of the output
+    rel = 2e-5 if dtype == torch.float32 else 2.0 ** -8
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((g.float() - w.float()).abs().max())
+        tol = rel * float(w.float().abs().max())
+        if not (bool(torch.isfinite(g).all()) and err <= tol):
+            raise AssertionError(f"flash backward kernel disagrees on {name}"
+                                 f" at {q.shape} {dtype}: {err} > {tol}")
+        errs[name] = (err, tol)
+    del got, want
+
+    def both():
+        return ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+
+    wall = time_ms(both, iters)
+    dev_ms = kernel_device_ms(both, iters, {"dq": "flash_bwd_dq_kernel",
+                                            "dkv": "flash_bwd_dkv_kernel"})
+    plain = timed(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                      True), 3)
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    ct = do.transpose(1, 2)
+    library = timed(lambda: torch.autograd.grad(out, leaves, ct,
+                                                retain_graph=True), iters)
+    pairs = B * H * S * (S + 1) // 2
+    prod = 2.0 * pairs * dh                      # one causal product
+    e = q.element_size()
+    rows = B * S * H * dh * e
+    kv = B * S * K * dh * e
+    stats = 2 * B * S * H * 4                    # lse and D, fp32
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    shape = (f"B={B} S=T={S} H={H} K={K} dh={dh} "
+             f"{str(dtype).split('.')[-1]} causal=True")
+    out_rows = []
+    for name, nbytes, flops, errs_of in (
+            ("dq", 3 * rows + 2 * kv + stats, 3 * prod, ("dq",)),
+            ("dkv", 2 * rows + 4 * kv + stats, 4 * prod, ("dk", "dv"))):
+        b, by = bound(nbytes, flops, peak)
+        b32, _ = bound(nbytes, flops)
+        out_rows.append({
+            "max_abs_err": max(errs[n][0] for n in errs_of),
+            "errors_and_tols": {n: errs[n] for n in errs_of},
+            "ms": wall if dev_ms is None else dev_ms[name],
+            "wall_ms": wall, "timed_by": "cuda_events (both kernels and D)"
+            if dev_ms is None else "torch.profiler",
+            "plain_ms": plain["ms"], "plain_wall_ms": plain["wall_ms"],
+            "library_ms": library["ms"],
+            "library_wall_ms": library["wall_ms"], "bound_ms": b,
+            "bound_by": by, "bound_ms_at_fp32_rate": b32, "shape": shape,
+            "notes": "wall_ms, plain_ms and library_ms are the whole "
+                     "backward (dq, dk and dv; wall_ms with D = "
+                     "rowsum(do*o)); library: the backward of "
+                     "scaled_dot_product_attention (autograd.grad)"})
+    return out_rows[0], out_rows[1]
+
+
+def attention_grads(params, cfg, h, positions, ct) -> list:
+    """Gradients of one attention mixer's output against ``ct``: the
+    input's, then wq, wk, wv, wo."""
+    from repro_torch.models import layers
+    x = h.detach().requires_grad_(True)
+    w = {n: params[n].detach().requires_grad_(True)
+         for n in ("wq", "wk", "wv", "wo")}
+    with torch.enable_grad():
+        out = layers.attention(w, cfg, x, positions)
+        return list(torch.autograd.grad(out, [x, *w.values()], ct))
+
+
+def layer_grad_check(params, cfg_k, cfg_p, tokens) -> list[dict]:
+    """On every layer, the attention mixer's gradients through the kernel
+    path and the plain path on the same input — the plain path's hidden
+    state — and the same random cotangent, as relative Frobenius
+    differences by gradient."""
+    from repro_torch.models import layers, lm
+    gen = torch.Generator(device=tokens.device).manual_seed(SEED + 2)
+    diffs = []
+    with torch.no_grad():
+        x, positions = lm._embed(params, cfg_p, tokens)
+    for period in lm._periods(params["blocks"], cfg_p.n_periods):
+        bp = period[0]
+        with torch.no_grad():
+            h = layers.apply_norm(bp["norm1"], x, cfg_p.norm)
+        ct = torch.randn(h.shape, generator=gen, device=h.device) \
+            .to(h.dtype)
+        got, want = (attention_grads(bp["attn"], c, h, positions, ct)
+                     for c in (cfg_k, cfg_p))
+        diffs.append({n: rel_frobenius(a, b) for n, a, b in
+                      zip(("x", "wq", "wk", "wv", "wo"), got, want)})
+        with torch.no_grad():
+            x, _ = lm._apply_block(cfg_p, "attn", "mlp", bp, x, positions)
+    return diffs
+
+
+def train_phase(dev) -> tuple[dict, dict, dict]:
+    """LM training at Phi-4-mini's full width: the backward kernels, the
+    per-layer gradients and the whole model's loss against the plain
+    path, then the launcher.  Returns (dq row, dk/dv row, phase line)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_leaves, value_and_grad
+    arch = "phi4_mini_3_8b"
+    micro = TRAIN_BATCH // get_config(arch).grad_accum
+    # (a) the kernels at the training shape, and one tile in fp32
+    dq, dkv = check_flash_bwd(dev, micro, TRAIN_SEQ, 24, 8, 128,
+                              torch.bfloat16)
+    dq32, dkv32 = check_flash_bwd(dev, 1, 128, 24, 8, 128, torch.float32)
+    for row, edge in ((dq, dq32), (dkv, dkv32)):
+        row["edge"] = {k: edge[k] for k in (
+            "shape", "max_abs_err", "ms", "wall_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}
+    torch.cuda.empty_cache()
+
+    # (b) kernel path against plain path, layer by layer, then whole
+    base = get_config(arch)
+    cfg_k, cfg_p = (replace(base, attn_impl=a) for a in ("flash", "xla"))
+    params = init_params(steps.model_specs(cfg_k),
+                         torch.Generator(device=dev).manual_seed(SEED),
+                         cfg_k.dtype, dev)
+    stream = iter(TokenStream(base.vocab, micro, TRAIN_SEQ, seed=SEED))
+    tokens = torch.from_numpy(next(stream)["tokens"]).to(dev)
+    layer = layer_grad_check(params, cfg_k, cfg_p, tokens)
+    worst = max(max(d.values()) for d in layer)
+    orig_bwd = aops.flash_attention_bwd
+
+    def non_causal_bwd(q, k, v, o, do, lse, causal=True):
+        # the backward kernels only: the forward keeps its causal mask
+        return orig_bwd(q, k, v, o, do, lse, False)
+
+    aops.flash_attention_bwd = non_causal_bwd
+    try:
+        control = layer_grad_check(params, cfg_k, cfg_p, tokens)
+    finally:
+        aops.flash_attention_bwd = orig_bwd
+    control_min = min(max(d.values()) for d in control)
+    if not worst <= LAYER_GRAD_LIMIT:
+        raise AssertionError(f"attention gradients differ from the plain "
+                             f"path by {worst} (limit {LAYER_GRAD_LIMIT}):"
+                             f" {layer}")
+    if control_min <= LAYER_GRAD_LIMIT:
+        raise AssertionError(f"the causal-mask-off backward passed the "
+                             f"per-layer limit on some layer ({control_min})")
+    whole = {}
+    batch = {"tokens": tokens, "labels": tokens}
+    kernels = (aops.FLASH, aops.FLASH_BWD_DQ, aops.FLASH_BWD_DKV)
+    for name, c in (("kernel", cfg_k), ("plain", cfg_p)):
+        for kern in kernels:
+            kern.launches = 0
+        loss_fn = steps._loss_fn(c)
+        (loss, _), grads = value_and_grad(lambda p: loss_fn(p, batch),
+                                          params, has_aux=True)
+        torch.cuda.synchronize()
+        whole[name] = (float(loss), float(opt.global_norm(grads)),
+                       [kern.launches for kern in kernels])
+        del grads
+    (lk, nk, launch_k), (lp, np_, _) = whole["kernel"], whole["plain"]
+    if launch_k != [2 * base.n_periods, base.n_periods, base.n_periods]:
+        raise AssertionError(f"one micro-batch's value_and_grad launched "
+                             f"{launch_k} (forward, dq, dk/dv)")
+    if not (math.isfinite(lk) and abs(lk - lp) <= LOSS_LIMIT * abs(lp)
+            and abs(nk - np_) <= GRAD_NORM_LIMIT * abs(np_)):
+        raise AssertionError(f"whole model: loss {lk} vs {lp}, grad_norm "
+                             f"{nk} vs {np_}")
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) the launcher, with each step's launches counted
+    per_step = []
+    make_step = train_launcher.make_train_step
+
+    def counted(cfg):
+        step = make_step(cfg)
+
+        def run_step(state, batch_):
+            before = [kern.launches for kern in kernels]
+            out = step(state, batch_)
+            per_step.append([kern.launches - b
+                             for kern, b in zip(kernels, before)])
+            return out
+        return run_step
+
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_launcher.make_train_step = counted
+    try:
+        res = train_launcher.run(arch, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                                 seq_len=TRAIN_SEQ, attn_impl="flash",
+                                 device=dev, log_every=1)
+    finally:
+        train_launcher.make_train_step = make_step
+    torch.cuda.synchronize()
+    launches = {kern.symbol: kern.launches for kern in kernels}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = [2 * base.grad_accum * base.n_periods,
+            base.grad_accum * base.n_periods,
+            base.grad_accum * base.n_periods]
+    if per_step != [want] * TRAIN_STEPS:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{want} (forward, dq, dk/dv)")
+    if not all(map(math.isfinite, res.losses + res.grad_norms)):
+        raise AssertionError(f"losses {res.losses}, grad norms "
+                             f"{res.grad_norms}")
+    got_leaves = tree_leaves(res.state.params)
+    if [tuple(p.shape) for p in got_leaves] != [
+            s.shape for s in tree_leaves(steps.model_specs(base))] \
+            or {p.dtype for p in got_leaves} != {torch.bfloat16}:
+        raise AssertionError("the trained params left the reference's "
+                             "layout or bf16")
+    step_fn = steps.make_train_step(replace(base, attn_impl="flash"))
+    raw = next(iter(TokenStream(base.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                seed=SEED + 1)))
+    prof_batch = {k: torch.from_numpy(a).to(dev) for k, a in raw.items()}
+    step_profile = profile(lambda: step_fn(res.state, prof_batch), top=12)
+    steady = res.step_s[1:]
+    line = {"arch": arch, "impl": {"attn_impl": "flash"},
+            "layer_grad_rel_frobenius_max": worst,
+            "layer_grad_rel_frobenius_median": sorted(
+                max(d.values()) for d in layer)[len(layer) // 2],
+            "layer_grad_worst_by_name": {n: max(d[n] for d in layer)
+                                         for n in layer[0]},
+            "layer_grad_limit": LAYER_GRAD_LIMIT,
+            "control_non_causal_bwd_layer_min": control_min,
+            "control_non_causal_bwd_layer_max": max(
+                max(d.values()) for d in control),
+            "whole_loss_kernel": lk, "whole_loss_plain": lp,
+            "whole_loss_rel": abs(lk - lp) / abs(lp),
+            "loss_limit": LOSS_LIMIT, "whole_grad_norm_kernel": nk,
+            "whole_grad_norm_plain": np_,
+            "whole_grad_norm_rel": abs(nk - np_) / abs(np_),
+            "grad_norm_limit": GRAD_NORM_LIMIT,
+            "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+            "grad_accum": base.grad_accum, "launches": launches,
+            "launches_per_step": per_step[0], "losses": res.losses,
+            "grad_norms": res.grad_norms, "step_s": res.step_s,
+            "steady_step_s_mean": sum(steady) / len(steady),
+            "tokens_per_s": res.tokens_per_s,
+            "steady_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * len(steady)
+            / sum(steady),
+            "peak_mem_gb": peak, "params": base.param_count(),
+            "step_profile": step_profile}
+    del res, step_fn
+    torch.cuda.empty_cache()
+    return dq, dkv, line
 
 
 def main() -> int:
@@ -1080,6 +1435,13 @@ def main() -> int:
     served = serve_loop_phase(dev)
     print(f"[serve_loop] {json.dumps(served)}", flush=True)
 
+    # 13. LM training at full width
+    torch.cuda.empty_cache()
+    bwd_dq, bwd_dkv, trained_lm = train_phase(dev)
+    for row in (bwd_dq, bwd_dkv):
+        print(f"[kernels] {json.dumps(row)}", flush=True)
+    print(f"[lm train] {json.dumps(trained_lm)}", flush=True)
+
     serving_launches = launches
     rows = []
     for row, path in ((probe, "serving"), (sample, "training"),
@@ -1110,6 +1472,25 @@ def main() -> int:
                                                    *timing_keys)}
             row["edge"] = {k: flash_edge[k] for k in ("shape", "max_abs_err",
                                                       *timing_keys)}
+            row["launches_by_path"] = {
+                "lm phi4 prefill": lm_run["launches"],
+                "lm phi4 train (4 steps)":
+                    trained_lm["launches"]["flash_attention_fwd"]}
+        rows.append(row)
+    for row, name, tpu, symbol in (
+            (bwd_dq, "flash_attention_bwd_dq", "bwd.py:47",
+             "flash_attention_bwd_dq"),
+            (bwd_dkv, "flash_attention_bwd_dkv", "bwd.py:74",
+             "flash_attention_bwd_dkv")):
+        row = dict(row, name=name, route="cuda",
+                   source="src/repro_torch/kernels/attention/csrc/"
+                          "attention_bwd.cu",
+                   replaces=f"src/repro/kernels/attention/{tpu}",
+                   path="lm phi4 train (launch.train.run, 4 steps)",
+                   launches=trained_lm["launches"][symbol],
+                   kernel_ms=row["ms"])
+        if row["launches"] < 1:
+            raise AssertionError(f"{name} never launched on its path")
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,24 +1,34 @@
-"""Public entry for flash attention: the hand-written kernel on the card,
-the plain version on the CPU.
+"""Public entry for flash attention: the hand-written kernels on the card,
+the plain versions on the CPU.
 
-Port of ``src/repro/kernels/attention/ops.py`` and ``kernel.py``:
+Port of ``src/repro/kernels/attention/ops.py``, ``kernel.py`` and
+``bwd.py``:
 
-* ``flash_attention(q, k, v, causal, return_lse)`` — the kernel's own
-  entry (``kernel.py::flash_attention``), with its shape contract: ``S``
-  and ``T`` must be multiples of ``min(128, S)`` and ``min(128, T)``, the
-  reference's tiles, or it raises ``ValueError``.  A CPU tensor takes the
-  plain version (``ref.flash_attention_ref``); a CUDA tensor launches
+* ``flash_attention(q, k, v, causal, return_lse)`` — the forward kernel's
+  own entry (``kernel.py::flash_attention``), with its shape contract:
+  ``S`` and ``T`` must be multiples of ``min(128, S)`` and ``min(128, T)``,
+  the reference's tiles, or it raises ``ValueError``.  A CPU tensor takes
+  the plain version (``ref.flash_attention_ref``); a CUDA tensor launches
   ``csrc/attention.cu`` or raises — there is no fallback.
-* ``mha(q, k, v, causal, mode)`` — what the model calls.  ``mode=None``
-  (or ``"interpret"``, the reference's CPU-test mode, accepted as its
-  alias) dispatches on the device: the CPU takes ``mha_ref``, as the
-  reference does off the TPU; CUDA launches the kernel.  ``mode="ref"``
-  asks for ``mha_ref`` on any device.
-
-Forward only: the reference's ``custom_vjp`` runs the two Pallas backward
-kernels (``bwd.py``), which are ``ROADMAP.md`` B4/B5, so a CUDA call that
-needs a gradient raises ``NotImplementedError``.  A CPU call
-differentiates ``mha_ref`` by autograd.
+* ``flash_attention_bwd(q, k, v, o, do, lse, causal)`` — the two backward
+  kernels (``bwd.py::flash_attention_bwd``: dq, then dk/dv), with the same
+  shape contract, in the forward's layout (q, o, do ``[B,S,H,dh]``, k, v
+  ``[B,T,K,dh]``, lse ``[B,S,H]``; the reference's entry takes the
+  head-major, KV-expanded layout its ``ops.py`` builds).  dk and dv come
+  back per kv head: ``csrc/attention_bwd.cu`` sums the G query heads of a
+  kv head inside one block, where the reference expands K/V and
+  group-sums afterwards.  A CPU tensor takes
+  ``ref.flash_attention_bwd_ref``; a CUDA tensor launches both kernels or
+  raises.
+* ``mha(q, k, v, causal, mode)`` — what the model calls, differentiable
+  like the reference's ``custom_vjp``: the forward saves (q, k, v, o,
+  LSE) and the backward runs ``flash_attention_bwd``.  On a CUDA tensor
+  (``mode`` None or ``"interpret"``) that is the three kernels.  On the
+  CPU, ``mode=None`` takes ``mha_ref`` differentiated by autograd, as the
+  reference does off the TPU, and ``mode="interpret"`` (the reference's
+  CPU-test mode, what ``attn_impl="flash_interpret"`` passes) runs the
+  same autograd Function over the plain versions.  ``mode="ref"`` asks
+  for ``mha_ref`` on any device.
 """
 
 from __future__ import annotations
@@ -29,21 +39,30 @@ from pathlib import Path
 import torch
 
 from .. import _build
-from .ref import flash_attention_ref, mha_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref, mha_ref
 
-__all__ = ["mha", "flash_attention", "FLASH"]
+__all__ = ["mha", "flash_attention", "flash_attention_bwd", "FLASH",
+           "FLASH_BWD_DQ", "FLASH_BWD_DKV"]
 
 BLK = 128        # the reference kernel's tiles, which fix the shape contract
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_LIB = _build.Library("attention",
-                      Path(__file__).parent / "csrc" / "attention.cu")
+_CSRC = Path(__file__).parent / "csrc"
+_LIB = _build.Library("attention", _CSRC / "attention.cu")
+_BWD_LIB = _build.Library("attention_bwd", _CSRC / "attention_bwd.cu")
 #: ``kernel.py::flash_attention`` on Hopper (see ``csrc/attention.cu``).
 FLASH = _build.Kernel(_LIB, "flash_attention_fwd",
                       [_P, _P, _P, _P, _P] + [_I] * 6 + [_L] * 9
                       + [_I, ctypes.c_float, _I, _P])
+_BWD_TAIL = [_I] * 6 + [_L] * 12 + [_I, ctypes.c_float, _I, _P]
+#: ``bwd.py::_dq_kernel`` on Hopper (see ``csrc/attention_bwd.cu``).
+FLASH_BWD_DQ = _build.Kernel(_BWD_LIB, "flash_attention_bwd_dq",
+                             [_P] * 7 + _BWD_TAIL)
+#: ``bwd.py::_dkv_kernel`` on Hopper (see ``csrc/attention_bwd.cu``).
+FLASH_BWD_DKV = _build.Kernel(_BWD_LIB, "flash_attention_bwd_dkv",
+                              [_P] * 8 + _BWD_TAIL)
 
 
 def _check_shapes(q, k, v) -> None:
@@ -58,29 +77,63 @@ def _check_shapes(q, k, v) -> None:
         raise ValueError(f"S={S}/T={T} must divide blocks ({blk_q},{blk_k})")
 
 
-def _launch(q, k, v, causal: bool):
-    B, S, H, dh = q.shape
-    T, K = k.shape[1], k.shape[2]
-    for name, t in (("k", k), ("v", v)):
+def _check_kernel_inputs(q, **others) -> None:
+    """What the CUDA kernels take: one device and dtype (fp32 or bf16),
+    dh a multiple of 4 up to 128, every last axis contiguous."""
+    for name, t in others.items():
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype} on "
                              f"{t.device}, q {q.dtype} on {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernel takes float32 or bfloat16, not "
                         f"{q.dtype}")
+    dh = q.shape[3]
     if dh % 4 or dh > 128:
         raise ValueError(f"flash kernel takes dh a multiple of 4, <= 128; "
                          f"got {dh}")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
+    if q.stride(3) != 1 or any(t.stride(3) != 1 for t in others.values()):
         raise ValueError("flash kernel: the last axis must be contiguous")
+
+
+def _stream(t):
+    return _P(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _launch(q, k, v, causal: bool):
+    B, S, H, dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    _check_kernel_inputs(q, k=k, v=v)
     o = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
     FLASH.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), B, S, T, H, K, dh, *q.stride()[:3],
                  *k.stride()[:3], *v.stride()[:3], int(causal),
                  1.0 / (dh ** 0.5), int(q.dtype == torch.bfloat16),
-                 _P(torch.cuda.current_stream(q.device).cuda_stream))
+                 _stream(q))
     return o, lse
+
+
+def _launch_bwd(q, k, v, o, do, lse, causal: bool):
+    B, S, H, dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    _check_kernel_inputs(q, k=k, v=v, o=o, do=do)
+    if lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash backward: lse is {lse.dtype} on "
+                         f"{lse.device}; it takes the forward's fp32 LSE")
+    lse = lse.contiguous()
+    # D = rowsum(do ∘ o) in fp32, a plain reduction as at bwd.py:121
+    delta = (do.float() * o.float()).sum(-1)
+    dq = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, T, K, dh), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, T, K, dh), dtype=v.dtype, device=q.device)
+    tail = (B, S, T, H, K, dh, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *do.stride()[:3], int(causal),
+            1.0 / (dh ** 0.5), int(q.dtype == torch.bfloat16), _stream(q))
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    FLASH_BWD_DQ.launch(*common, dq.data_ptr(), *tail)
+    FLASH_BWD_DKV.launch(*common, dk.data_ptr(), dv.data_ptr(), *tail)
+    return dq, dk, dv
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,14 +149,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o, lse) if return_lse else o
 
 
+def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True):
+    """→ (dq [B,S,H,dh], dk [B,T,K,dh], dv [B,T,K,dh]) in the inputs'
+    dtypes; o and do like q, lse fp32 [B,S,H] (the forward's)."""
+    _check_shapes(q, k, v)
+    B, S, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, S, H):
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, o "
+                         f"{tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, o, do, lse, causal)
+    raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
+
+
+class _FlashMHA(torch.autograd.Function):
+    """The reference's ``custom_vjp`` (``ops.py:35-78``): the forward
+    saves (q, k, v, o, LSE); the backward recomputes P from the LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention(q, k, v, causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # the cotangent may arrive with a strided last axis after the
+        # model's reshapes; the kernels read it row by row
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
 def mha(q, k, v, causal: bool = True, mode: str | None = None):
-    """Causal GQA attention, forward.  See the module docstring."""
+    """Causal GQA attention.  See the module docstring."""
     if mode not in (None, "interpret", "ref"):
         raise ValueError(f"unknown attention mode {mode!r}")
-    if mode == "ref" or q.device.type == "cpu":
+    if mode == "ref" or (mode is None and q.device.type == "cpu"):
         return mha_ref(q, k, v, causal)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention's backward kernels (dq; dk/dv) are "
-            "ROADMAP.md B4/B5: the CUDA path is forward only")
-    return flash_attention(q, k, v, causal)
+    return _FlashMHA.apply(q, k, v, causal)

@@ -13,6 +13,10 @@ Port of ``src/repro/kernels/ssd/ops.py`` and ``kernel.py``:
   reference's CPU-test mode, accepted as its alias) dispatches on the
   device through ``ssd_intra``; ``mode="ref"`` takes the plain version on
   any device.  ``S`` must be a multiple of ``min(chunk, S)``.
+
+The kernel is forward only: a CUDA call that needs a gradient raises
+(the CPU's plain version differentiates by autograd).  Mamba-2 trains
+through the chunked scan, ``ssd_impl="xla"``, the reference's default.
 """
 
 from __future__ import annotations
@@ -70,6 +74,11 @@ def ssd_intra(xdt, a, b, c):
         return ssd_intra_ref(xdt, a, b, c)
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_intra: no kernel for {xdt.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (xdt, a, b, c)):
+        raise NotImplementedError(
+            "ssd_intra has no backward kernel (nor has the reference's "
+            "Pallas kernel): train Mamba-2 with ssd_impl='xla'")
     return _launch(xdt, a, b, c)
 
 

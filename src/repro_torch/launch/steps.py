@@ -1,14 +1,33 @@
-"""Model specs for a config — the single-device part of
-``src/repro/launch/steps.py``.  The reference's jit-able train / prefill
-/ decode step builders and abstract sharded inputs serve its dry-run and
-mesh launchers (``ROADMAP.md`` A5, A7); the port runs ``lm.prefill`` and
-``lm.decode_step`` eagerly (``serve/decode.py``)."""
+"""Model specs and the LM train step — the single-device part of
+``src/repro/launch/steps.py``.
+
+``make_train_step(cfg)`` returns ``train_step(state, batch) -> (state,
+metrics)``: the loss and its gradients by autograd, micro-batched over
+``cfg.grad_accum`` with the gradients summed in fp32, then the optimizer
+of ``make_tx(cfg)`` (its own, with the default 100,000-step schedule, as
+the reference builds it).  Metrics are the last micro-batch's ``ce``,
+``aux`` and ``tokens``, the mean ``loss`` and the ``grad_norm`` of the
+averaged gradients, as 0-d tensors on the device.  The reference jits
+the step with its state donated; here the state is updated IN PLACE
+(params, μ, ν) and the returned state holds the same tensors.
+
+The prefill / decode step builders and the abstract sharded inputs serve
+the reference's dry-run and mesh launchers (``ROADMAP.md`` A5, A7); the
+port serves through ``serve/decode.py``.
+"""
 
 from __future__ import annotations
 
-from ..models import lm
+from typing import Callable
 
-__all__ = ["model_specs"]
+import torch
+
+from ..models import lm
+from ..train import optimizer as opt
+from ..train.train_state import TrainState, make_tx
+from ..tree import tree_leaves, tree_map, value_and_grad
+
+__all__ = ["model_specs", "make_train_step"]
 
 
 def model_specs(cfg):
@@ -16,3 +35,50 @@ def model_specs(cfg):
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models (Whisper) are ROADMAP.md A7")
     return lm.lm_specs(cfg)
+
+
+def _loss_fn(cfg) -> Callable:
+    if cfg.is_encdec or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training with a {cfg.frontend or 'encoder'} "
+            "frontend is ROADMAP.md A7")
+
+    def loss(params, batch):
+        return lm.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+    return loss
+
+
+def make_train_step(cfg) -> Callable:
+    tx = make_tx(cfg)
+    loss_fn = _loss_fn(cfg)
+    accum = max(1, cfg.grad_accum)
+
+    def train_step(state: TrainState, batch):
+        gsum: list[torch.Tensor] = []
+        lsum = None
+        for i in range(accum):
+            micro = batch if accum == 1 else {
+                k: x.reshape(accum, x.shape[0] // accum, *x.shape[1:])[i]
+                for k, x in batch.items()}
+            (loss, metrics), grads = value_and_grad(
+                lambda p: loss_fn(p, micro), state.params, has_aux=True)
+            for j, g in enumerate(tree_leaves(grads)):
+                if i == 0:      # owned and contiguous: updated in place
+                    gsum.append(g.to(torch.float32,
+                                     memory_format=torch.contiguous_format))
+                else:
+                    gsum[j].add_(g)
+            del grads
+            lsum = loss if lsum is None else lsum + loss
+        if accum > 1:
+            for g in gsum:
+                g.div_(accum)
+        it = iter(gsum)
+        grads = tree_map(lambda _: next(it), state.params)
+        grad_norm = opt.global_norm(grads)
+        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        params = opt.apply_updates(state.params, updates, inplace=True)
+        metrics = dict(metrics, loss=lsum / accum, grad_norm=grad_norm)
+        return TrainState(params, opt_state, state.step + 1), metrics
+
+    return train_step

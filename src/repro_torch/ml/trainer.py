@@ -48,7 +48,7 @@ from ..core.client import Client
 from ..core.telemetry import block_until_ready
 from ..device import resolve_device
 from ..train import optimizer as opt
-from ..tree import tree_map
+from ..tree import tree_map, value_and_grad
 from . import autoencoder as ae
 
 __all__ = ["TrainState", "TrainerConfig", "EpochResult", "EpochDraws",
@@ -175,22 +175,6 @@ def train_state_from_numpy(params, mu=None, nu=None, step: int = 0,
         nu=tree_map(torch.zeros_like, params) if nu is None
         else ae.params_from_numpy(nu, dev))
     return TrainState(params=params, opt_state=opt_state, step=step_t)
-
-
-def value_and_grad(loss_of: Callable, params):
-    """``(loss, grads)`` of ``loss_of(params)`` with the grads in the params'
-    tree layout; ``params`` themselves are left untouched."""
-    leaves: list[torch.Tensor] = []
-
-    def track(p):
-        leaves.append(p.detach().requires_grad_(True))
-        return leaves[-1]
-
-    tracked = tree_map(track, params)
-    with torch.enable_grad():
-        loss = loss_of(tracked)
-        grads = iter(torch.autograd.grad(loss, leaves))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
 def make_train_step(cfg: TrainerConfig, levels,

@@ -71,9 +71,11 @@ class ModelConfig:
     bf16_grads: bool = False
     remat_policy: str = "full"         # full | dots | none
     pad_heads: bool = False            # TP head padding (ROADMAP A5)
-    attn_impl: str = "xla"             # "flash": the hand-written kernel
-    #                                    on CUDA, the plain version on the
-    #                                    CPU; "flash_interpret" its alias
+    attn_impl: str = "xla"             # "flash": the hand-written kernels
+    #                                    on CUDA, mha_ref on the CPU;
+    #                                    "flash_interpret": the kernels'
+    #                                    autograd Function, on the CPU
+    #                                    over their plain versions
     ssd_impl: str = "xla"              # "kernel": intra-chunk SSD kernel
     #                                    ("kernel_interpret" its alias)
     kv_cache_quant: bool = False       # int8 KV cache (ROADMAP A7)

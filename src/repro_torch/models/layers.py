@@ -6,9 +6,11 @@ Port of ``src/repro/models/layers.py`` for one device: the reference's
 dropped.  Attention offers the reference's plans, chosen by
 ``cfg.attn_impl`` exactly as ``_attention_core`` does there:
 
-* ``"flash"`` (or its CPU alias ``"flash_interpret"``) →
-  ``kernels.attention.mha``: the hand-written kernel on CUDA, the plain
-  version on the CPU;
+* ``"flash"`` → ``kernels.attention.mha``: the hand-written kernels on
+  CUDA (forward, and dq and dk/dv under autograd), ``mha_ref`` on the
+  CPU; ``"flash_interpret"`` passes ``mode="interpret"``, as the
+  reference does: the kernels on CUDA, on the CPU the same autograd
+  Function over the kernels' plain versions;
 * ``"xla"`` → ``chunked`` (streaming softmax over q/kv blocks, for
   ``S > attn_chunk`` divisible by it) or ``full`` (scores materialized).
 
@@ -17,9 +19,15 @@ length mask and writes the new K/V into the cache IN PLACE.  Softmax
 statistics accumulate in fp32, as in the reference (its
 ``preferred_element_type=float32`` dots are fp32 products here).
 
+``ct_cast`` is the reference's cotangent cast (identity forward; the
+cotangent cast to the input's dtype on the way back), as an autograd
+Function.  Torch's autograd already casts every cotangent to its
+tensor's dtype, so in the port it pins what the reference has to pin by
+hand, and changes no number.
+
 Not ported (``ROADMAP.md``): the int8 ``QuantKVCache`` (A7), the TP head
-padding ``_maybe_pad_heads`` (``cfg.pad_heads``, A5), cross-attention
-(Whisper, A7) and ``ct_cast`` (training).
+padding ``_maybe_pad_heads`` (``cfg.pad_heads``, A5) and cross-attention
+(Whisper, A7).
 """
 
 from __future__ import annotations
@@ -31,12 +39,30 @@ import torch.nn.functional as F
 
 from ..parallel.sharding import ParamSpec
 
-__all__ = ["rmsnorm", "layernorm", "norm_spec", "apply_norm", "rope",
+__all__ = ["ct_cast", "rmsnorm", "layernorm", "norm_spec", "apply_norm",
+           "rope",
            "attention_specs", "attention", "prefill_attention",
            "decode_attention", "KVCache", "mlp_specs", "mlp_apply",
            "embed_specs"]
 
 NEG_INF = -1e30
+
+
+class _CtCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(ctx.dtype)
+
+
+def ct_cast(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; casts the COTANGENT to x's dtype on the way back
+    (``src/repro/models/layers.py:32-55``, the ``bf16_grads`` lever)."""
+    return _CtCast.apply(x)
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +229,8 @@ def _attention_core(q, k, v, causal, cfg):
     S, T = q.shape[1], k.shape[1]
     if cfg.attn_impl in ("flash", "flash_interpret"):
         from ..kernels.attention import mha
-        return mha(q, k, v, causal)
+        mode = "interpret" if cfg.attn_impl == "flash_interpret" else None
+        return mha(q, k, v, causal, mode)
     if S > cfg.attn_chunk and S % cfg.attn_chunk == 0 \
             and T % cfg.attn_chunk == 0:
         return _chunked_attention(q, k, v, causal, cfg.attn_chunk)

@@ -1,22 +1,25 @@
 """Generic decoder LM over a repeating block pattern.
 
-Port of ``src/repro/models/lm.py`` for serving on one device.  One code
-path covers dense GQA (Phi-4-mini) and pure SSM (Mamba-2): the pattern
-(tuple of (mixer, ffn) pairs) is data, not code.  Parameters keep the
-reference's layout, stacked ``[n_periods, ...]`` per pattern position, so
-weights carry across leaf for leaf (``parallel.sharding
-.lm_params_from_numpy``); where the reference scans over periods, a
-Python loop walks them.
+Port of ``src/repro/models/lm.py`` on one device.  One code path covers
+dense GQA (Phi-4-mini) and pure SSM (Mamba-2): the pattern (tuple of
+(mixer, ffn) pairs) is data, not code.  Parameters keep the reference's
+layout, stacked ``[n_periods, ...]`` per pattern position, so weights
+carry across leaf for leaf (``parallel.sharding.lm_params_from_numpy``);
+where the reference scans over periods, a Python loop walks them.
 
 Entry points:
-  forward      — forward to final hidden states (+ the MoE aux term, 0)
+  forward      — forward to final hidden states (+ the MoE aux term, 0),
+                 each period rematerialized in the backward when
+                 ``cfg.remat`` (``torch.utils.checkpoint``, non-reentrant:
+                 the reference's ``jax.checkpoint`` policy ``"full"``)
   lm_logits    — hidden states → logits
+  lm_loss      — causal cross-entropy, full or chunked over the sequence
   prefill      — forward + per-layer KV/Mamba caches for serving
   decode_step  — one-token serve step against the caches (IN PLACE)
   init_caches  — zeroed caches for the continuous-batching loop
 
-MoE blocks (``ffn == "moe"``), multimodal prefixes and ``lm_loss`` (the
-LM training slice) are ``ROADMAP.md`` A7.
+MoE blocks (``ffn == "moe"``), multimodal prefixes and the ``"dots"``
+remat policy are ``ROADMAP.md`` A7.
 """
 
 from __future__ import annotations
@@ -24,15 +27,17 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..tree import tree_map
+from ..device import resolve_device
+from ..tree import tree_leaves, tree_map
 from . import ssd as ssd_mod
 from .layers import (KVCache, apply_norm, attention, attention_specs,
-                     decode_attention, embed_specs, mlp_apply, mlp_specs,
-                     norm_spec, prefill_attention)
+                     ct_cast, decode_attention, embed_specs, mlp_apply,
+                     mlp_specs, norm_spec, prefill_attention)
 
-__all__ = ["lm_specs", "forward", "lm_logits", "prefill", "decode_step",
-           "init_caches"]
+__all__ = ["lm_specs", "forward", "lm_logits", "lm_loss", "prefill",
+           "decode_step", "init_caches"]
 
 
 def _no_moe() -> NotImplementedError:
@@ -110,8 +115,17 @@ def _embed(params, cfg, tokens):
     return x, positions
 
 
-def _slice_period(tree, p: int):
-    return tree_map(lambda a: a[p], tree)
+def _periods(tree, n: int) -> list:
+    """The stacked leaves of ``tree`` as ``n`` per-period trees, with one
+    ``unbind(0)`` per leaf.  Under autograd, ``a[p]`` for each period
+    would give each period's backward a zero tensor of the whole stacked
+    leaf; ``unbind``'s backward stacks the period gradients once."""
+    parts = [a.unbind(0) for a in tree_leaves(tree)]
+    out = []
+    for p in range(n):
+        leaf = iter(parts)
+        out.append(tree_map(lambda _: next(leaf)[p], tree))
+    return out
 
 
 def _unembed_matrix(params, cfg):
@@ -126,19 +140,94 @@ def _unembed_matrix(params, cfg):
 
 def forward(params: dict, cfg, tokens: torch.Tensor):
     """tokens [B,S] → (hidden [B,S,D], aux).  ``aux`` is the reference's
-    MoE auxiliary loss: 0 for the dense and SSM patterns."""
+    MoE auxiliary loss: 0 for the dense and SSM patterns.
+
+    Under autograd with ``cfg.remat``, each period runs inside a
+    non-reentrant checkpoint: only its input is kept, and the backward
+    runs the period's forward again (so the flash kernel launches twice
+    per layer and step).  ``cfg.bf16_grads`` puts ``ct_cast`` at each
+    period's input, as the reference does."""
     x, positions = _embed(params, cfg, tokens)
-    for period in range(cfg.n_periods):
-        block_params = _slice_period(params["blocks"], period)
+
+    def inner(x, block_params):
+        if cfg.bf16_grads:
+            x = ct_cast(x)
         for i, (mixer, ffn) in enumerate(cfg.pattern):
             x, _ = _apply_block(cfg, mixer, ffn, block_params[i], x,
                                 positions)
+        return x
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and cfg.remat_policy == "dots":
+        raise NotImplementedError("the 'dots' remat policy (save the "
+                                  "matmul outputs) is ROADMAP.md A7")
+    for block_params in _periods(params["blocks"], cfg.n_periods):
+        if remat:
+            x = checkpoint(inner, x, block_params, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = inner(x, block_params)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def lm_logits(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
     return hidden @ _unembed_matrix(params, cfg)
+
+
+def _ce_full(hidden, w, labels, mask, fp32_gemm: bool = True):
+    """Summed cross entropy and token count.  ``fp32_gemm`` computes the
+    logits from the model-dtype operands with an fp32 product (the
+    reference's ``preferred_element_type=float32``: bf16 values are exact
+    in fp32, so only the summation order differs); otherwise the GEMM
+    runs in the model dtype and its output is upcast."""
+    if fp32_gemm:
+        logits = hidden.float() @ w.float()
+    else:
+        logits = (hidden @ w).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum(), mask.sum()
+
+
+def _ce_chunked(hidden, w, labels, mask, chunk: int, fp32_gemm: bool = True):
+    """Never materializes [B,S,V]: a loop over sequence chunks.  Falls
+    back to ``_ce_full`` when the chunk does not divide S, as the
+    reference does (``lm.py:210-211``)."""
+    S = hidden.shape[1]
+    if S % chunk:
+        return _ce_full(hidden, w, labels, mask, fp32_gemm)
+    if fp32_gemm:
+        w = w.float()       # cast once: every chunk's backward shares it
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(S // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        n, c = _ce_full(hidden[:, sl], w, labels[:, sl], mask[:, sl],
+                        fp32_gemm)
+        nll = nll + n
+        cnt = cnt + c
+    return nll, cnt
+
+
+def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor):
+    """Causal LM loss.  labels [B,S] aligned to the sequence (positions
+    < 0 are masked).  Returns (loss, {"ce", "aux", "tokens"})."""
+    hidden, aux = forward(params, cfg, tokens)
+    w = _unembed_matrix(params, cfg)
+    # predict token t+1 from hidden t
+    h = hidden[:, :-1]
+    y = labels[:, 1:]
+    mask = (y >= 0).float()
+    y = torch.clamp(y, min=0)
+    if cfg.ce_chunk:
+        nll, cnt = _ce_chunked(h, w, y, mask, cfg.ce_chunk, cfg.ce_fp32)
+    else:
+        nll, cnt = _ce_full(h, w, y, mask, cfg.ce_fp32)
+    ce = nll / torch.clamp(cnt, min=1.0)
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 # ---------------------------------------------------------------------------
@@ -148,10 +237,12 @@ def lm_logits(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
 def init_caches(cfg, batch: int, t_max: int, device=None):
     """Zeroed caches: one entry per pattern position, leaves stacked over
     periods.  Attention: ``KVCache`` [n_periods, B, t_max, K·dh] in
-    ``cfg.dtype``; mamba: ``MambaCache``."""
+    ``cfg.dtype``; mamba: ``MambaCache``.  ``device`` defaults to the
+    card (``resolve_device``)."""
     if cfg.kv_cache_quant:
         raise NotImplementedError("the int8 KV cache (kv_cache_quant) is "
                                   "ROADMAP.md A7")
+    device = resolve_device(device)
     n = cfg.n_periods
     caches = []
     for mixer, _ in cfg.pattern:
@@ -177,8 +268,7 @@ def prefill(params: dict, cfg, tokens: torch.Tensor,
     x, positions = _embed(params, cfg, tokens)
     B, S = tokens.shape
     per_period = []
-    for period in range(cfg.n_periods):
-        block_params = _slice_period(params["blocks"], period)
+    for block_params in _periods(params["blocks"], cfg.n_periods):
         made = []
         for i, (mixer, ffn) in enumerate(cfg.pattern):
             x, cache = _apply_block(cfg, mixer, ffn, block_params[i], x,
@@ -214,10 +304,11 @@ def decode_step(params: dict, cfg, caches, token: torch.Tensor, pos):
     caches; copying them each step would move every layer's cache).
     """
     x = params["embed"][token].to(cfg.dtype)
-    for period in range(cfg.n_periods):
-        block_params = _slice_period(params["blocks"], period)
+    cache_periods = [_periods(c, cfg.n_periods) for c in caches]
+    for period, block_params in enumerate(
+            _periods(params["blocks"], cfg.n_periods)):
         for i, (mixer, ffn) in enumerate(cfg.pattern):
-            cache = _slice_period(caches[i], period)
+            cache = cache_periods[i][period]
             x, new = _apply_block(cfg, mixer, ffn, block_params[i], x, None,
                                   mode="decode", cache=cache, pos=pos)
             if mixer == "mamba":

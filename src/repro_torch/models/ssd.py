@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..parallel.sharding import ParamSpec
 from .layers import rmsnorm
 
@@ -206,6 +207,8 @@ def ssd_apply(params: dict, cfg, x: torch.Tensor, return_cache: bool = False):
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.float32,
                      device=None) -> MambaCache:
+    """Zeroed conv tails and state; ``device`` defaults to the card."""
+    device = resolve_device(device)
     H, P, N, K = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_conv
     return MambaCache(
         conv_x=torch.zeros((batch, K - 1, cfg.ssm_inner), dtype=dtype,

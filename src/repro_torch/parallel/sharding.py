@@ -87,13 +87,15 @@ def init_params(specs, generator: torch.Generator,
                                                     device))
 
 
-def lm_params_from_numpy(tree, cfg, device=None):
+def lm_params_from_numpy(tree, cfg, device=None, dtype=None):
     """The reference's LM params (``lm.lm_specs`` layout, leaves as numpy
     arrays or anything ``np.asarray`` takes) as the port's: the same
-    nested dict, each leaf a tensor of ``cfg.dtype`` on ``device``.  Every
-    leaf's shape is checked against the port's ``lm_specs(cfg)``."""
+    nested dict, each leaf a tensor of ``dtype`` (default ``cfg.dtype``;
+    optimizer moments pass ``torch.float32``) on ``device``.  Every leaf's
+    shape is checked against the port's ``lm_specs(cfg)``."""
     from ..launch.steps import model_specs
     device = resolve_device(device)
+    dtype = dtype or cfg.dtype
 
     def convert(spec, path):
         leaf = tree
@@ -103,7 +105,9 @@ def lm_params_from_numpy(tree, cfg, device=None):
         if arr.shape != spec.shape:
             raise ValueError(f"lm_params_from_numpy: {'/'.join(map(str, path))}"
                              f" has shape {arr.shape}, the spec {spec.shape}")
+        # a copy, never a view of the caller's array: the train step
+        # updates its params in place
         return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(
-            device=device, dtype=cfg.dtype)
+            device=device, dtype=dtype, copy=True)
 
     return _build(model_specs(cfg), convert)

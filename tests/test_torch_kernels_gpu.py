@@ -24,6 +24,13 @@ kernel is held to its plain version within 1e-4 of each output's
 magnitude (3e-5 for ``cum``, a 256-term fp32 prefix sum taken in another
 order), with decays large enough that the masked entries above the
 diagonal overflow: a mask applied after the exp would show as NaN.
+
+The flash-attention backward kernels (dq; dk/dv) are held to their plain
+version on the forward kernel's own o and LSE, on the reference's four
+sweep shapes and Phi-4-mini's head layout (H = 24, K = 8, dh = 128): fp32
+within 2e-5 of each output's magnitude, bf16 within 2^-8 of it; ``mha``
+differentiated through the kernels agrees with autograd through
+``mha_ref`` within the reference's 1e-4.
 """
 
 import pytest
@@ -192,15 +199,104 @@ def test_flash_kernel_close(cuda, dtype, B, S, H, K, dh, causal):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    """The forward and both backward kernels refuse a sequence that is not
+    a multiple of the tile, fp16, dh past 128 and a strided last axis."""
     q = torch.zeros((1, 200, 2, 64), device=cuda)
+    lse = torch.zeros((1, 200, 2), device=cuda)
     with pytest.raises(ValueError, match="must divide blocks"):
         aops.flash_attention(q, q, q)
-    q = torch.zeros((1, 128, 2, 64), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="B4/B5"):
-        aops.mha(q, q, q)
+    with pytest.raises(ValueError, match="must divide blocks"):
+        aops.flash_attention_bwd(q, q, q, q, q, lse)
     with pytest.raises(TypeError, match="bfloat16"):
         aops.flash_attention(*(torch.zeros((1, 128, 2, 64), device=cuda,
                                            dtype=torch.float16),) * 3)
+    half = torch.zeros((1, 128, 2, 64), device=cuda, dtype=torch.float16)
+    lse = torch.zeros((1, 128, 2), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        aops.flash_attention_bwd(half, half, half, half, half, lse)
+    wide = torch.zeros((1, 128, 2, 192), device=cuda)
+    with pytest.raises(ValueError, match="<= 128"):
+        aops.flash_attention_bwd(wide, wide, wide, wide, wide, lse)
+    q = torch.zeros((1, 128, 2, 64), device=cuda)
+    strided = torch.zeros((1, 128, 64, 2), device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        aops.flash_attention_bwd(q, q, q, q, strided, lse)
+    with pytest.raises(ValueError, match="contiguous"):
+        aops.flash_attention(strided, q, q)
+
+
+BWD_SHAPES = [
+    (1, 128, 2, 2, 64, True),       # MHA causal       (the reference's
+    (2, 256, 4, 2, 64, True),       # GQA               test_kernels.py
+    (1, 128, 4, 4, 64, False),      # bidirectional     sweep)
+    (1, 384, 2, 1, 64, True),       # MQA, 3 kv blocks
+    (1, 256, 24, 8, 128, True),     # Phi-4-mini's heads: G = 3, dh 128
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,dh,causal", BWD_SHAPES)
+def test_flash_bwd_kernels_close(cuda, dtype, B, S, H, K, dh, causal):
+    """dq and dk/dv against the plain version on the forward kernel's own
+    o and LSE: fp32 within 2e-5 of each output's magnitude (sums in
+    another order), bf16 within one bf16 rounding of it (2^-8)."""
+    gen = torch.Generator(device=cuda).manual_seed(S + H + 1)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=cuda).mul(0.5)
+                   .to(dt) for shape in ((B, S, H, dh), (B, S, K, dh),
+                                         (B, S, K, dh), (B, S, H, dh)))
+    o, lse = aops.flash_attention(q, k, v, causal, return_lse=True)
+    counts = aops.FLASH_BWD_DQ.launches, aops.FLASH_BWD_DKV.launches
+    got = aops.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    want = aref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    assert (aops.FLASH_BWD_DQ.launches, aops.FLASH_BWD_DKV.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    rel = 2e-5 if dtype == "float32" else 2.0 ** -8
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dt and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= rel * float(w.float().abs().max()), (name, err)
+
+
+def test_mha_autograd_through_the_kernels(cuda):
+    """``mha`` on the card differentiates through the three kernels (one
+    launch each) and agrees with autograd through ``mha_ref`` within the
+    reference's own 1e-4 (``test_kernels.py``), with a cotangent whose
+    last axis is strided."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, S, H, K, dh = 2, 256, 6, 2, 64
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).mul(0.5)
+               for shape in ((B, S, H, dh), (B, S, K, dh), (B, S, K, dh)))
+    ct = torch.randn((B, S, dh, H), generator=gen, device=cuda).mul(0.5) \
+        .transpose(2, 3)
+    assert ct.stride(3) != 1
+    grads = {}
+    for mode in (None, "ref"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        counts = [kern.launches for kern in (aops.FLASH, aops.FLASH_BWD_DQ,
+                                             aops.FLASH_BWD_DKV)]
+        aops.mha(*leaves, True, mode).backward(ct)
+        torch.cuda.synchronize()
+        grown = [kern.launches - c for kern, c in zip(
+            (aops.FLASH, aops.FLASH_BWD_DQ, aops.FLASH_BWD_DKV), counts)]
+        assert grown == ([1, 1, 1] if mode is None else [0, 0, 0])
+        grads[mode] = [t.grad for t in leaves]
+    for got, want in zip(grads[None], grads["ref"]):
+        assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_ssd_kernel_refuses_a_gradient(cuda):
+    """Neither package has an SSD backward kernel: asking the CUDA kernel
+    for a gradient raises (training takes ``ssd_impl="xla"``)."""
+    xdt = torch.zeros((2, 16, 2, 16), device=cuda, requires_grad=True)
+    a = torch.zeros((2, 16, 2), device=cuda)
+    bc = torch.zeros((2, 16, 8), device=cuda)
+    with pytest.raises(NotImplementedError, match="backward"):
+        dops.ssd_intra(xdt, a, bc, bc)
+    with torch.no_grad():
+        dops.ssd_intra(xdt, a, bc, bc)
 
 
 @pytest.mark.parametrize("BC,Q,H,P,N,decay", [

@@ -202,3 +202,22 @@ def test_unported_architectures_and_layouts_raise():
     bad["embed"] = bad["embed"][:, :-1]
     with pytest.raises(ValueError, match="embed"):
         tshard.lm_params_from_numpy(bad, cfg, device="cpu")
+
+
+def test_cache_constructors_default_to_the_card(monkeypatch):
+    """``init_caches`` and ``init_mamba_cache`` resolve ``device=None`` to
+    the card like every other entry point: without one they raise instead
+    of allocating on the CPU; ``device="cpu"`` is the explicit opt-in."""
+    from repro_torch.models import ssd as tssd
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    phi4 = tcfgs.get_smoke_config("phi4_mini_3_8b")
+    mamba = tcfgs.get_smoke_config("mamba2_1_3b")
+    for cfg in (phi4, mamba):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tlm.init_caches(cfg, 1, 8)
+        caches = tlm.init_caches(cfg, 1, 8, device="cpu")
+        assert caches[0][0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tssd.init_mamba_cache(mamba, 1)
+    assert tssd.init_mamba_cache(mamba, 1, device="cpu").state.device.type \
+        == "cpu"

@@ -13,6 +13,15 @@ multiple of the kernel's tile (S = 200).  The SSD step is held to 3e-5
 chunk ``state`` and ``cum``, and for the whole ``ssd_scan`` including
 ``h_final``.  The CUDA kernels are held to these plain versions on the
 card (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``).
+
+The flash-attention backward's plain version (dq, dk, dv from the
+forward's o and LSE) is held to the reference's two Pallas backward
+kernels in interpret mode, fed the head-major, KV-expanded layout its
+``ops.py`` builds and group-summed as it does, and the port's ``mha``
+with ``mode="interpret"`` (its autograd Function over the plain
+versions) to ``jax.grad`` of the reference's ``mha(..., "interpret")``:
+on the four shapes of the reference's own backward test
+(``tests/test_kernels.py``), within its tolerance, atol 1e-4.
 """
 
 import jax
@@ -21,6 +30,7 @@ import numpy as np
 import pytest
 
 from repro.kernels.attention import mha as jmha
+from repro.kernels.attention.bwd import flash_attention_bwd as jflash_bwd
 from repro.kernels.attention.kernel import flash_attention as jflash
 from repro.kernels.ssd.kernel import ssd_intra as jssd_intra
 from repro.kernels.ssd.ops import ssd_scan
@@ -83,6 +93,83 @@ def test_flash_attention_shape_contract():
         tattn.flash_attention(*map(torch.from_numpy, (q, k, v)))
 
 
+BWD_TOL = 1e-4
+BWD_SHAPES = [
+    (1, 128, 2, 2, 64, True),       # MHA causal
+    (2, 256, 4, 2, 64, True),       # GQA (group-summed dk/dv)
+    (1, 128, 4, 4, 64, False),      # bidirectional
+    (1, 384, 2, 1, 64, True),       # MQA, 3 kv blocks
+]
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,causal", BWD_SHAPES)
+def test_flash_attention_bwd_matches_reference(B, S, H, K, dh, causal):
+    q, k, v = _qkv(B, S, H, K, dh, seed=B * S + H)
+    do = (np.random.default_rng(S).standard_normal((B, S, H, dh)) * 0.5) \
+        .astype(np.float32)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = tattn.flash_attention(tq, tk, tv, causal, return_lse=True)
+    got = tattn.flash_attention_bwd(tq, tk, tv, o, tdo, lse, causal)
+    # the reference's entry: head-major [B*H, S, dh], K/V expanded to the
+    # q heads; dk/dv group-summed afterwards (its ops.py:58-75)
+    G = H // K
+
+    def head_major(t):
+        t = np.asarray(t)
+        return t.transpose(0, 2, 1, 3).reshape(-1, t.shape[1], dh)
+
+    dqh, dkh, dvh = jflash_bwd(
+        head_major(q), head_major(np.repeat(k, G, axis=2)),
+        head_major(np.repeat(v, G, axis=2)), head_major(o.numpy()),
+        head_major(do), lse.numpy().transpose(0, 2, 1).reshape(-1, S),
+        causal=causal, interpret=True)
+
+    def back(t, n):
+        return np.asarray(t).reshape(B, n, -1, dh).transpose(0, 2, 1, 3)
+
+    want = (back(dqh, H), back(dkh, H).reshape(B, S, K, G, dh).sum(3),
+            back(dvh, H).reshape(B, S, K, G, dh).sum(3))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, atol=BWD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,causal", BWD_SHAPES)
+def test_mha_interpret_grads_match_reference(B, S, H, K, dh, causal):
+    q, k, v = _qkv(B, S, H, K, dh, seed=B * S + H + 1)
+    ct = (np.random.default_rng(S + 1).standard_normal((B, S, H, dh))
+          * 0.5).astype(np.float32)
+    want = jax.grad(
+        lambda *a: jnp.sum(jmha(*a, causal, "interpret") * jnp.asarray(ct)),
+        argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    out = tattn.mha(*leaves, causal, "interpret")
+    assert type(out.grad_fn).__name__ == "_FlashMHABackward"
+    out.backward(torch.from_numpy(ct))
+    for name, t, w in zip(("dq", "dk", "dv"), leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   atol=BWD_TOL, err_msg=name)
+    # mode=None on the CPU is the oracle differentiated by autograd
+    assert tattn.mha(*leaves, causal).grad_fn is not None
+    assert type(tattn.mha(*leaves, causal).grad_fn).__name__ \
+        != "_FlashMHABackward"
+
+
+def test_flash_attention_bwd_shape_contract():
+    """S = 200 is not a multiple of the 128-row tile: both backwards
+    raise."""
+    q, k, v = _qkv(1, 200, 2, 1, 64, seed=0)
+    qh = q.transpose(0, 2, 1, 3).reshape(-1, 200, 64)
+    kh = k.transpose(0, 2, 1, 3).reshape(-1, 200, 64)
+    lse = np.zeros((2, 200), np.float32)
+    with pytest.raises(ValueError, match="must divide"):
+        jflash_bwd(qh, kh, kh, qh, qh, lse, interpret=True)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    with pytest.raises(ValueError, match="must divide blocks"):
+        tattn.flash_attention_bwd(tq, tk, tv, tq, tq,
+                                  torch.zeros((1, 200, 2)))
+
+
 def _ssd_inputs(B, S, H, P, N, seed):
     rng = np.random.default_rng(seed)
     xdt = (rng.standard_normal((B, S, H, P)) * 0.5).astype(np.float32)
@@ -126,6 +213,9 @@ def test_lm_wrappers_never_fall_back():
     q = torch.zeros((1, 128, 2, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tattn.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="no kernel"):
+        tattn.flash_attention_bwd(q, q, q, q, q,
+                                  torch.zeros((1, 128, 2), device="meta"))
     x = torch.zeros((2, 16, 2, 16), device="meta")
     a = torch.zeros((2, 16, 2), device="meta")
     bc = torch.zeros((2, 16, 8), device="meta")
