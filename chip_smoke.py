@@ -145,10 +145,12 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float | None:
+def device_ms(fn, iters: int, patterns: dict | None = None):
     """Device time of one call of ``fn``: the device time of every kernel
     and copy its ``iters`` calls launched, under ``torch.profiler``, over
-    ``iters``; None when the profiler sees no device activity."""
+    ``iters``; with ``patterns`` (name → CUDA symbol, see ``kernel_hits``)
+    instead a dict of each named kernel's device time per launch.  None
+    when the profiler sees no device activity (or not every kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -159,9 +161,19 @@ def device_ms(fn, iters: int) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / iters / 1e3 if total else None
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    if patterns is None:
+        total = sum(e.self_device_time_total for e in events)
+        return total / iters / 1e3 if total else None
+    out = {}
+    for name, pattern in patterns.items():
+        hits = kernel_hits(events, pattern)
+        if not hits:
+            return None
+        out[name] = sum(e.self_device_time_total for e in hits) \
+            / sum(e.count for e in hits) / 1e3
+    return out
 
 
 def timed(fn, iters: int) -> dict:
@@ -181,37 +193,40 @@ def bound(nbytes: float, flops: float = 0.0,
                                                            "operations")
 
 
+WINDOW = "chip_smoke.window"
+
+
 def profile(run, top: int = 0) -> str:
-    """Run ``run()`` under ``torch.profiler``: the device's busy time (the
-    union of its kernels' and copies' intervals) and idle share of the
-    wall clock, each port kernel's device time per launch and share of
-    the summed device time, and with ``top`` the ``top`` largest entries
-    by summed device time."""
+    """Run ``run()`` under ``torch.profiler``.  Every time comes from the
+    profiler's one clock: the window is the span of ``run()`` through
+    the final synchronize (a ``record_function`` range), the device time
+    the sum of the kernels' and copies' intervals (one stream: they do
+    not overlap), the device span from the first one's start to the last
+    one's end.  Prints them, the idle share of the window and of the
+    device span, whether the device time fits in the window, each port
+    kernel's device time per launch and share of the device time, and
+    with ``top`` the ``top`` largest entries by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
+    from torch.profiler import record_function
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with record_function(WINDOW):
+            run()
+            torch.cuda.synchronize()
+    window = [e.time_range for e in prof.events()
+              if e.name == WINDOW and e.device_type == DeviceType.CPU]
+    # the range's mirror on the device timeline is no kernel
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == DeviceType.CUDA and e.name != WINDOW]
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    if not kernels:
+               if e.device_type == DeviceType.CUDA and e.key != WINDOW]
+    if not (kernels and spans and window):
         return "the profiler saw no device activity: not measured"
-    summed = sum(e.self_device_time_total for e in kernels) / 1e6
-    busy, end = 0.0, None
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
-                              for e in prof.events()
-                              if e.device_type == DeviceType.CUDA):
-        if end is None or start > end:
-            busy += stop - start
-            end = stop
-        elif stop > end:
-            busy += stop - end
-            end = stop
-    busy = busy / 1e6 if end is not None else summed
+    window_s = window[0].elapsed_us() / 1e6
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    span_s = (max(r.end for r in spans) - min(r.start for r in spans)) / 1e6
     per_launch, share = {}, {}
     for name, pattern in KERNEL_SYMBOLS:
         hits = kernel_hits(kernels, pattern)
@@ -219,16 +234,19 @@ def profile(run, top: int = 0) -> str:
             total = sum(e.self_device_time_total for e in hits)
             per_launch[name] = round(
                 total / sum(e.count for e in hits) / 1e3, 5)
-            share[name] = round(total / 1e6 / summed, 4)
-    out = (f"wall_s={wall:.4f} device_busy_s={busy:.4f} "
-           f"summed_device_s={summed:.4f} idle_share={1 - busy / wall:.4f} "
+            share[name] = round(total / 1e6 / device_s, 4)
+    out = (f"window_s={window_s:.4f} device_s={device_s:.4f} "
+           f"device_span_s={span_s:.4f} "
+           f"device_within_window={device_s <= window_s} "
+           f"idle_share={1 - device_s / window_s:.4f} "
+           f"idle_share_in_span={1 - device_s / span_s:.4f} "
            f"device_ms_per_launch={per_launch} "
            f"share_of_device_time={share}")
     if top:
         largest = sorted(kernels, key=lambda e: -e.self_device_time_total)
         out += " largest=" + json.dumps([
             [e.key[:80], e.count, round(e.self_device_time_total / 1e6
-                                        / summed, 4)]
+                                        / device_s, 4)]
             for e in largest[:top]])
     return out
 
@@ -250,31 +268,6 @@ def kernel_hits(events, pattern: str) -> list:
     ``gather_kernel``)."""
     return [e for e in events
             if re.search(rf"(?<![A-Za-z_]){pattern}", e.key)]
-
-
-def kernel_device_ms(fn, iters: int, patterns: dict) -> dict | None:
-    """Device time per launch of each named kernel over ``iters`` calls of
-    ``fn`` (``torch.profiler``); None when the profiler sees nothing."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    out = {}
-    for name, pattern in patterns.items():
-        hits = kernel_hits(events, pattern)
-        if not hits:
-            return None
-        out[name] = sum(e.self_device_time_total for e in hits) \
-            / sum(e.count for e in hits) / 1e3
-    return out
 
 
 def check_probe(dev) -> dict:
@@ -930,8 +923,8 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
         return ops.flash_attention_bwd(q, k, v, o, do, lse, True)
 
     wall = time_ms(both, iters)
-    dev_ms = kernel_device_ms(both, iters, {"dq": "flash_bwd_dq_kernel",
-                                            "dkv": "flash_bwd_dkv_kernel"})
+    dev_ms = device_ms(both, iters, {"dq": "flash_bwd_dq_kernel",
+                                     "dkv": "flash_bwd_dkv_kernel"})
     plain = timed(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
                                                       True), 3)
     leaves = [t.transpose(1, 2).detach().requires_grad_(True)

@@ -55,7 +55,9 @@ class TokenStream:
 class PrefetchIterator:
     """Background-thread prefetch with a bounded buffer: batches (dicts of
     numpy arrays) become dicts of tensors on ``device`` (default: the
-    card) before the consumer asks for them.  ``close()`` stops the
+    card) before the consumer asks for them.  An exception in the thread
+    (the source's, or a failed copy to the device) is raised again by
+    the ``next`` that meets the end of the stream.  ``close()`` stops the
     thread."""
 
     def __init__(self, it, buffer_size: int = 2, device=None):
@@ -63,6 +65,7 @@ class PrefetchIterator:
         self._q: queue.Queue = queue.Queue(maxsize=buffer_size)
         self._sentinel = object()
         self._stop = threading.Event()
+        self._error: BaseException | None = None
 
         def _producer():
             try:
@@ -71,6 +74,8 @@ class PrefetchIterator:
                         break
                     self._put({k: self._to_device(v)
                                for k, v in item.items()})
+            except BaseException as e:      # handed to the consumer
+                self._error = e
             finally:
                 self._put(self._sentinel)
 
@@ -97,6 +102,8 @@ class PrefetchIterator:
     def __next__(self):
         item = self._q.get()
         if item is self._sentinel:
+            if self._error is not None:
+                raise self._error
             raise StopIteration
         return item
 

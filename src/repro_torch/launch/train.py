@@ -47,7 +47,7 @@ class TrainRun(NamedTuple):
     losses: list[float]
     grad_norms: list[float]
     step_s: list[float]            # wall time of each step (synchronised)
-    tokens_per_s: float            # over all steps' wall time
+    tokens_per_s: float            # over the steps run, their wall time
     server: StoreServer | None     # the capture store, with --capture
 
 
@@ -109,10 +109,10 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
     finally:
         stream.close()
     wall = sum(times)
-    print(f"done: {steps} steps in {wall:.1f}s; loss {losses[0]:.3f} -> "
-          f"{losses[-1]:.3f}")
+    print(f"done: {len(times)} steps in {wall:.1f}s; loss {losses[0]:.3f}"
+          f" -> {losses[-1]:.3f}")
     return TrainRun(state, losses, norms, times,
-                    steps * batch * seq_len / wall, server)
+                    len(times) * batch * seq_len / wall, server)
 
 
 def main() -> None:

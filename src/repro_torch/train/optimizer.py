@@ -7,16 +7,17 @@ weight decay), ``clip_by_global_norm``, ``scale_by_schedule``, ``chain``,
 the reference's formulas.  ``adafactor`` (the 340B/398B configs'
 optimizer) is ``ROADMAP.md`` A7.
 
-By default the transformations are functional: every update returns new
-tensors and leaves its inputs as they were (the in-situ trainer relies on
-it).  With ``inplace=True`` — what the LM train step uses, where the
-reference donates its state — ``clip_by_global_norm`` scales the
-gradients in place, ``adam`` updates μ and ν in place and writes the
-updates into the gradients' storage, and ``apply_updates`` adds them into
-the params.  The in-place paths work on pieces of at most ``PIECE``
+``adam`` is functional by default: every update returns new tensors and
+leaves its inputs as they were (the in-situ trainer relies on it).  With
+``inplace=True`` it updates μ and ν in place and writes the updates into
+the gradients' storage, and ``apply_updates(..., inplace=True)`` adds
+them into the params.  ``clip_by_global_norm`` and ``adamw`` serve the LM
+train step, where the reference donates its state, and always work in
+place: the clip scales the gradients, ``adamw`` is ``adam(...,
+inplace=True)``.  The in-place paths work on pieces of at most ``PIECE``
 elements along the leading axis (a stacked ``[n_periods, ...]`` leaf one
 period at a time), so their temporaries stay small whatever the model's
-size; they compute bit for bit what the functional paths compute, and
+size; they compute bit for bit what the functional path computes, and
 take fp32 gradients.
 
 Adam's update is the reference's, not ``torch.optim.Adam``'s: the bias
@@ -129,17 +130,14 @@ def warmup_cosine(peak_lr: float, warmup_steps: int, total_steps: int,
 # Transforms
 # ---------------------------------------------------------------------------
 
-def clip_by_global_norm(max_norm: float,
-                        inplace: bool = False) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """Scales fp32 gradients in place by ``min(1, max_norm / norm)``."""
     def init(params):
         return ()
 
     def update(grads, state, params):
         norm = global_norm(grads)
         scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-        if not inplace:
-            # the reference's bf16 * f32 promotes to f32
-            return tree_map(lambda g: g.float() * scale, grads), state
         for g in tree_leaves(grads):
             _need_fp32(g, "clip_by_global_norm")
             g.mul_(scale)
@@ -228,9 +226,10 @@ def adam(lr: float | Callable = 1e-4, b1: float = 0.9, b2: float = 0.999,
 
 
 def adamw(lr: float | Callable = 1e-4, b1: float = 0.9, b2: float = 0.95,
-          eps: float = 1e-8, weight_decay: float = 0.1,
-          inplace: bool = False) -> GradientTransformation:
-    return adam(lr, b1, b2, eps, weight_decay, inplace)
+          eps: float = 1e-8, weight_decay: float = 0.1
+          ) -> GradientTransformation:
+    """AdamW, in place (see the module's docstring)."""
+    return adam(lr, b1, b2, eps, weight_decay, inplace=True)
 
 
 def adafactor(*args, **kwargs) -> GradientTransformation:

@@ -38,9 +38,8 @@ def make_tx(cfg, total_steps: int = 100_000) -> opt.GradientTransformation:
         return opt.adafactor()
     sched = opt.warmup_cosine(3e-4, warmup_steps=min(2000, total_steps // 10),
                               total_steps=total_steps)
-    inner = opt.adamw(lr=sched, b1=0.9, b2=0.95, weight_decay=0.1,
-                      inplace=True)
-    return opt.chain(opt.clip_by_global_norm(1.0, inplace=True), inner)
+    inner = opt.adamw(lr=sched, b1=0.9, b2=0.95, weight_decay=0.1)
+    return opt.chain(opt.clip_by_global_norm(1.0), inner)
 
 
 def init_train_state(generator: torch.Generator, cfg, specs, tx,

@@ -235,13 +235,15 @@ def _close(got, want, rtol=1e-6):
                                    err_msg=path)
 
 
-@pytest.mark.parametrize("inplace", [False, True])
-def test_optimizer_pieces_match_reference(inplace, monkeypatch):
+@pytest.mark.parametrize("piece", [8, None])
+def test_optimizer_pieces_match_reference(piece, monkeypatch):
     """``warmup_cosine``, ``global_norm``, ``clip_by_global_norm`` (norm
     above and below the limit), ``adamw``, ``chain``,
     ``scale_by_schedule`` and ``apply_updates`` against the reference's,
-    functional and in place (pieces of 8 elements: every leaf is cut)."""
-    monkeypatch.setattr(topt, "PIECE", 8)
+    in place as the LM train step runs them, with every leaf cut into
+    pieces of 8 elements and with the default piece (no leaf cut)."""
+    if piece is not None:
+        monkeypatch.setattr(topt, "PIECE", piece)
     sched_j = jopt.warmup_cosine(3e-4, 10, 100)
     sched_t = topt.warmup_cosine(3e-4, 10, 100)
     for step in (0, 1, 9, 10, 11, 55, 99, 100, 250):
@@ -254,15 +256,15 @@ def test_optimizer_pieces_match_reference(inplace, monkeypatch):
                                float(jopt.global_norm(grads)), rtol=1e-6)
     for max_norm in (0.5, 1e3):         # clipping, and not
         jg, _ = jopt.clip_by_global_norm(max_norm).update(grads, (), params)
-        tg, _ = topt.clip_by_global_norm(max_norm, inplace).update(
+        tg, _ = topt.clip_by_global_norm(max_norm).update(
             _to_torch(grads), (), _to_torch(params))
         _close(tg, jg)
     jtx = jopt.chain(jopt.clip_by_global_norm(1.0),
                      jopt.adamw(lr=sched_j, b1=0.9, b2=0.95,
                                 weight_decay=0.1))
-    ttx = topt.chain(topt.clip_by_global_norm(1.0, inplace),
+    ttx = topt.chain(topt.clip_by_global_norm(1.0),
                      topt.adamw(lr=sched_t, b1=0.9, b2=0.95,
-                                weight_decay=0.1, inplace=inplace))
+                                weight_decay=0.1))
     jstate = jtx.init(params)
     tparams = _to_torch(params)
     tstate_ = ttx.init(tparams)
@@ -272,7 +274,7 @@ def test_optimizer_pieces_match_reference(inplace, monkeypatch):
         jup, jstate = jtx.update(g, jstate, jp)
         jp = jopt.apply_updates(jp, jup)
         tup, tstate_ = ttx.update(_to_torch(g), tstate_, tparams)
-        tparams = topt.apply_updates(tparams, tup, inplace)
+        tparams = topt.apply_updates(tparams, tup, inplace=True)
         _close(tparams, jp)
         _close(tstate_[1].mu, jstate[1].mu)
         _close(tstate_[1].nu, jstate[1].nu)
@@ -285,10 +287,9 @@ def test_optimizer_pieces_match_reference(inplace, monkeypatch):
     assert int(ts.step) == int(js.step) == 1
     with pytest.raises(NotImplementedError, match="A7"):
         topt.adafactor()
-    if inplace:
-        with pytest.raises(TypeError, match="float32"):
-            topt.clip_by_global_norm(1.0, True).update(
-                {"w": torch.zeros(3, dtype=torch.bfloat16)}, (), None)
+    with pytest.raises(TypeError, match="float32"):
+        topt.clip_by_global_norm(1.0).update(
+            {"w": torch.zeros(3, dtype=torch.bfloat16)}, (), None)
 
 
 def test_token_stream_is_the_references():
@@ -315,6 +316,22 @@ def test_token_stream_is_the_references():
     finally:
         pre.close()
     assert not pre._thread.is_alive()
+
+
+def test_prefetch_raises_what_its_thread_raised():
+    """A failure in the prefetch thread reaches the consumer after the
+    batches made before it, instead of ending the stream early."""
+    def source():
+        yield {"tokens": np.zeros((2, 4), np.int32)}
+        raise RuntimeError("copy failed")
+
+    pre = tdata.PrefetchIterator(source(), buffer_size=2, device="cpu")
+    try:
+        assert next(pre)["tokens"].shape == (2, 4)
+        with pytest.raises(RuntimeError, match="copy failed"):
+            next(pre)
+    finally:
+        pre.close()
 
 
 def test_launcher_runs_on_the_cpu(monkeypatch):
