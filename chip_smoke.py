@@ -75,7 +75,27 @@ Phases, each printing one line (or a few):
    forward run again by remat), finite losses and gradient norms, bf16
    params in the reference's layout; its step time, tokens/s, peak memory
    and, from one profiled step, each attention kernel's share of the
-   device time and the device's idle share.
+   device time and the device's idle share;
+14. sharded — the slab-sharded data plane: (a) the sharded gather kernel
+   against its plain version, exactly, on the training table [24, 4,
+   2048] fp32 split into D = 2 and D = 4 shards with slots on every shard;
+   the shards' results must sum to the whole gather, and, as a control
+   that must FAIL that sum, the same gathers with the ownership mask
+   dropped; (b) the in-situ workflow of phase 8 with the trainer on a
+   2-rank mesh on this one card (``data_mesh(2, devices=[cuda] * 2)``),
+   tiers ``sharded_fused`` and ``slab_sharded``, each session profiled:
+   the plan against ``stats()``, exactly 2 sharded-gather launches per
+   trainer store op and warm-up, ``slab_sharded``'s final state and losses
+   equal to ``sharded_fused``'s (``torch.equal``); then, as the
+   reference's own test does, ONE epoch of each tier from the same state
+   on the same table and draws: ``sharded_fused`` within params rtol
+   2e-5 / atol 1e-6, train loss 1e-5, val loss 1e-4 (relative) of
+   ``fused``, ``slab_sharded`` equal to it; the eight-epoch sessions'
+   drift from phase 8's fused run is reported, not gated (Adam
+   accumulates the order-of-summation differences of B = 2 against
+   B = 4 microsteps); each tier's epoch device time, idle share and peak
+   memory.  Two ranks on one card measure the mesh's overhead, not its
+   scaling.
 
 Kernel, plain and library times in the kernels line are device times per
 call (``torch.profiler``: the summed device time of every kernel and copy
@@ -125,6 +145,10 @@ LM_LIMIT = 0.4
 # wk, wv, wo; relative Frobenius) on the same input and cotangent, and the
 # whole model's loss and grad_norm on one micro-batch (relative)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+# the slab-sharded data plane: D ranks on this one card; the reference's
+# mesh-vs-single-device tolerances (tests/test_sharded_epoch.py)
+SHARDS = 2
+MESH_RTOL, MESH_ATOL, MESH_TRAIN_RTOL, MESH_VAL_RTOL = 2e-5, 1e-6, 1e-5, 1e-4
 LAYER_GRAD_LIMIT = 2e-2
 LOSS_LIMIT = 1e-3
 GRAD_NORM_LIMIT = 5e-2
@@ -255,6 +279,7 @@ def profile(run, top: int = 0) -> str:
 KERNEL_SYMBOLS = (("probe_slots", "probe_kernel"),
                   ("sample_slots", "sample_kernel"),
                   ("gather_rows", "gather_kernel"),
+                  ("gather_rows_sharded", "gather_sharded_kernel"),
                   ("quadconv_contract", "quadconv_contract_kernel"),
                   ("flash_attention", "flash_fwd_kernel"),
                   ("flash_attention_bwd_dq", "flash_bwd_dq_kernel"),
@@ -361,6 +386,65 @@ def check_gather(dev, capacity: int, n: int, points: int) -> dict:
             "plain_wall_ms": plain["wall_ms"], "library_ms": library["ms"],
             "bound_ms": b, "bound_by": by,
             "shape": f"capacity={capacity} n={n} rows of [4, {points}] f32"}
+
+
+def check_gather_sharded(dev) -> dict:
+    """The sharded gather kernel against its plain version, bit for bit, on
+    the training table [24, 4, 2048] fp32 split into D = 2 and D = 4
+    shards, 6 slots on every shard; the shards' results must sum to the
+    whole gather, and the same gathers without the ownership mask (each
+    shard's clamped row) must not.  Timed on rank 0's shard at D = 2."""
+    from repro_torch.kernels.store import ops, ref
+    gen = torch.Generator().manual_seed(SEED)
+    slab = torch.randn((RING, 4, 2048), generator=gen).to(dev)
+    for d in (SHARDS, 4):
+        cl = RING // d
+        owned = [r * cl + int(torch.randint(cl, (), generator=gen))
+                 for r in range(d)]
+        extra = torch.randint(0, RING, (GATHER - d,), generator=gen)
+        slots = torch.tensor(owned + extra.tolist(), dtype=torch.int32,
+                             device=dev)
+        shards = [slab[r * cl:(r + 1) * cl] for r in range(d)]
+        total = control = None
+        for r, shard in enumerate(shards):
+            out = ops.gather_rows_sharded(shard, slots, r * cl)
+            want = ref.gather_rows_sharded_ref(shard, slots, r * cl)
+            if not torch.equal(out.view(torch.int32),
+                               want.view(torch.int32)):
+                raise AssertionError(f"sharded gather disagrees at D={d} "
+                                     f"rank {r}")
+            unmasked = ops.gather_rows(
+                shard, (slots - r * cl).clamp(0, cl - 1).to(torch.int32))
+            total = out if total is None else total + out
+            control = unmasked if control is None else control + unmasked
+        whole = ops.gather_rows(slab, slots)
+        if not torch.equal(total, whole):
+            raise AssertionError(f"D={d}: the shards' sum is not the gather")
+        if torch.equal(control, whole):
+            raise AssertionError(f"D={d}: the control without the ownership "
+                                 f"mask passed the sum check")
+        if d == SHARDS:
+            timing = (shards[0], slots)
+    shard, slots = timing
+    cl = shard.shape[0]
+    mine = slots[slots < cl].long()
+    kernel = timed(lambda: ops.gather_rows_sharded(shard, slots, 0), 200)
+    plain = timed(lambda: ref.gather_rows_sharded_ref(shard, slots, 0), 200)
+    nearest = timed(lambda: torch.index_select(shard, 0, mine), 200)
+    row_bytes = shard[0].numel() * 4
+    b, by = bound((mine.numel() + slots.numel()) * row_bytes
+                  + 4 * slots.numel())
+    return {"name": "gather_rows_sharded", "route": "cuda",
+            "source": "src/repro_torch/kernels/store/csrc/store.cu",
+            "replaces": "src/repro/kernels/store/kernel.py:147",
+            "max_abs_err": 0, **kernel, "plain_ms": plain["ms"],
+            "plain_wall_ms": plain["wall_ms"], "library_ms": None,
+            "nearest_library_ms": nearest["ms"],
+            "nearest_library": "index_select of the owned rows",
+            "bound_ms": b, "bound_by": by,
+            "shape": f"rank 0 of {SHARDS}: local slab [{cl}, 4, 2048] f32, "
+                     f"{slots.numel()} slots, {mine.numel()} owned (also "
+                     f"checked: D=4, the shards' sum, a mask-off control)"}
 
 
 def check_quadconv(dev, B: int, I: int, C: int, O: int) -> dict:
@@ -541,9 +625,11 @@ def microstep_breakdown(cfg, levels, params, batch) -> dict:
 
 
 def train_session(dev, cfg, fcfg, sequential: bool, counters,
-                  label: str | None = None) -> dict:
+                  label: str | None = None, mesh=None,
+                  slab_sharded: bool = False) -> dict:
     """The paper's workflow as one session: flat-plate producer → fused
-    trainer → in-situ inference, checked end to end."""
+    trainer (over ``mesh`` if given) → in-situ inference, checked end to
+    end."""
     from repro_torch.core import TableSpec
     from repro_torch.core import store as S
     from repro_torch.insitu import (InferenceConsumer, InSituSession,
@@ -556,7 +642,8 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
     inf_modes = fp.draw_modes(fcfg, gen, dev)
     coords = fp.grid_coords(fcfg, dev)
     tcfg = tr.TrainerConfig(ae=cfg, epochs=EPOCHS, gather=GATHER,
-                            batch_size=BATCH, lr=1e-3, seed=SEED)
+                            batch_size=BATCH, lr=1e-3, seed=SEED, mesh=mesh,
+                            slab_sharded=slab_sharded)
     draws = tr.default_draws(tcfg, dev)
     starts, ends, history, inputs = [], [], [], {}
 
@@ -628,8 +715,10 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
         raise AssertionError(f"{mode}: plan {plan.explain()} != stats "
                              f"{stats}")
     microsteps = EPOCHS * -(-(GATHER - 1) // BATCH)
-    need = {"sample_slots": EPOCHS + 1, "gather_rows": EPOCHS + 1,
-            "quadconv_contract": 4 * microsteps}
+    ranks = 1 if mesh is None else mesh.size
+    need = {"sample_slots": EPOCHS + 1,
+            "gather_rows_sharded" if slab_sharded else "gather_rows":
+            EPOCHS + 1, "quadconv_contract": 4 * microsteps * ranks}
     for sym, least in need.items():
         if launches[sym] < least:
             raise AssertionError(f"{mode}: {sym} launched {launches[sym]} "
@@ -660,7 +749,13 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
           f"inference_max_err_vs_plain={err:.3g} (tol {tol:.3g})",
           flush=True)
     return {"launches": launches, "peak_gb": peak, "wall_s": wall,
-            "op_count": stats["op_count"]}
+            "op_count": stats["op_count"], "state": trainer.state,
+            "history": history, "tier": plan.component("trainer").tier,
+            "cfg": tcfg, "table": res.server.checkout("field"),
+            "spec": res.server.spec("field"), "levels": trainer.levels,
+            "norm_stats": trainer.norm_stats,
+            "trainer_ops": plan.component("trainer").store_dispatches,
+            "epoch_ms": [a.elapsed_time(b) for a, b in zip(starts, ends)]}
 
 
 def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
@@ -1161,6 +1256,125 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
     return dq, dkv, line
 
 
+def sharded_phase(dev, cfg, fcfg, fused: dict) -> tuple[dict, dict]:
+    """(a) the sharded gather kernel; (b) the in-situ workflow with the
+    trainer on a ``SHARDS``-rank mesh on this card, tiers ``sharded_fused``
+    and ``slab_sharded`` (each session profiled), held to each other
+    exactly; one epoch of each against ``fused`` within the reference's
+    tolerance (:func:`mesh_epoch_check`), and the sessions' drift from
+    ``fused`` (phase 8's sequential run) after every epoch reported.
+    Returns (the kernel's row, the phase line)."""
+    from repro_torch.kernels.quadconv import ops as qops
+    from repro_torch.kernels.store import ops as sops
+    from repro_torch.parallel.sharding import data_mesh
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    row = check_gather_sharded(dev)
+    print(f"[kernels] {json.dumps(row)}", flush=True)
+    mesh = data_mesh(SHARDS, devices=[dev] * SHARDS)
+    counters = [sops.PROBE, sops.SAMPLE, sops.GATHER, sops.GATHER_SHARDED,
+                qops.QUADCONV]
+    runs, line = {}, {}
+    seconds = {"kernel": time.perf_counter() - t0}
+    for tier in ("sharded_fused", "slab_sharded"):
+        box = []
+        t0 = time.perf_counter()
+        prof = profile(lambda: box.append(train_session(
+            dev, cfg, fcfg, True, counters, label=tier, mesh=mesh,
+            slab_sharded=tier == "slab_sharded")))
+        seconds[tier] = time.perf_counter() - t0
+        print(f"[sharded {tier}] profile: {prof}", flush=True)
+        runs[tier] = run = box[0]
+        if run["tier"] != tier:
+            raise AssertionError(f"planned tier {run['tier']} != {tier}")
+        run["profile"] = prof
+    for tier, run in (("fused", fused), *runs.items()):
+        idle = re.search(r"idle_share=(-?[0-9.]+)", run["profile"])
+        line[tier] = {"epoch_ms": run["epoch_ms"], "peak_gb": run["peak_gb"],
+                      "wall_s": run["wall_s"], "launches": run["launches"],
+                      "idle_share": float(idle.group(1)) if idle else None}
+    # the ranks gather once each per trainer store op and at the warm-up
+    want = SHARDS * (runs["slab_sharded"]["trainer_ops"] + 1)
+    got = runs["slab_sharded"]["launches"]["gather_rows_sharded"]
+    if got != want or runs["sharded_fused"]["launches"][
+            "gather_rows_sharded"]:
+        raise AssertionError(f"gather_rows_sharded launched {got} times on "
+                             f"slab_sharded (plan: {want}), "
+                             f"{runs['sharded_fused']['launches']} on "
+                             f"sharded_fused")
+    sf, sl = runs["sharded_fused"], runs["slab_sharded"]
+    if not all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(sf["state"]), tree_leaves(sl["state"]))) \
+            or [(h.train_loss, h.val_loss) for h in sf["history"]] \
+            != [(h.train_loss, h.val_loss) for h in sl["history"]]:
+        raise AssertionError("slab_sharded's state or losses differ from "
+                             "sharded_fused's")
+    t0 = time.perf_counter()
+    line["checks"] = {
+        "gather_rows_sharded_launches": got,
+        "slab_equals_sharded_fused": True,
+        "one_epoch": mesh_epoch_check(dev, fused, sf, sl),
+        "eight_epochs": divergence(
+            sf["state"].params, fused["state"].params,
+            [(h.train_loss, h.val_loss) for h in sf["history"]],
+            [(h.train_loss, h.val_loss) for h in fused["history"]])}
+    seconds["checks"] = time.perf_counter() - t0
+    line["seconds"] = seconds
+    return row, line
+
+
+def divergence(params, ref_params, losses, ref_losses) -> dict:
+    """How far params and (train, val) losses lie from a reference run's:
+    the largest absolute param difference, the largest by which it
+    exceeds ``MESH_RTOL`` of the reference value, and the largest
+    relative train and val loss differences."""
+    from repro_torch.tree import tree_leaves
+    diff = excess = 0.0
+    for a, b in zip(tree_leaves(params), tree_leaves(ref_params)):
+        d = (a - b).abs()
+        diff = max(diff, float(d.max()))
+        excess = max(excess, float((d - MESH_RTOL * b.abs()).max()))
+    rel = [[abs(x - y) / abs(y) for x, y in zip(got, want)]
+           for got, want in zip(losses, ref_losses)]
+    return {"max_abs_param_diff": diff, "max_excess_over_rtol": excess,
+            "max_rel_train_loss_diff": max(r[0] for r in rel),
+            "max_rel_val_loss_diff": max(r[1] for r in rel)}
+
+
+def mesh_epoch_check(dev, fused: dict, sf: dict, sl: dict) -> dict:
+    """The reference's own mesh-vs-single-device check
+    (``tests/test_sharded_epoch.py``): ONE epoch of each tier from the
+    same initial state on the same table and draws (the sessions' tables
+    and norm stats, the run's first epoch draws); ``sharded_fused`` within
+    params rtol 2e-5 / atol 1e-6, train loss 1e-5, val loss 1e-4 of
+    ``fused``, and ``slab_sharded`` equal to ``sharded_fused``."""
+    from repro_torch.ml import trainer as tr
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_leaves
+    out = {}
+    for name, run in (("fused", fused), ("sharded_fused", sf),
+                      ("slab_sharded", sl)):
+        cfg = run["cfg"]
+        tx = opt.adam(cfg.scaled_lr)
+        state = tr.init_state(cfg, torch.Generator().manual_seed(cfg.seed),
+                              tx, dev)
+        draws = next(iter(tr.default_draws(cfg, dev).epochs))
+        epoch = tr.EPOCH_BUILDERS[run["tier"]](cfg, run["levels"], tx,
+                                               run["spec"])
+        state, m = epoch(run["table"], state, draws, *run["norm_stats"])
+        out[name] = (state.params, [float(x) for x in m[:2]])
+    (p1, m1), (p2, m2), (p3, m3) = out.values()
+    if m2 != m3 or not all(torch.equal(a, b) for a, b in
+                           zip(tree_leaves(p2), tree_leaves(p3))):
+        raise AssertionError("one epoch: slab_sharded != sharded_fused")
+    got = divergence(p2, p1, [m2], [m1])
+    if not (got["max_excess_over_rtol"] <= MESH_ATOL
+            and got["max_rel_train_loss_diff"] <= MESH_TRAIN_RTOL
+            and got["max_rel_val_loss_diff"] <= MESH_VAL_RTOL):
+        raise AssertionError(f"one epoch: sharded_fused vs fused {got}")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1401,9 +1615,11 @@ def main() -> int:
     counters = [sops.PROBE, sops.SAMPLE, sops.GATHER, qops.QUADCONV]
     trained = train_session(dev, tcfg, tfcfg, True, counters)
     train_session(dev, tcfg, tfcfg, False, counters)
-    print("[profile] training session (sequential): " + profile(
+    trained["profile"] = profile(
         lambda: train_session(dev, tcfg, tfcfg, True, counters,
-                              label="profiled")), flush=True)
+                              label="profiled"))
+    print("[profile] training session (sequential): " + trained["profile"],
+          flush=True)
 
     # 9. launch: the launcher a user calls, at its own defaults
     from repro_torch.launch import insitu as launcher
@@ -1434,6 +1650,11 @@ def main() -> int:
     for row in (bwd_dq, bwd_dkv):
         print(f"[kernels] {json.dumps(row)}", flush=True)
     print(f"[lm train] {json.dumps(trained_lm)}", flush=True)
+
+    # 14. the slab-sharded data plane on a 2-rank mesh on this card
+    torch.cuda.empty_cache()
+    sharded_row, sharded = sharded_phase(dev, tcfg, tfcfg, trained)
+    print(f"[sharded] {json.dumps(sharded)}", flush=True)
 
     serving_launches = launches
     rows = []
@@ -1485,6 +1706,10 @@ def main() -> int:
         if row["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
         rows.append(row)
+    rows.insert(3, dict(
+        sharded_row, path="insitu slab_sharded (2 ranks on one card)",
+        launches=sharded["slab_sharded"]["launches"]["gather_rows_sharded"],
+        kernel_ms=sharded_row["ms"]))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,18 @@
 """StoreServer: the host-side owner of TensorStore state.
 
-Port of ``src/repro/core/server.py`` — the local deployment only: tables
-on one device, per-table locks, host metadata with cached (lock-free)
-watermarks, capture transactions, the fused serving dispatch, the random
-gather, the model registry and ``stats()``.
+Port of ``src/repro/core/server.py`` — the local deployment: tables on
+the server's device (a table's slab optionally split over a mesh, the
+slab-sharded data plane), per-table locks, host metadata with cached
+(lock-free) watermarks, capture transactions, the fused serving dispatch,
+the random gather, the model registry and ``stats()``.
 
 Host threads call the server's verbs; each verb launches the store op on
 the device (asynchronously, on PyTorch's current stream) while holding the
 table's lock, so writes and reads of one table are ordered.  The server-
-wide lock guards only the registries.  ``Colocated``/``Clustered``
-deployments (``ROADMAP.md`` A5) and an armed ``FaultPlan`` with its
-write-ahead log (A4) are later slices and raise here.
+wide lock guards only the registries.  The ``Colocated``/``Clustered``
+deployments (``ROADMAP.md`` A5, the element-sharded producer and the
+dedicated store mesh) and an armed ``FaultPlan`` with its write-ahead log
+(A4) are later slices and raise here.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ from .faults import FaultPlan, StoreTimeout, WatermarkTimeout
 from .telemetry import poll_backoff
 
 __all__ = ["StoreServer", "CaptureTxn"]
+
+_DEPLOYMENTS_OPEN = ("Colocated/Clustered deployments (the element-sharded "
+                     "producer, the dedicated store mesh): ROADMAP.md A5")
 
 
 class CaptureTxn:
@@ -55,8 +60,7 @@ class StoreServer:
     def __init__(self, deployment=None, faults: FaultPlan | None = None,
                  device=None):
         if deployment is not None:
-            raise NotImplementedError(
-                "deployments other than local: ROADMAP.md A5")
+            raise NotImplementedError(_DEPLOYMENTS_OPEN)
         if faults is not None:
             raise NotImplementedError("armed FaultPlan: ROADMAP.md A4")
         self.deployment = None
@@ -65,6 +69,7 @@ class StoreServer:
         self._table_locks: dict[str, threading.RLock] = {}
         self._specs: dict[str, S.TableSpec] = {}
         self._state: dict[str, S.TableState] = {}
+        self._placements: dict[str, Any] = {}
         self._counts: dict[str, int] = {}        # cached watermarks
         self._models: dict[str, tuple[Callable, Any]] = {}
         self._model_versions: dict[str, int] = {}  # hot-swap generations
@@ -90,17 +95,26 @@ class StoreServer:
 
     def create_table(self, spec: S.TableSpec, deployment=None,
                      slab_sharding=None) -> S.TableSpec:
-        """Register + allocate a table on the server's device."""
-        if deployment is not None or slab_sharding is not None:
-            raise NotImplementedError("table placement: ROADMAP.md A5")
+        """Register + allocate a table on the server's device;
+        ``slab_sharding`` (``parallel.sharding.slab_sharding``) splits its
+        slab over a mesh that holds that device."""
+        if deployment is not None:
+            raise NotImplementedError(_DEPLOYMENTS_OPEN)
         with self._lock:
             if spec.name in self._specs:
                 raise ValueError(f"table {spec.name!r} already exists")
+            self._state[spec.name] = S.init_table(spec, self.device,
+                                                  slab_sharding)
             self._specs[spec.name] = spec
-            self._state[spec.name] = S.init_table(spec, self.device)
+            self._placements[spec.name] = slab_sharding
             self._table_locks[spec.name] = threading.RLock()
             self._counts[spec.name] = 0
         return spec
+
+    def placement(self, table: str):
+        """The slab sharding ``table`` was created with (``None``: whole on
+        the server's device)."""
+        return self._placements[table]
 
     def spec(self, table: str) -> S.TableSpec:
         return self._specs[table]
@@ -199,16 +213,20 @@ class StoreServer:
     def stats(self) -> dict:
         """Telemetry snapshot: dispatched-op count, staged transfers (0 on
         the local deployment), fault counters, model swaps and every
-        table's cached watermark — the same keys as the reference."""
+        table's cached watermark — the reference's keys — and
+        ``slab_bytes``, each table's slab bytes by device."""
         with self._lock:
             marks = dict(self._counts)
+            slabs = {name: S.slab_bytes(st.slab)
+                     for name, st in self._state.items()}
         return {"op_count": self.op_count,
                 "staged_transfers": self.staged_transfers,
                 "faults_injected": 0,
                 "retries": self.retries,
                 "recoveries": self.recoveries,
                 "model_swaps": self.model_swaps,
-                "watermarks": marks}
+                "watermarks": marks,
+                "slab_bytes": slabs}
 
     def watermark(self, table: str) -> int:
         """Total writes so far (host-side cached counter, lock-free)."""

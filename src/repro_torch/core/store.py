@@ -1,12 +1,29 @@
 """TensorStore: a device-resident in-memory key-value tensor store.
 
-Port of ``src/repro/core/store.py`` — the single-device subset: tables,
-the write verbs, the batched gets, the serving dispatch, the trainer's
-random gather (``sample``) and the producer's capture family.  Each table
-is a fixed-capacity slab ``[capacity, *elem_shape]`` on the device plus
-per-slot metadata (``keys``, ``version``) and scalar cursors (``ptr``,
-``count``), with two engines: ``ring`` (slots from a monotone write
-pointer) and ``hash`` (slot = key mod capacity).
+Port of ``src/repro/core/store.py``: tables, the write verbs, the
+batched gets, the serving dispatch, the trainer's random gather
+(``sample``), its slab-sharded form (``sample_sharded_impl``) and the
+producer's capture family.  Each table is a fixed-capacity slab
+``[capacity, *elem_shape]`` on the device plus per-slot metadata
+(``keys``, ``version``) and scalar cursors (``ptr``, ``count``), with two
+engines: ``ring`` (slots from a monotone write pointer) and ``hash``
+(slot = key mod capacity).
+
+**Slab-sharded tables.**  Given a ``parallel.sharding.SlabSharding``,
+``init_table`` splits the slab along its slot axis into a
+:class:`ShardedSlab`: rank ``r`` of the mesh holds slots ``[r·Cl,
+(r+1)·Cl)`` as its own ``[Cl, *shape]`` tensor on its device.  Keys,
+version, ptr and count stay single tensors on the table's device (one of
+the mesh's).  Every write verb runs its slot arithmetic on the global
+slots as before and puts each row into its owner's shard at ``slot -
+offset``, so the shards, concatenated, hold the bytes an unsharded slab
+holds after the same verbs.  A read selects slots once (from the
+metadata), gathers each shard's own rows with the ``gather_sharded``
+kernel and sums the shards' results with one ``collectives.psum``: each
+slot has one owner, so the sum is the plain gather.  The rule, as in the
+reference's ``shard_map``: replicated compute (slot selection) runs once
+per distinct device of the mesh, per-rank work (the shard gather) once
+per rank — on one card, selection once a call and the gather D times.
 
 Differences from the reference, all deliberate:
 
@@ -35,9 +52,9 @@ Differences from the reference, all deliberate:
   through ``on_put``.  Eager torch compiles nothing, so no chunk is
   padded to its bucket (``bucket_length`` stays for the plan).
 
-``get_many`` and ``sample`` route through the hand-written probe, sample
-and gather kernels (``repro_torch.kernels.store``) on the card and their
-plain versions on the CPU.
+``get_many`` and ``sample`` route through the hand-written probe, sample,
+gather and sharded-gather kernels (``repro_torch.kernels.store``) on the
+card and their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -51,13 +68,16 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.store import ops as _kops
-from ..tree import tree_map
 from ..kernels.store.ref import EMPTY_KEY, KEY_DTYPE
+from ..parallel import collectives as C
+from ..parallel.sharding import SlabSharding
+from ..tree import tree_map
 
 __all__ = [
-    "TableSpec", "TableState", "make_key", "name_key", "init_table",
-    "put", "put_many", "put_masked", "put_stream", "get", "get_many",
-    "serve_batch", "sample", "valid_count", "capture_scan",
+    "TableSpec", "TableState", "ShardedSlab", "make_key", "name_key",
+    "init_table", "put", "put_many", "put_masked", "put_stream", "get",
+    "get_many", "serve_batch", "sample", "sample_sharded_impl",
+    "valid_count", "slab_bytes", "capture_scan",
     "capture_scan_multi", "capture_emit_count", "capture_emit_count_multi",
     "capture_rows", "bucket_length", "MIN_BUCKET", "EMPTY_KEY", "KEY_DTYPE",
 ]
@@ -94,24 +114,53 @@ class TableSpec:
             raise ValueError("capacity must be >= 1")
 
 
+class ShardedSlab(NamedTuple):
+    """A slab split along its slot axis: ``shards[r]`` holds the slots
+    ``[placement.offset(r), placement.offset(r) + local_cap)`` on rank
+    ``r``'s device, a separate allocation per rank."""
+
+    shards: tuple[torch.Tensor, ...]
+    placement: SlabSharding
+
+
 class TableState(NamedTuple):
     """Device-resident state of one table."""
 
-    slab: torch.Tensor      # [capacity, *shape]
+    slab: torch.Tensor | ShardedSlab  # [capacity, *shape]
     keys: torch.Tensor      # int64[capacity]; EMPTY_KEY where never written
     version: torch.Tensor   # int32[capacity]; 0 where empty, else write stamp
     ptr: torch.Tensor       # int32 scalar: next ring slot
     count: torch.Tensor     # int32 scalar: total successful puts (watermark)
 
 
-def init_table(spec: TableSpec, device=None) -> TableState:
-    """Allocate an empty table on ``device`` (default: the card)."""
+def init_table(spec: TableSpec, device=None,
+               slab_sharding: SlabSharding | None = None) -> TableState:
+    """Allocate an empty table on ``device`` (default: the card); with
+    ``slab_sharding`` the slab is split over its mesh's devices, one
+    of which must be ``device`` (the metadata's)."""
     dev = resolve_device(device)
+    shape = (spec.capacity, *spec.shape)
+    if slab_sharding is None:
+        slab = torch.zeros(shape, dtype=spec.dtype, device=dev)
+    else:
+        mesh = slab_sharding.mesh
+        if slab_sharding.local_cap * mesh.size != spec.capacity:
+            raise ValueError(f"table {spec.name!r}: {mesh.size} shards of "
+                             f"{slab_sharding.local_cap} slots != capacity "
+                             f"{spec.capacity}")
+        slab = ShardedSlab(tuple(
+            torch.zeros((slab_sharding.local_cap, *spec.shape),
+                        dtype=spec.dtype, device=d) for d in mesh.devices),
+            slab_sharding)
+    keys = torch.full((spec.capacity,), EMPTY_KEY, dtype=KEY_DTYPE,
+                      device=dev)
+    if slab_sharding is not None \
+            and keys.device not in slab_sharding.mesh.distinct_devices:
+        raise ValueError(f"table {spec.name!r}: metadata device "
+                         f"{keys.device} is not on the slab's mesh")
     return TableState(
-        slab=torch.zeros((spec.capacity, *spec.shape), dtype=spec.dtype,
-                         device=dev),
-        keys=torch.full((spec.capacity,), EMPTY_KEY, dtype=KEY_DTYPE,
-                        device=dev),
+        slab=slab,
+        keys=keys,
         version=torch.zeros((spec.capacity,), dtype=torch.int32, device=dev),
         ptr=torch.zeros((), dtype=torch.int32, device=dev),
         count=torch.zeros((), dtype=torch.int32, device=dev),
@@ -128,6 +177,53 @@ def _as_values(spec: TableSpec, values, device) -> torch.Tensor:
     return torch.as_tensor(values, dtype=spec.dtype, device=device)
 
 
+def slab_bytes(slab: torch.Tensor | ShardedSlab) -> dict[str, int]:
+    """Bytes of slab held on each device (``str(device)`` → bytes)."""
+    out: dict[str, int] = {}
+    for t in slab.shards if isinstance(slab, ShardedSlab) else (slab,):
+        key = str(t.device)
+        out[key] = out.get(key, 0) + t.numel() * t.element_size()
+    return out
+
+
+def _scatter_rows(slab: torch.Tensor | ShardedSlab, idx: torch.Tensor,
+                  rows: torch.Tensor) -> None:
+    """``slab[idx] = rows`` in place (``idx`` int64, no slot twice); a
+    sharded slab takes each row into its owner's shard, in row order."""
+    if not isinstance(slab, ShardedSlab):
+        slab.index_copy_(0, idx, rows)
+        return
+    cl = slab.placement.local_cap
+    owner = idx // cl
+    for r, shard in enumerate(slab.shards):
+        sel = (owner == r).nonzero(as_tuple=True)[0]
+        local = idx.index_select(0, sel) - slab.placement.offset(r)
+        shard.index_copy_(0, local.to(shard.device),
+                          rows.index_select(0, sel).to(shard.device))
+
+
+def _gather_sharded(slab: ShardedSlab, slots: dict) -> dict:
+    """``slab[slots]`` from a sharded slab: each rank gathers the rows it
+    owns (``slots`` from its device's entry of ``{device: int32 [n]}``),
+    one ``psum`` sums them → ``{device: rows}``."""
+    mesh = slab.placement.mesh
+    local = [_kops.gather_rows_sharded(shard, slots[d],
+                                       slab.placement.offset(r))
+             for r, (shard, d) in enumerate(zip(slab.shards, mesh.devices))]
+    return C.psum(local, mesh)
+
+
+def _gather(slab: torch.Tensor | ShardedSlab,
+            slots: torch.Tensor) -> torch.Tensor:
+    """Rows ``slab[slots]`` (int32, in range) through the gather kernels,
+    on ``slots``' device."""
+    if not isinstance(slab, ShardedSlab):
+        return _kops.gather_rows(slab, slots)
+    mesh = slab.placement.mesh
+    return _gather_sharded(slab, {d: slots.to(d) for d in
+                                  mesh.distinct_devices})[slots.device]
+
+
 def _write(state: TableState, keep: torch.Tensor, slots: torch.Tensor,
            keys: torch.Tensor, values: torch.Tensor,
            stamps: torch.Tensor) -> None:
@@ -136,7 +232,7 @@ def _write(state: TableState, keep: torch.Tensor, slots: torch.Tensor,
     slot, so the scatter is order-independent."""
     sel = keep.nonzero(as_tuple=True)[0]
     idx = slots.index_select(0, sel).to(torch.int64)
-    state.slab.index_copy_(0, idx, values.index_select(0, sel))
+    _scatter_rows(state.slab, idx, values.index_select(0, sel))
     state.keys.index_copy_(0, idx, keys.index_select(0, sel))
     state.version.index_copy_(0, idx, stamps.index_select(0, sel))
 
@@ -155,7 +251,7 @@ def _slot_for_put(spec: TableSpec, state: TableState,
 
 def put(spec: TableSpec, state: TableState, key, value) -> TableState:
     """Insert/overwrite one element (in place; see module docstring)."""
-    dev = state.slab.device
+    dev = state.keys.device
     value = _as_values(spec, value, dev)
     if tuple(value.shape) != spec.shape:
         raise ValueError(
@@ -164,7 +260,7 @@ def put(spec: TableSpec, state: TableState, key, value) -> TableState:
     key = _as_keys(key, dev).reshape(())
     slot = _slot_for_put(spec, state, key).to(torch.int64).reshape(1)
     stamp = state.count + 1
-    state.slab.index_copy_(0, slot, value.unsqueeze(0))
+    _scatter_rows(state.slab, slot, value.unsqueeze(0))
     state.keys.index_copy_(0, slot, key.reshape(1))
     state.version.index_copy_(0, slot, stamp.reshape(1))
     new_ptr = (state.ptr + 1) % spec.capacity if spec.engine == "ring" \
@@ -176,7 +272,7 @@ def put_many(spec: TableSpec, state: TableState, keys, values) -> TableState:
     """Vectorized put of n elements; collisions resolve last-writer-wins
     with every element bumping ``count``, exactly like n single puts (the
     batched hash path probes the homed slot only, as in the reference)."""
-    dev = state.slab.device
+    dev = state.keys.device
     keys = _as_keys(keys, dev)
     values = _as_values(spec, values, dev)
     n = keys.shape[0]
@@ -207,7 +303,7 @@ def put_masked(spec: TableSpec, state: TableState, keys, values,
     """Vectorized put of the masked subset of a chunk, in chunk order —
     equal to replaying the masked elements' single puts (slots, stamps,
     ``count`` and last-writer-wins collisions all match)."""
-    dev = state.slab.device
+    dev = state.keys.device
     keys = _as_keys(keys, dev)
     values = _as_values(spec, values, dev)
     mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
@@ -244,7 +340,7 @@ def put_stream(spec: TableSpec, state: TableState, keys,
     ``values [T, *shape]``, or ``keys [T, R]`` / ``values [T, R, *shape]``
     (T steps of R ranks, time-major) — equal to the sequence of
     ``put``/``put_many`` calls, last writer winning on a slot."""
-    dev = state.slab.device
+    dev = state.keys.device
     keys = _as_keys(keys, dev)
     values = _as_values(spec, values, dev)
     if keys.dim() == 2:
@@ -257,21 +353,23 @@ def put_stream(spec: TableSpec, state: TableState, keys,
 def get(spec: TableSpec, state: TableState, key):
     """Fetch by key → ``(value, found)``; zeros if absent.  The lowest live
     slot wins (the reference's argmax); ``EMPTY_KEY`` is never found."""
-    key = _as_keys(key, state.slab.device).reshape(())
+    key = _as_keys(key, state.keys.device).reshape(())
     match = (state.keys == key) & (state.version > 0)
     found = match.any() & (key != EMPTY_KEY)
     idx = match.to(torch.int32).argmax().reshape(1)
-    value = state.slab.index_select(0, idx)[0]
+    value = _gather(state.slab, idx.to(torch.int32))[0] \
+        if isinstance(state.slab, ShardedSlab) \
+        else state.slab.index_select(0, idx)[0]
     return torch.where(found, value, torch.zeros_like(value)), found
 
 
 def get_many(spec: TableSpec, state: TableState, keys):
     """Vectorized get through the probe + gather kernels → ``(values
     [n, *shape], founds [n])``; duplicate keys resolve to the lowest slot."""
-    keys = _as_keys(keys, state.slab.device)
+    keys = _as_keys(keys, state.keys.device)
     idx, found = _kops.probe_slots(state.keys, state.version, keys)
     safe = idx.clamp(max=spec.capacity - 1)
-    values = _kops.gather_rows(state.slab, safe)
+    values = _gather(state.slab, safe)
     values = torch.where(found.reshape((-1,) + (1,) * len(spec.shape)),
                          values, torch.zeros((), dtype=values.dtype,
                                              device=values.device))
@@ -287,13 +385,29 @@ def serve_batch(req_spec: TableSpec, res_spec: TableSpec,
     and returns ``[n, *res_shape]``.  ``mask`` (host-known active slots)
     drives the insert.  Returns ``(new_res_state, found & mask, ys)``.
     """
-    dev = req_state.slab.device
+    dev = req_state.keys.device
     keys = _as_keys(keys, dev)
     mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
     xs, found = get_many(req_spec, req_state, keys)
     ys = apply_fn(params, xs).to(res_spec.dtype)
     new_res = put_masked(res_spec, res_state, keys, ys, mask)
     return new_res, found & mask, ys
+
+
+def _select(spec: TableSpec, version: torch.Tensor, draw: torch.Tensor):
+    """Slot selection of ``sample`` on ``version``'s device → ``(slots
+    int32 [n], ok)``."""
+    nvalid = (version > 0).sum(dtype=torch.int32)
+    top = nvalid.clamp(min=1)
+    ranks = torch.minimum((draw.to(version.device) * top).floor()
+                          .to(torch.int32), top - 1)
+    slots = _kops.sample_slots(version, ranks.contiguous())
+    return slots.clamp(max=spec.capacity - 1), nvalid > 0
+
+
+def _zero_unless(ok: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    return torch.where(ok, values, torch.zeros((), dtype=values.dtype,
+                                               device=values.device))
 
 
 def sample(spec: TableSpec, state: TableState, draw: torch.Tensor):
@@ -303,21 +417,37 @@ def sample(spec: TableSpec, state: TableState, draw: torch.Tensor):
     ``draw`` holds float uniforms in ``[0, 1)``, turned into ranks on the
     device as ``floor(u · max(nvalid, 1))`` — no host read, so a caller
     holding the table lock never waits for the card.  Returns ``(values
-    [n, *shape], keys [n], ok)``; ``ok`` is False and the values are zeros
-    when the table is empty.
+    [n, *shape], keys [n], ok)`` on the table's device; ``ok`` is False
+    and the values are zeros when the table is empty.  A sharded slab
+    takes :func:`sample_sharded_impl`.
     """
-    dev = state.version.device
-    nvalid = (state.version > 0).sum(dtype=torch.int32)
-    ok = nvalid > 0
-    top = nvalid.clamp(min=1)
-    ranks = torch.minimum((draw.to(dev) * top).floor().to(torch.int32),
-                          top - 1)
-    slots = _kops.sample_slots(state.version, ranks.contiguous())
-    slots = slots.clamp(max=spec.capacity - 1)
-    values = _kops.gather_rows(state.slab, slots)
-    values = torch.where(ok, values, torch.zeros((), dtype=values.dtype,
-                                                 device=dev))
+    if isinstance(state.slab, ShardedSlab):
+        values, keys, ok = sample_sharded_impl(spec, state, draw,
+                                               state.slab.placement.mesh)
+        return values[state.keys.device], keys, ok
+    slots, ok = _select(spec, state.version, draw)
+    values = _zero_unless(ok, _kops.gather_rows(state.slab, slots))
     return values, state.keys.index_select(0, slots), ok
+
+
+def sample_sharded_impl(spec: TableSpec, state: TableState,
+                        draw: torch.Tensor, mesh):
+    """:func:`sample` on a slab sharded over ``mesh``, with the batch on
+    every device of the mesh: slot selection once per distinct device
+    (replicated compute), each rank's owned rows through the
+    ``gather_sharded`` kernel, one ``psum`` — bit for bit the plain
+    gather, since each slot has one owner.  Returns ``(values {device:
+    [n, *shape]}, keys [n], ok)``, keys and ok on the table's device."""
+    slab = state.slab
+    if not isinstance(slab, ShardedSlab) or slab.placement.mesh != mesh:
+        raise ValueError(f"sample_sharded_impl: table {spec.name!r} is not "
+                         f"slab-sharded over this mesh")
+    sel = {d: _select(spec, state.version.to(d), draw)
+           for d in mesh.distinct_devices}
+    values = _gather_sharded(slab, {d: s for d, (s, _) in sel.items()})
+    slots, ok = sel[state.keys.device]
+    return ({d: _zero_unless(sel[d][1], v) for d, v in values.items()},
+            state.keys.index_select(0, slots), ok)
 
 
 def valid_count(spec: TableSpec, state: TableState) -> torch.Tensor:
@@ -407,8 +537,8 @@ def capture_scan_multi(spec: TableSpec, state: TableState,
             c_r, key, value = step_fn(tree_map(lambda x: x[r], carry), r,
                                       clocks[r] + i)
             carries.append(c_r)
-            keys.append(_as_keys(key, state.slab.device).reshape(()))
-            values.append(_as_values(spec, value, state.slab.device))
+            keys.append(_as_keys(key, state.keys.device).reshape(()))
+            values.append(_as_values(spec, value, state.keys.device))
         carry = tree_map(lambda *xs: torch.stack(xs), *carries)
         if (clocks[0] + i) % emit_every == 0:
             state = put_many(spec, state, torch.stack(keys),
@@ -443,10 +573,8 @@ latest = _not_ported("latest", "A3 (reproducer)")
 poll = _not_ported("poll", "A3 (reproducer)")
 delete = _not_ported("delete", "A4 (fault recovery)")
 capture_scan_collect = _not_ported("capture_scan_collect",
-                                   "A5 (multi-device tiers)")
+                                   "A5 (the Clustered deployment)")
 capture_scan_collect_multi = _not_ported("capture_scan_collect_multi",
-                                         "A5 (multi-device tiers)")
-sample_sharded_impl = _not_ported("sample_sharded_impl",
-                                  "A5 (multi-device tiers)")
+                                         "A5 (the Clustered deployment)")
 make_clustered_gather = _not_ported("make_clustered_gather",
-                                    "A5 (multi-device tiers)")
+                                    "A5 (the Clustered deployment)")

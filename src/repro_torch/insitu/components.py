@@ -1,12 +1,11 @@
 """Declarative in-situ components: *what* runs, never *how*.
 
-Port of ``src/repro/insitu/components.py`` — the single-device
-components: the simulation ``Producer``, the ``TrainerConsumer``, the
-``InferenceConsumer`` and the serving plane's two components, each with
-its typed output.  What needs several devices raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item: a sharded
-producer element (``elem_sharding``) and multi-consumer training
-(``count > 1``), both A5.
+Port of ``src/repro/insitu/components.py``: the simulation
+``Producer``, the ``TrainerConsumer`` (on one device or, through its
+config's mesh, data-parallel), the ``InferenceConsumer`` and the serving
+plane's two components, each with its typed output.  A sharded producer
+element (``elem_sharding``) and multi-consumer training (``count > 1``)
+raise ``NotImplementedError`` naming ``ROADMAP.md`` A5.
 
 Two contracts differ from the reference: ``TrainerConsumer`` takes the
 trainer's random ``draws`` (see ``ml.trainer``), and an inference
@@ -80,8 +79,9 @@ class ProducerOutput:
 class TrainerConsumer:
     """A training component (the paper's ML ranks).
 
-    ``cfg`` carries the numerics; the tier (per-verb or fused) is resolved
-    by the plan from ``cfg`` unless forced via ``tier``.  Set
+    ``cfg`` carries the numerics; the tier (per-verb, fused, or over
+    ``cfg.mesh`` ``sharded_fused`` / ``slab_sharded``) is resolved by the
+    plan from ``cfg`` unless forced via ``tier``.  Set
     ``model_key`` to publish the trained encoder into the model registry
     (plus a ``"trained"`` metadata flag) for downstream
     :class:`InferenceConsumer`\\ s; ``publish_every`` also publishes a

@@ -1,21 +1,22 @@
 """Plan: tier selection as *data*.
 
-Port of ``src/repro/insitu/plan.py`` — the single-device part: the
+Port of ``src/repro/insitu/plan.py`` — the local deployment: the
 producer, trainer, inference and serving tiers, the per-component
 dispatch and model-swap predictions, and the frozen :class:`Plan` whose
 predictions the tests hold against ``StoreServer.stats()``.
 
 =============  =====================================================
 producer       ``per_verb`` | ``capture_scan`` | ``capture_scan_multi``
-trainer        ``per_verb`` | ``fused``
+trainer        ``per_verb`` | ``fused`` | ``sharded_fused`` |
+               ``slab_sharded``
 inference      ``fused_registry`` | ``three_step``
 serving        ``continuous_batch`` | ``three_step``
 =============  =====================================================
 
-The reference's sharded tiers (``capture_scan_sharded``,
-``sharded_fused``, ``slab_sharded[_clustered]``), staged-transfer and
-fault predictions and the contention model are ``ROADMAP.md`` A4–A5;
-the collective predictions of ``plan(hlo=True)`` are A6.
+The reference's ``capture_scan_sharded`` and ``slab_sharded_clustered``
+tiers, its staged-transfer and fault predictions and the contention model
+are ``ROADMAP.md`` A4–A5; the collective predictions of
+``plan(hlo=True)`` are A6.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ __all__ = [
 ]
 
 PRODUCER_TIERS = ("per_verb", "capture_scan", "capture_scan_multi")
-TRAINER_TIERS = ("per_verb", "fused")
+TRAINER_TIERS = ("per_verb", "fused", "sharded_fused", "slab_sharded")
 INFERENCE_TIERS = ("fused_registry", "three_step")
 SERVING_TIERS = ("continuous_batch", "three_step")
 
@@ -62,15 +63,36 @@ def producer_tier(comp) -> str:
 
 def trainer_tier(cfg, override: str | None = None) -> str:
     """Resolve a trainer tier from a ``TrainerConfig`` (the rule
-    ``ml.trainer.insitu_train`` consults when no plan names one)."""
+    ``ml.trainer.insitu_train`` consults when no plan names one): a forced
+    tier is checked against the config, with the reference's errors."""
+    mesh_tiers = ("sharded_fused", "slab_sharded")
     if override is not None:
+        if override == "slab_sharded_clustered":
+            raise NotImplementedError(
+                "tier slab_sharded_clustered (the Clustered deployment): "
+                "ROADMAP.md A5")
         if override not in TRAINER_TIERS:
             raise ValueError(f"unknown trainer tier {override!r} "
                              f"(have {TRAINER_TIERS})")
+        if override in mesh_tiers and cfg.mesh is None:
+            raise ValueError(f"{override} needs cfg.mesh")
+        if override not in mesh_tiers and cfg.mesh is not None:
+            raise ValueError(
+                f"cfg.mesh is set; tier {override!r} would ignore it")
+        if override == "slab_sharded" and not cfg.slab_sharded:
+            raise ValueError(f"{override} needs cfg.slab_sharded=True")
+        if override != "slab_sharded" and cfg.slab_sharded:
+            raise ValueError(
+                f"cfg.slab_sharded is set; tier {override!r} would pass "
+                f"the table replicated")
         if override != "per_verb" and not cfg.fused:
             raise ValueError(f"tier {override!r} needs cfg.fused=True")
         return override
-    return "fused" if cfg.fused else "per_verb"
+    if not cfg.fused:
+        return "per_verb"
+    if cfg.mesh is None:
+        return "fused"
+    return "slab_sharded" if cfg.slab_sharded else "sharded_fused"
 
 
 def inference_tier(comp) -> str:
@@ -113,6 +135,7 @@ class ComponentPlan:
     steps: int = 0               # producer steps / epochs / calls / requests
     chunk: int = 0               # fused producer: steps per capture
     bucketed: bool = False
+    mesh_devices: int = 1        # mesh trainer: ranks of its mesh
     #: predicted store dispatches this component will perform, by cause.
     dispatches: tuple[tuple[str, int], ...] = ()
     #: predicted model-generation adoptions (serving hot-swap).
@@ -138,6 +161,7 @@ class ComponentPlan:
         if self.kind == "trainer":
             out["dispatches_per_epoch"] = \
                 dict(self.dispatches).get("epoch", 0) / max(1, self.steps)
+            out["mesh_devices"] = self.mesh_devices
         if self.kind in ("clients", "serving"):
             out["requests"] = self.steps
         if self.kind == "serving":
@@ -192,6 +216,8 @@ class Plan:
                 if c.tier != "per_verb":
                     bits.append(f"chunk={c.chunk}"
                                 + ("+bucketed" if c.bucketed else ""))
+            if c.kind == "trainer" and c.mesh_devices > 1:
+                bits.append(f"mesh={c.mesh_devices}dev")
             if c.kind == "serving":
                 bits.append(f"requests={c.steps} swaps={c.swaps}")
             lines.append(f"  {c.name} [{c.kind}]: " + " ".join(bits))
@@ -218,9 +244,10 @@ def producer_dispatches(tier: str, steps: int, emit_every: int,
 
 def trainer_dispatches(tier: str, epochs: int, bootstrap: bool
                        ) -> tuple[tuple[str, int], ...]:
-    """One store op per epoch on either tier (a capture, or the per-verb
-    tier's one ``sample``), plus the one-off norm-stats bootstrap sample
-    for the trainer that pays it."""
+    """One store op per epoch on every tier (a capture, or the per-verb
+    tier's one ``sample``; a mesh tier's ranks share its capture), plus
+    the one-off norm-stats bootstrap sample for the trainer that pays
+    it."""
     out = [("epoch", epochs)]
     if bootstrap:
         out.append(("norm_bootstrap", 1))

@@ -1,7 +1,7 @@
 """InSituSession: one declarative call for a coupling scenario.
 
-Port of ``src/repro/insitu/session.py`` — the local deployment on one
-device.  Declare *what* runs,
+Port of ``src/repro/insitu/session.py`` — the local deployment.  Declare
+*what* runs,
 
     session = InSituSession(
         tables=[TableSpec("field", shape=(4, n), capacity=24)],
@@ -15,11 +15,13 @@ device.  Declare *what* runs,
 
 and the :class:`~.plan.Plan` resolver picks *how*: per-verb vs
 ``capture_scan`` vs ``capture_scan_multi`` producers, per-verb vs fused
-trainers, fused-registry vs three-step inference, continuous-batching vs
-three-step serving.  It predicts the store dispatches that
-``result.server.stats()`` must show.  Deployments other than ``None``
-(``ROADMAP.md`` A5), an armed ``FaultPlan`` (A4) and ``plan(hlo=True)``
-(A6) raise.
+vs mesh (``sharded_fused``, ``slab_sharded``) trainers, fused-registry vs
+three-step inference, continuous-batching vs three-step serving.  It
+predicts the store dispatches that ``result.server.stats()`` must show.
+A table that a slab-sharded trainer reads is created split over that
+trainer's mesh (``parallel.sharding.slab_sharding``).  Deployments other
+than ``None`` (``ROADMAP.md`` A5), an armed ``FaultPlan`` (A4) and
+``plan(hlo=True)`` (A6) raise.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ..core.telemetry import block_until_ready
 from ..device import resolve_device
 from ..ml import autoencoder as ae
 from ..ml import trainer as tr
+from ..parallel.sharding import slab_sharding
 from ..serve.engine import ServeLoop, request_key, submitted_meta
 from ..tree import tree_map
 from . import plan as P
@@ -89,7 +92,8 @@ class InSituSession:
             raise ValueError("a session needs at least one component")
         if deployment is not None:
             raise NotImplementedError(
-                "deployments other than local: ROADMAP.md A5")
+                "Colocated/Clustered deployments (the element-sharded "
+                "producer, the dedicated store mesh): ROADMAP.md A5")
         if faults is not None:
             raise NotImplementedError("armed FaultPlan: ROADMAP.md A4")
         self.tables = tuple(tables)
@@ -193,9 +197,12 @@ class InSituSession:
                         chunk)))
             elif isinstance(comp, TrainerConsumer):
                 tier = P.trainer_tier(comp.cfg, comp.tier)
+                mesh = comp.cfg.mesh
                 entries.append(P.ComponentPlan(
                     name=comp.name, kind="trainer", tier=tier,
                     table=comp.cfg.table, steps=comp.cfg.epochs,
+                    mesh_devices=1 if mesh is None
+                    else mesh.shape[comp.cfg.mesh_axis],
                     dispatches=P.trainer_dispatches(
                         tier, comp.cfg.epochs, bootstrap=first_trainer)))
                 first_trainer = False
@@ -242,6 +249,19 @@ class InSituSession:
             raise ValueError(f"no ServingConsumer drains table {table!r}")
         return c.results
 
+    # -- table placement (the slab-sharded data plane) ----------------------
+
+    def _table_shardings(self) -> dict[str, Any]:
+        """Each table a slab-sharded trainer reads → its placement over
+        that trainer's mesh (the other tables stay whole)."""
+        out = {}
+        for comp in self.components:
+            if isinstance(comp, TrainerConsumer) and comp.cfg.slab_sharded:
+                out[comp.cfg.table] = slab_sharding(
+                    self._spec(comp.cfg.table), comp.cfg.mesh,
+                    comp.cfg.mesh_axis)
+        return out
+
     # -- runtime ------------------------------------------------------------
 
     def run(self, plan: P.Plan | None = None, max_wall_s: float = 300.0,
@@ -256,6 +276,7 @@ class InSituSession:
         prints one line per trainer epoch."""
         plan = plan or self.plan()
         driver = InSituDriver(tables=self.tables, straggler=self.straggler,
+                              table_shardings=self._table_shardings(),
                               device=self.device)
         if preload is not None:
             preload(driver.server)

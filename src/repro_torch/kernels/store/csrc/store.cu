@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the TensorStore's batched reads:
 // the key probe and the slab row gather behind ``get_many``, and the rank
-// -> slot selection behind ``sample`` (the trainer's random gather).
+// -> slot selection behind ``sample`` (the trainer's random gather), and
+// the shard-local row gather of a slot-sharded slab.
 //
 // probe_slots replaces src/repro/kernels/store/kernel.py::probe
 // (_probe_kernel).  For each query key it returns the lowest live slot that
@@ -39,6 +40,23 @@
 //   itself into a rank -> slot map (scratch the wrapper allocates).  After a
 //   __syncthreads() each query reads the map, or takes capacity or 0.  O(C + n)
 //   work in one launch, no atomics, no device-wide scan.
+//
+// gather_rows_sharded replaces src/repro/kernels/store/kernel.py::
+// gather_sharded (_gather_sharded_kernel).  The slab-sharded data plane
+// splits a table's slab along its slot axis: a rank holds slots
+// [offset, offset + local_cap) as its own [local_cap, *elem] tensor.  For
+// global slots s, rows[r] = local_slab[s - offset] where the rank owns s,
+// and a zero row where another rank does; summing the ranks' results (the
+// caller's psum) gives the whole batch, exactly, since each slot has one
+// owner.
+//   Bound: bytes, (owned rows + n) * row_bytes + 4 n over 3.35 TB/s: an
+//   owned row is read once, every row is written once.  At the training
+//   table's shapes (6 rows of 32 KB, 2 ranks) that is ~0.1 us, so the
+//   launch bounds it, as for gather.  Design: gather_kernel's grid and its
+//   16-byte copies; the offset is a kernel argument (the TPU kernel's
+//   scalar prefetch), and ownership is decided once per block, so a row
+//   owned elsewhere is written as zeros without reading the slab (the TPU
+//   kernel DMAs the clamped row and masks it: the same result).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,6 +106,42 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(
     const long long u = base + (long long)k * kThreads + threadIdx.x;
     if (u < row_units) dst[u] = ok ? src[u] : zero;
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) gather_sharded_kernel(
+    const T* __restrict__ local_slab, const int* __restrict__ slots,
+    T* __restrict__ out, long long row_units, int local_cap, int offset) {
+  const int r = blockIdx.x;
+  const long long s = (long long)slots[r] - offset;
+  T* dst = out + (size_t)r * row_units;
+  const long long base = (long long)blockIdx.y * kThreads * kUnitsPerThread;
+  if (s >= 0 && s < local_cap) {  // uniform across the block
+    const T* src = local_slab + (size_t)s * row_units;
+#pragma unroll
+    for (int k = 0; k < kUnitsPerThread; ++k) {
+      const long long u = base + (long long)k * kThreads + threadIdx.x;
+      if (u < row_units) dst[u] = src[u];
+    }
+  } else {
+    const T zero = T();
+#pragma unroll
+    for (int k = 0; k < kUnitsPerThread; ++k) {
+      const long long u = base + (long long)k * kThreads + threadIdx.x;
+      if (u < row_units) dst[u] = zero;
+    }
+  }
+}
+
+template <typename T>
+void launch_gather_sharded(const void* slab, const void* slots, void* out,
+                           long long row_units, int local_cap, int offset,
+                           int n, cudaStream_t stream) {
+  const long long per_block = (long long)kThreads * kUnitsPerThread;
+  dim3 grid(n, (unsigned)((row_units + per_block - 1) / per_block));
+  gather_sharded_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(slab), static_cast<const int*>(slots),
+      static_cast<T*>(out), row_units, local_cap, offset);
 }
 
 template <typename T>
@@ -167,6 +221,23 @@ extern "C" int gather_rows(const void* slab, const void* slots, void* out,
     launch_gather<uint4>(slab, slots, out, row_bytes / 16, capacity, n, s);
   else
     launch_gather<unsigned char>(slab, slots, out, row_bytes, capacity, n, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gather_rows_sharded(const void* slab, const void* slots,
+                                   void* out, long long row_bytes,
+                                   int local_cap, int offset, int n,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = row_bytes % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(slab) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec)
+    launch_gather_sharded<uint4>(slab, slots, out, row_bytes / 16, local_cap,
+                                 offset, n, s);
+  else
+    launch_gather_sharded<unsigned char>(slab, slots, out, row_bytes,
+                                         local_cap, offset, n, s);
   return static_cast<int>(cudaGetLastError());
 }
 

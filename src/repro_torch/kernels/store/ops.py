@@ -3,8 +3,7 @@
 Port of ``src/repro/kernels/store/ops.py``.  The wrapper dispatches on the
 device of the tensors it is given: CPU tensors take the plain PyTorch
 version (``ref.py``); CUDA tensors launch the hand-written kernel in
-``csrc/store.cu`` or raise — there is no fallback.  ``gather_rows_sharded``
-belongs to a later slice (``ROADMAP.md`` B2).
+``csrc/store.cu`` or raise — there is no fallback.
 """
 
 from __future__ import annotations
@@ -15,10 +14,12 @@ from pathlib import Path
 import torch
 
 from .. import _build
-from .ref import KEY_DTYPE, gather_rows_ref, probe_slots_ref, sample_slots_ref
+from .ref import (KEY_DTYPE, gather_rows_ref, gather_rows_sharded_ref,
+                  probe_slots_ref, sample_slots_ref)
 
 __all__ = ["probe_slots", "gather_rows", "sample_slots",
-           "gather_rows_sharded", "PROBE", "GATHER", "SAMPLE"]
+           "gather_rows_sharded", "PROBE", "GATHER", "SAMPLE",
+           "GATHER_SHARDED"]
 
 _P = ctypes.c_void_p
 _LIB = _build.Library("store", Path(__file__).parent / "csrc" / "store.cu")
@@ -32,6 +33,10 @@ GATHER = _build.Kernel(_LIB, "gather_rows",
 #: ``kernel.py::sample`` on Hopper (see ``csrc/store.cu``).
 SAMPLE = _build.Kernel(_LIB, "sample_slots",
                        [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P])
+#: ``kernel.py::gather_sharded`` on Hopper (see ``csrc/store.cu``).
+GATHER_SHARDED = _build.Kernel(_LIB, "gather_rows_sharded",
+                               [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, _P])
 
 
 def _stream(t: torch.Tensor) -> _P:
@@ -116,5 +121,27 @@ def sample_slots(version: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gather_rows_sharded(*_args, **_kwargs):
-    raise NotImplementedError("gather_rows_sharded: ROADMAP.md B2")
+def gather_rows_sharded(local_slab: torch.Tensor, slots: torch.Tensor,
+                        offset: int) -> torch.Tensor:
+    """Shard-local row gather for a slot-sharded slab.
+
+    ``local_slab [Cl, *elem]`` is one rank's shard, holding global slots
+    ``[offset, offset + Cl)``; ``slots`` (int32 ``[n]``) are global slot
+    indices.  Returns ``[n, *elem]`` rows, zeros where another shard owns
+    the slot; summing every shard's result gives ``slab[slots]`` exactly.
+    """
+    if local_slab.device.type == "cpu":
+        return gather_rows_sharded_ref(local_slab, slots, offset)
+    _check_cuda("gather_rows_sharded", local_slab, slots)
+    if slots.dtype != torch.int32 or slots.dim() != 1:
+        raise TypeError(f"gather_rows_sharded takes int32 slots [n], got "
+                        f"{slots.dtype} {tuple(slots.shape)}")
+    n = slots.shape[0]
+    out = torch.empty((n, *local_slab.shape[1:]), dtype=local_slab.dtype,
+                      device=local_slab.device)
+    row_bytes = out[0].numel() * out.element_size() if n else 0
+    if n and row_bytes:
+        GATHER_SHARDED.launch(local_slab.data_ptr(), slots.data_ptr(),
+                              out.data_ptr(), row_bytes, local_slab.shape[0],
+                              int(offset), n, _stream(local_slab))
+    return out

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["probe_slots_ref", "sample_slots_ref", "gather_rows_ref",
-           "EMPTY_KEY", "KEY_DTYPE"]
+           "gather_rows_sharded_ref", "EMPTY_KEY", "KEY_DTYPE"]
 
 EMPTY_KEY = 0xFFFFFFFF
 KEY_DTYPE = torch.int64
@@ -65,3 +65,19 @@ def sample_slots_ref(version: torch.Tensor,
 def gather_rows_ref(slab: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Row gather ``slab[slots]`` (slots already clamped in range)."""
     return slab.index_select(0, slots.to(torch.int64))
+
+
+def gather_rows_sharded_ref(local_slab: torch.Tensor, slots: torch.Tensor,
+                            offset: int) -> torch.Tensor:
+    """Shard-local row gather: ``local_slab [Cl, *elem]`` is one shard of
+    the slot-sharded slab, ``slots`` are global indices, ``offset`` is the
+    shard's first global slot.  Rows owned by other shards come out as
+    zeros (the caller sums the shards' results)."""
+    local_cap = local_slab.shape[0]
+    slots = slots.to(torch.int64)
+    local = (slots - offset).clamp(0, local_cap - 1)
+    rows = local_slab.index_select(0, local)
+    owned = (slots >= offset) & (slots < offset + local_cap)
+    mask = owned.reshape((-1,) + (1,) * (local_slab.dim() - 1))
+    return torch.where(mask, rows, torch.zeros((), dtype=rows.dtype,
+                                                device=rows.device))

@@ -1,12 +1,12 @@
 """In-situ trainer (the paper's data-consumer component, §4).
 
-Port of ``src/repro/ml/trainer.py`` — the single-device tiers.  At the
-start of each epoch the trainer gathers ``gather`` snapshots from the store
-at random, standardises them with per-channel statistics published once as
-store metadata, holds one out for validation, and runs Adam on the rest in
-mini-batches; MSE loss, lr scaled by the rank count (paper §4).
+Port of ``src/repro/ml/trainer.py``.  At the start of each epoch the
+trainer gathers ``gather`` snapshots from the store at random, standardises
+them with per-channel statistics published once as store metadata, holds
+one out for validation, and runs Adam on the rest in mini-batches; MSE
+loss, lr scaled by the rank count (paper §4).
 
-Two tiers, one numerics (``EPOCH_BUILDERS``):
+Four tiers (``EPOCH_BUILDERS``), all on the same data stream:
 
 * ``fused`` — the epoch runs as one read-only capture of the table
   (``Client.capture_epoch``): one store op per epoch.  In the reference
@@ -16,6 +16,14 @@ Two tiers, one numerics (``EPOCH_BUILDERS``):
 * ``per_verb`` — one ``sample_batch`` verb, then the same microsteps.  It
   trains on the same data in the same order, and the two tiers give
   bit-identical ``TrainState``\\ s.
+* ``sharded_fused`` and ``slab_sharded`` — the fused epoch with DDP over
+  ``cfg.mesh`` (:func:`make_sharded_fused_epoch`): each rank of each
+  microstep takes its ``batch_size / D`` slice, the gradients and loss are
+  summed with ``collectives.psum`` and divided by D, and one Adam update
+  runs per distinct device of the mesh.  ``sharded_fused`` enters with the
+  table whole on every device (a slab-sharded table is all-gathered);
+  ``slab_sharded`` gathers each rank's own rows from the sharded slab
+  (``store.sample_sharded_impl``) and equals ``sharded_fused`` bit for bit.
 
 Differences from the reference, all deliberate:
 
@@ -30,9 +38,9 @@ Differences from the reference, all deliberate:
   updates the one it was given, so the off-clock warm-up on an empty
   table (the reference's compile warm-up, here cuBLAS and allocator
   set-up, timed as ``warmup``) leaves the model untouched.
-* The multi-device tiers (``mesh``, ``ddp``, ``slab_sharded``,
-  ``db_mesh``) and crash recovery (``memckpt``) raise
-  ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+* ``ddp="int8"``, the clustered tier (``db_mesh``) and crash recovery
+  (``memckpt``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
+  item.
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ from ..core import store as S
 from ..core.client import Client
 from ..core.telemetry import block_until_ready
 from ..device import resolve_device
+from ..parallel import collectives as C
+from ..parallel.sharding import slab_sharding
 from ..train import optimizer as opt
 from ..tree import tree_map, value_and_grad
 from . import autoencoder as ae
@@ -54,8 +64,8 @@ from . import autoencoder as ae
 __all__ = ["TrainState", "TrainerConfig", "EpochResult", "EpochDraws",
            "TrainDraws", "draw_epoch", "default_draws", "init_state",
            "train_state_from_numpy", "value_and_grad", "make_train_step",
-           "make_fused_epoch",
-           "make_per_verb_epoch", "EPOCH_BUILDERS", "insitu_train"]
+           "make_fused_epoch", "make_per_verb_epoch",
+           "make_sharded_fused_epoch", "EPOCH_BUILDERS", "insitu_train"]
 
 
 class TrainState(NamedTuple):
@@ -69,8 +79,10 @@ class TrainerConfig:
     """Consumer-loop configuration (paper §4 values as defaults).
 
     ``fused`` picks the one-capture epoch (default) over the per-verb
-    loop.  ``mesh``, ``ddp``, ``slab_sharded`` and ``db_mesh`` configure
-    the reference's multi-device tiers and raise here (``ROADMAP.md`` A5).
+    loop.  ``mesh`` (a ``parallel.sharding.Mesh``) trains data-parallel
+    over its ``mesh_axis`` with the exact ``ddp="psum"``; ``slab_sharded``
+    has the table enter the epoch split over that mesh.  ``ddp="int8"``
+    and ``db_mesh`` raise (``ROADMAP.md`` A5).
     """
 
     ae: ae.AEConfig
@@ -84,20 +96,28 @@ class TrainerConfig:
     table: str = "field"
     seed: int = 0
     fused: bool = True           # one-capture epochs via Client.capture_epoch
-    mesh: Any = None
-    ddp: str = "psum"
-    slab_sharded: bool = False
-    db_mesh: Any = None
+    mesh: Any = None             # parallel.sharding.Mesh -> DDP tiers
+    mesh_axis: str = "data"      # mesh axis the batch shards over
+    ddp: str = "psum"            # "psum" (exact); "int8" is A5
+    slab_sharded: bool = False   # table enters the epoch pre-sharded
+    db_mesh: Any = None          # the clustered tier: A5
 
     def __post_init__(self):
-        for name, unset in (("mesh", self.mesh is None),
-                            ("ddp", self.ddp == "psum"),
-                            ("slab_sharded", not self.slab_sharded),
-                            ("db_mesh", self.db_mesh is None)):
-            if not unset:
-                raise NotImplementedError(
-                    f"TrainerConfig.{name}: the multi-device trainer tiers "
-                    f"are ROADMAP.md A5")
+        if self.ddp not in ("psum", "int8"):
+            raise ValueError(f"unknown ddp mode {self.ddp!r}")
+        if self.ddp == "int8":
+            raise NotImplementedError(
+                "TrainerConfig.ddp='int8' (parallel/compress.py): "
+                "ROADMAP.md A5")
+        if self.db_mesh is not None:
+            raise NotImplementedError(
+                "TrainerConfig.db_mesh (tier slab_sharded_clustered): "
+                "ROADMAP.md A5")
+        if self.mesh is not None and not self.fused:
+            raise ValueError("mesh-sharded training requires fused=True")
+        if self.slab_sharded and self.mesh is None:
+            raise ValueError("slab_sharded needs a mesh (the slab shards "
+                             "over cfg.mesh_axis)")
 
     @property
     def scaled_lr(self) -> float:
@@ -315,9 +335,106 @@ def make_per_verb_epoch(cfg: TrainerConfig, levels,
     return epoch
 
 
-#: trainer tier → epoch builder (the plan's ``trainer_tier`` picks the key)
+def make_sharded_fused_epoch(cfg: TrainerConfig, levels,
+                             tx: opt.GradientTransformation,
+                             spec: S.TableSpec):
+    """The fused epoch with DDP over ``cfg.mesh``'s ``cfg.mesh_axis`` (D
+    ranks), the reference's one ``shard_map`` as a loop over the ranks.
+
+    Same signature and draws as :func:`make_fused_epoch`, so the data
+    stream is the fused tier's.  The gather and the data step run once per
+    distinct device of the mesh (replicated compute); each microstep's
+    ranks take their ``batch_size / D`` slices of the mini-batch, the
+    gradients and the loss are ``psum``-ed and divided by D, and each
+    distinct device applies one Adam update to its replica of the state
+    (so ranks sharing a card share one).  Validation runs on rank 0's
+    device, which holds the returned state and metrics.
+
+    ``cfg.slab_sharded`` picks the table's entry: split (the slab-sharded
+    gather, ``store.sample_sharded_impl``) or whole on every device — a
+    slab-sharded table is then ``all_gather``-ed on entry.
+    """
+    mesh = cfg.mesh
+    if mesh is None:
+        raise ValueError("make_sharded_fused_epoch needs cfg.mesh")
+    axis = cfg.mesh_axis
+    ndev = int(mesh.shape[axis])
+    bs, starts = _windows(cfg)
+    if bs % ndev:
+        raise ValueError(
+            f"batch_size {bs} must divide by mesh axis {axis!r} size {ndev}")
+    if cfg.slab_sharded and spec.capacity % ndev:
+        raise ValueError(
+            f"slab-sharded entry needs capacity {spec.capacity} "
+            f"divisible by mesh axis {axis!r} size {ndev}")
+    bl = bs // ndev
+    home = mesh.devices[0]
+    devices = mesh.distinct_devices
+    lv = {d: tree_map(lambda t: t.to(d), levels) for d in devices}
+
+    def grads_of(params, dev, batch):
+        return value_and_grad(
+            lambda p: ae.loss_fn(p, cfg.ae, lv[dev], batch), params)
+
+    def epoch(table_state: S.TableState, state: TrainState,
+              draws: EpochDraws, mu, sd):
+        if cfg.slab_sharded:
+            vals, _, ok = S.sample_sharded_impl(spec, table_state,
+                                                draws.sample, mesh)
+        else:
+            vals, ok = _replicated_sample(spec, table_state, draws.sample,
+                                          mesh)
+        data = {d: _prep(cfg, v, draws, mu.to(d), sd.to(d))
+                for d, v in vals.items()}
+        states = {d: tree_map(lambda t: t.to(d), state) for d in devices}
+        losses = []
+        for s in starts:
+            per_rank = [grads_of(states[d].params, d,
+                                 data[d][0][s + r * bl:s + (r + 1) * bl])
+                        for r, d in enumerate(mesh.devices)]
+            loss = C.psum([lo for lo, _ in per_rank], mesh)
+            grads = C.psum([g for _, g in per_rank], mesh)
+            with torch.no_grad():
+                for d in devices:
+                    g = tree_map(lambda x: x / ndev, grads[d])
+                    updates, opt_state = tx.update(g, states[d].opt_state,
+                                                   states[d].params)
+                    states[d] = TrainState(
+                        opt.apply_updates(states[d].params, updates),
+                        opt_state, states[d].step + 1)
+            losses.append(loss[home] / ndev)
+        val_loss, val_rel = _validate(cfg, lv[home], states[home].params,
+                                      data[home][1])
+        return states[home], (torch.stack(losses).mean(), val_loss, val_rel,
+                              ok)
+
+    return epoch
+
+
+def _replicated_sample(spec: S.TableSpec, table_state: S.TableState,
+                       draw: torch.Tensor, mesh):
+    """``store.sample`` on a whole copy of the table on every distinct
+    device of ``mesh`` → ``({device: values}, ok)``.  A slab-sharded table
+    is all-gathered first (the reference's replicated entry)."""
+    slab = table_state.slab
+    if isinstance(slab, S.ShardedSlab):
+        whole = C.all_gather(slab.shards, mesh)
+    else:
+        whole = {d: slab.to(d) for d in mesh.distinct_devices}
+    out = {d: S.sample(spec, table_state._replace(
+        slab=w, keys=table_state.keys.to(d),
+        version=table_state.version.to(d)), draw)
+        for d, w in whole.items()}
+    return {d: v for d, (v, _, _) in out.items()}, out[mesh.devices[0]][2]
+
+
+#: trainer tier → epoch builder (the plan's ``trainer_tier`` picks the
+#: key); the two mesh tiers share a builder, which reads the entry from
+#: ``cfg.slab_sharded`` (the tier rules keep the two consistent)
 EPOCH_BUILDERS: dict[str, Callable] = {
     "fused": make_fused_epoch,
+    "sharded_fused": make_sharded_fused_epoch,
+    "slab_sharded": make_sharded_fused_epoch,
     "per_verb": make_per_verb_epoch,
 }
 
@@ -338,7 +455,8 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
     metadata from one bootstrap gather (unless another trainer already
     did), warms the epoch up off the clock on an empty table, and runs
     ``cfg.epochs`` epochs of ``tier`` (default: ``plan.trainer_tier(cfg)``)
-    on the server's device.  ``draws`` defaults to :func:`default_draws`.
+    on the server's device (the mesh tiers: on ``cfg.mesh``, whose rank 0
+    should be that device).  ``draws`` defaults to :func:`default_draws`.
     ``on_checkpoint(epoch, state)`` fires at the end of every epoch (the
     hot-swap publication hook); ``component`` names the declared crash
     point each epoch opens with.
@@ -361,7 +479,7 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
                            dev)
     spec = client.server.spec(cfg.table)
     epoch_fn = EPOCH_BUILDERS[tier](cfg, levels, tx, spec)
-    fused = tier == "fused"
+    fused = tier != "per_verb"
     if draws is None:
         draws = default_draws(cfg, dev)
     epoch_draws = iter(draws.epochs)
@@ -381,8 +499,12 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
 
     with client.timers.time("warmup"):
         if fused:
-            block_until_ready(epoch_fn(S.init_table(spec, dev), state,
-                                       _warm_draws(cfg, dev), mu, sd)[1])
+            # the slab-sharded tier warms up on a table placed like its own
+            placement = slab_sharding(spec, cfg.mesh, cfg.mesh_axis) \
+                if tier == "slab_sharded" else None
+            block_until_ready(epoch_fn(S.init_table(spec, dev, placement),
+                                       state, _warm_draws(cfg, dev), mu,
+                                       sd)[1])
         else:
             epoch_fn.warmup(state, mu, sd)
 

@@ -1,8 +1,11 @@
-"""Parameter specs on one device — port of the single-device part of
-``src/repro/parallel`` (meshes, pipelines and compression are
-``ROADMAP.md`` A5)."""
+"""Meshes, collectives and parameter specs — port of
+``src/repro/parallel`` (single-controller: a mesh is a list of devices;
+pipelines and compression are ``ROADMAP.md`` A5)."""
 
-from . import sharding
-from .sharding import ParamSpec, init_params, lm_params_from_numpy
+from . import collectives, sharding
+from .sharding import (Mesh, ParamSpec, SlabSharding, data_mesh, init_params,
+                       lm_params_from_numpy, slab_sharding)
 
-__all__ = ["sharding", "ParamSpec", "init_params", "lm_params_from_numpy"]
+__all__ = ["collectives", "sharding", "Mesh", "SlabSharding", "data_mesh",
+           "slab_sharding", "ParamSpec", "init_params",
+           "lm_params_from_numpy"]

@@ -1,0 +1,74 @@
+"""The mesh's collectives, as explicit functions over its ranks.
+
+The reference's ``lax.psum`` and ``all_gather`` inside a ``shard_map``
+become calls that take one value per rank of a
+:class:`~repro_torch.parallel.sharding.Mesh` and return one result per
+distinct device (``{device: tensor}``): ranks that share a device share
+its result.  The order of a sum is fixed (ascending rank), so every rank
+holds the same bits.  Where ranks sit on different devices the sum is
+taken on rank 0's device and then copied to the others.
+
+``COUNTS`` counts the calls by kind (``all_reduce``, ``all_gather``), a
+tree reduced in one ``psum`` counting once — the hook for the
+collective accounting of ``plan(hlo=True)`` (``ROADMAP.md`` A6).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Sequence
+
+import torch
+
+from ..tree import tree_map
+from .sharding import Mesh
+
+__all__ = ["psum", "all_gather", "COUNTS", "reset_counts"]
+
+#: calls so far, by kind
+COUNTS = {"all_reduce": 0, "all_gather": 0}
+_lock = threading.Lock()
+
+
+def reset_counts() -> None:
+    with _lock:
+        for k in COUNTS:
+            COUNTS[k] = 0
+
+
+def _count(kind: str) -> None:
+    with _lock:
+        COUNTS[kind] += 1
+
+
+def _per_rank(values: Sequence, mesh: Mesh) -> None:
+    if len(values) != mesh.size:
+        raise ValueError(f"{len(values)} values for a mesh of {mesh.size} "
+                         f"ranks")
+
+
+def _broadcast(value, mesh: Mesh) -> dict:
+    home = mesh.devices[0]
+    return {d: value if d == home else tree_map(lambda t: t.to(d), value)
+            for d in mesh.distinct_devices}
+
+
+def psum(per_rank: Sequence, mesh: Mesh) -> dict:
+    """Sum of one tensor (or tree of tensors) per rank, in ascending rank
+    order, on rank 0's device → ``{device: sum}``."""
+    _per_rank(per_rank, mesh)
+    _count("all_reduce")
+    home = mesh.devices[0]
+    total = per_rank[0]
+    for value in per_rank[1:]:
+        total = tree_map(lambda a, b: a + b.to(home), total, value)
+    return _broadcast(total, mesh)
+
+
+def all_gather(shards: Sequence[torch.Tensor], mesh: Mesh) -> dict:
+    """The ranks' slab shards concatenated along the slot axis →
+    ``{device: slab}``."""
+    _per_rank(shards, mesh)
+    _count("all_gather")
+    home = mesh.devices[0]
+    return _broadcast(torch.cat([s.to(home) for s in shards]), mesh)

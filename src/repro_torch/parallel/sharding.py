@@ -1,15 +1,26 @@
-"""Parameter specs and their materialization, on one device.
+"""Meshes, the slab placement rule, and parameter specs.
 
-Port of the single-device part of ``src/repro/parallel/sharding.py``
-(``:254-301``): :class:`ParamSpec` (shape, logical axes, initializer),
-:func:`init_params` and :func:`lm_params_from_numpy`.  The logical axes
-are kept so a spec tree reads like the reference's; they place nothing
-here (meshes and ``torch.distributed`` are ``ROADMAP.md`` A5).
+Port of ``src/repro/parallel/sharding.py``: :func:`data_mesh`,
+:func:`slab_sharding` and, from ``:254-301``, :class:`ParamSpec`,
+:func:`init_params` and :func:`lm_params_from_numpy`.
+
+The port is single-controller, as the reference is: one process holds the
+store, the producer and the trainer, and a mesh is an ordered list of
+``torch.device`` values, with an axis name, one entry per rank.  The
+reference's ``shard_map`` over the mesh becomes a loop over its ranks and
+its collectives become the explicit functions of
+:mod:`~repro_torch.parallel.collectives`.  Ranks may share a device when
+the caller lists it twice (``data_mesh(2, devices=["cuda:0"] * 2)``): the
+port's counterpart of the reference's forced host devices, and how one
+card runs a 2-rank mesh.  Multi-host ``torch.distributed`` is a later
+slice (``ROADMAP.md`` A5).  The logical axes of a :class:`ParamSpec` are
+kept so a spec tree reads like the reference's; they place nothing.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
@@ -17,7 +28,91 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["ParamSpec", "init_params", "lm_params_from_numpy"]
+__all__ = ["Mesh", "SlabSharding", "data_mesh", "slab_sharding",
+           "ParamSpec", "init_params", "lm_params_from_numpy"]
+
+
+def _canonical(device) -> torch.device:
+    """``device`` resolved (raising for CUDA without a card) and with the
+    index a tensor allocated there reports (``cuda`` → ``cuda:0``)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A 1-D mesh: ``devices[r]`` is rank ``r``'s device (repeats allowed)."""
+
+    devices: tuple[torch.device, ...]
+    axis: str = "data"
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {self.axis: len(self.devices)}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def distinct_devices(self) -> tuple[torch.device, ...]:
+        """Each device once, in rank order: where replicated state and
+        replicated compute live (once per device, whatever its ranks)."""
+        return tuple(dict.fromkeys(self.devices))
+
+
+@dataclass(frozen=True)
+class SlabSharding:
+    """The slab-sharded placement of one table: rank ``r`` of ``mesh``
+    owns slots ``[r * local_cap, (r + 1) * local_cap)``."""
+
+    mesh: Mesh
+    local_cap: int
+
+    def offset(self, rank: int) -> int:
+        return rank * self.local_cap
+
+
+def data_mesh(n_devices: int | None = None, axis: str = "data",
+              devices: Sequence | None = None) -> Mesh:
+    """A 1-D mesh over ``axis`` for data parallelism.
+
+    ``devices`` lists each rank's device and may repeat one; without it
+    the mesh takes the first ``n_devices`` visible CUDA devices (default:
+    all of them), and raises where there is no card.
+    """
+    if devices is None:
+        if not torch.cuda.is_available():
+            resolve_device("cuda")          # raises: no card
+        count = torch.cuda.device_count()
+        n = count if n_devices is None else int(n_devices)
+        if not 1 <= n <= count:
+            raise ValueError(f"data_mesh({n}): {count} CUDA devices visible")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    elif n_devices is not None and int(n_devices) != len(devices):
+        raise ValueError(f"data_mesh({n_devices}) given {len(devices)} "
+                         f"devices")
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    return Mesh(tuple(_canonical(d) for d in devices), axis)
+
+
+def slab_sharding(spec, mesh: Mesh | None, axis: str = "data"
+                  ) -> SlabSharding | None:
+    """Placement rule of the slab-sharded data plane: split a table's
+    ``[capacity, *elem]`` slab along its slot axis over mesh axis ``axis``,
+    ``capacity / D`` slots a rank.  ``None`` (the table stays whole on the
+    server's device) without a mesh or when ``capacity`` does not divide
+    by ``D`` — the reference then places it replicated.  ``spec`` is a
+    ``core.store.TableSpec`` (anything with ``capacity``)."""
+    if mesh is None:
+        return None
+    d = mesh.shape[axis]
+    if spec.capacity % d:
+        return None
+    return SlabSharding(mesh, spec.capacity // d)
 
 
 class ParamSpec:

@@ -7,7 +7,9 @@ machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-probe, sample and gather must agree exactly; the QuadConv contraction
+probe, sample, gather and the sharded gather must agree exactly (and the
+shards' results of the sharded gather sum to the whole gather); the
+QuadConv contraction
 within fp32 rounding (1e-5 relative to the output's magnitude), and bit
 for bit between batch sizes (its summation order does not depend on B).
 The contraction's autograd Function with the kernel forward gives the
@@ -135,6 +137,44 @@ def test_gather_kernel_exact(cuda, dtype, elem):
     slab, slots = slab.to(cuda), slots.to(cuda)
     out = sops.gather_rows(slab, slots)
     assert torch.equal(out, sref.gather_rows_ref(slab, slots))
+
+
+@pytest.mark.parametrize("elem", [
+    (4, 2048),     # the training table's rows: 2 of a block's 1,024 units
+    (4, 1000),     # 1,000 16-byte units: no multiple of the block's 1,024
+    (3,),          # 12 bytes: the byte-copy path
+])
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_gather_sharded_kernel_exact(cuda, D, elem):
+    gen = torch.Generator().manual_seed(D)
+    capacity = 24
+    cl = capacity // D
+    slab = torch.randn((capacity, *elem), generator=gen).to(cuda)
+    slab[3] = -0.0                                   # the psum's -0.0 case
+    edges = [s for r in range(D) for s in (r * cl, r * cl + cl - 1)]
+    slots = torch.tensor(edges + [5, 17, 3], dtype=torch.int32).to(cuda)
+    total = None
+    for r in range(D):
+        local = slab[r * cl:(r + 1) * cl]
+        launches = sops.GATHER_SHARDED.launches
+        out = sops.gather_rows_sharded(local, slots, r * cl)
+        assert sops.GATHER_SHARDED.launches == launches + 1
+        want = sref.gather_rows_sharded_ref(local, slots, r * cl)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+        total = out if total is None else total + out
+    torch.cuda.synchronize()
+    assert torch.equal(total, sops.gather_rows(slab, slots))
+
+
+def test_gather_sharded_kernel_refuses_what_it_does_not_take(cuda):
+    slab = torch.randn((8, 4, 16), device=cuda)
+    slots = torch.tensor([0, 5], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="tensors on"):
+        sops.gather_rows_sharded(slab, slots.cpu(), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        sops.gather_rows_sharded(slab[:, :, ::2], slots, 0)
+    with pytest.raises(TypeError, match="int32"):
+        sops.gather_rows_sharded(slab, slots.long(), 0)
 
 
 @pytest.mark.parametrize("B,I,C,J,O", [
