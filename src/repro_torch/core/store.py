@@ -193,13 +193,16 @@ def _scatter_rows(slab: torch.Tensor | ShardedSlab, idx: torch.Tensor,
     if not isinstance(slab, ShardedSlab):
         slab.index_copy_(0, idx, rows)
         return
-    cl = slab.placement.local_cap
-    owner = idx // cl
-    for r, shard in enumerate(slab.shards):
-        sel = (owner == r).nonzero(as_tuple=True)[0]
-        local = idx.index_select(0, sel) - slab.placement.offset(r)
-        shard.index_copy_(0, local.to(shard.device),
-                          rows.index_select(0, sel).to(shard.device))
+    # one stable sort by owner keeps each shard's rows in order; one host
+    # read of the per-owner counts splits them
+    owner = idx // slab.placement.local_cap
+    order = torch.argsort(owner, stable=True)
+    counts = torch.bincount(owner, minlength=len(slab.shards)).tolist()
+    for r, (shard, i, v) in enumerate(zip(
+            slab.shards, idx.index_select(0, order).split(counts),
+            rows.index_select(0, order).split(counts))):
+        shard.index_copy_(0, (i - slab.placement.offset(r)).to(shard.device),
+                          v.to(shard.device))
 
 
 def _gather_sharded(slab: ShardedSlab, slots: dict) -> dict:
@@ -422,8 +425,7 @@ def sample(spec: TableSpec, state: TableState, draw: torch.Tensor):
     takes :func:`sample_sharded_impl`.
     """
     if isinstance(state.slab, ShardedSlab):
-        values, keys, ok = sample_sharded_impl(spec, state, draw,
-                                               state.slab.placement.mesh)
+        values, keys, ok = sample_sharded_impl(spec, state, draw)
         return values[state.keys.device], keys, ok
     slots, ok = _select(spec, state.version, draw)
     values = _zero_unless(ok, _kops.gather_rows(state.slab, slots))
@@ -431,17 +433,18 @@ def sample(spec: TableSpec, state: TableState, draw: torch.Tensor):
 
 
 def sample_sharded_impl(spec: TableSpec, state: TableState,
-                        draw: torch.Tensor, mesh):
-    """:func:`sample` on a slab sharded over ``mesh``, with the batch on
-    every device of the mesh: slot selection once per distinct device
+                        draw: torch.Tensor):
+    """:func:`sample` on a sharded slab, with the batch on every device of
+    its placement's mesh: slot selection once per distinct device
     (replicated compute), each rank's owned rows through the
     ``gather_sharded`` kernel, one ``psum`` — bit for bit the plain
     gather, since each slot has one owner.  Returns ``(values {device:
     [n, *shape]}, keys [n], ok)``, keys and ok on the table's device."""
     slab = state.slab
-    if not isinstance(slab, ShardedSlab) or slab.placement.mesh != mesh:
+    if not isinstance(slab, ShardedSlab):
         raise ValueError(f"sample_sharded_impl: table {spec.name!r} is not "
-                         f"slab-sharded over this mesh")
+                         f"slab-sharded")
+    mesh = slab.placement.mesh
     sel = {d: _select(spec, state.version.to(d), draw)
            for d in mesh.distinct_devices}
     values = _gather_sharded(slab, {d: s for d, (s, _) in sel.items()})

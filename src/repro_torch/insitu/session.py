@@ -201,8 +201,7 @@ class InSituSession:
                 entries.append(P.ComponentPlan(
                     name=comp.name, kind="trainer", tier=tier,
                     table=comp.cfg.table, steps=comp.cfg.epochs,
-                    mesh_devices=1 if mesh is None
-                    else mesh.shape[comp.cfg.mesh_axis],
+                    mesh_devices=1 if mesh is None else mesh.size,
                     dispatches=P.trainer_dispatches(
                         tier, comp.cfg.epochs, bootstrap=first_trainer)))
                 first_trainer = False
@@ -258,8 +257,7 @@ class InSituSession:
         for comp in self.components:
             if isinstance(comp, TrainerConsumer) and comp.cfg.slab_sharded:
                 out[comp.cfg.table] = slab_sharding(
-                    self._spec(comp.cfg.table), comp.cfg.mesh,
-                    comp.cfg.mesh_axis)
+                    self._spec(comp.cfg.table), comp.cfg.mesh)
         return out
 
     # -- runtime ------------------------------------------------------------

@@ -118,6 +118,10 @@ class TrainerConfig:
         if self.slab_sharded and self.mesh is None:
             raise ValueError("slab_sharded needs a mesh (the slab shards "
                              "over cfg.mesh_axis)")
+        if self.mesh is not None and self.mesh_axis != self.mesh.axis:
+            # the port's mesh is 1-D: its one axis is the only one to shard
+            raise ValueError(f"mesh_axis {self.mesh_axis!r} is not the "
+                             f"mesh's axis {self.mesh.axis!r}")
 
     @property
     def scaled_lr(self) -> float:
@@ -357,8 +361,7 @@ def make_sharded_fused_epoch(cfg: TrainerConfig, levels,
     mesh = cfg.mesh
     if mesh is None:
         raise ValueError("make_sharded_fused_epoch needs cfg.mesh")
-    axis = cfg.mesh_axis
-    ndev = int(mesh.shape[axis])
+    axis, ndev = mesh.axis, mesh.size
     bs, starts = _windows(cfg)
     if bs % ndev:
         raise ValueError(
@@ -379,8 +382,13 @@ def make_sharded_fused_epoch(cfg: TrainerConfig, levels,
     def epoch(table_state: S.TableState, state: TrainState,
               draws: EpochDraws, mu, sd):
         if cfg.slab_sharded:
+            slab = table_state.slab
+            if not isinstance(slab, S.ShardedSlab) \
+                    or slab.placement.mesh != mesh:
+                raise ValueError("slab_sharded: the table is not "
+                                 "slab-sharded over cfg.mesh")
             vals, _, ok = S.sample_sharded_impl(spec, table_state,
-                                                draws.sample, mesh)
+                                                draws.sample)
         else:
             vals, ok = _replicated_sample(spec, table_state, draws.sample,
                                           mesh)
@@ -500,7 +508,7 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
     with client.timers.time("warmup"):
         if fused:
             # the slab-sharded tier warms up on a table placed like its own
-            placement = slab_sharding(spec, cfg.mesh, cfg.mesh_axis) \
+            placement = slab_sharding(spec, cfg.mesh) \
                 if tier == "slab_sharded" else None
             block_until_ready(epoch_fn(S.init_table(spec, dev, placement),
                                        state, _warm_draws(cfg, dev), mu,

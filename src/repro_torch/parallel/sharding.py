@@ -99,17 +99,16 @@ def data_mesh(n_devices: int | None = None, axis: str = "data",
     return Mesh(tuple(_canonical(d) for d in devices), axis)
 
 
-def slab_sharding(spec, mesh: Mesh | None, axis: str = "data"
-                  ) -> SlabSharding | None:
+def slab_sharding(spec, mesh: Mesh | None) -> SlabSharding | None:
     """Placement rule of the slab-sharded data plane: split a table's
-    ``[capacity, *elem]`` slab along its slot axis over mesh axis ``axis``,
+    ``[capacity, *elem]`` slab along its slot axis over the mesh's axis,
     ``capacity / D`` slots a rank.  ``None`` (the table stays whole on the
     server's device) without a mesh or when ``capacity`` does not divide
     by ``D`` — the reference then places it replicated.  ``spec`` is a
     ``core.store.TableSpec`` (anything with ``capacity``)."""
     if mesh is None:
         return None
-    d = mesh.shape[axis]
+    d = mesh.size
     if spec.capacity % d:
         return None
     return SlabSharding(mesh, spec.capacity // d)

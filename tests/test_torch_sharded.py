@@ -541,3 +541,22 @@ def test_mesh_and_ddp_validation():
                    lambda: data_mesh(2, devices=["cuda:0"] * 2)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 fn()
+
+
+def test_mesh_axis_is_the_mesh_axis():
+    """The port's mesh is 1-D: ``TrainerConfig.mesh_axis`` must name its
+    one axis, and a mesh's placement follows that axis whatever its name."""
+    cfg_ae = tae.AEConfig(**_TINY)
+    mesh = data_mesh(2, axis="dp", devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="mesh_axis 'data' is not the "
+                                         "mesh's axis 'dp'"):
+        ttr.TrainerConfig(ae=cfg_ae, mesh=mesh)
+    cfg = ttr.TrainerConfig(ae=cfg_ae, mesh=mesh, mesh_axis="dp",
+                            slab_sharded=True)
+    spec = TS.TableSpec("field", shape=(4, 8), capacity=CAP)
+    placement = slab_sharding(spec, cfg.mesh)
+    assert placement.mesh.shape == {"dp": 2} \
+        and placement.local_cap == CAP // 2
+    state = TS.init_table(spec, "cpu")
+    with pytest.raises(ValueError, match="not slab-sharded"):
+        TS.sample_sharded_impl(spec, state, torch.zeros(GATHER))
