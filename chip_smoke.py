@@ -13,6 +13,9 @@ Phases, each printing one line (or a few):
 3. kernels — each kernel against its plain PyTorch version on the card,
    at its main path's shapes, with its time, the plain version's, one
    library call's, and the least time the card could take (its bound);
+   the flash forward in bf16 (the tensor-core kernel, ``attention_tc.cu``)
+   and fp32 (the FMA kernel, ``attention.cu``), each the kernel its route
+   rule names, with a causal-mask-off control that must fail its limits;
 4. serving — the port's serving plane end to end: 4 clients × 8 requests
    of flat-plate snapshots [4, 4096] through ``continuous_batch`` (max
    batch 8), served by the QuadConv encoder at the paper config's widths
@@ -43,7 +46,8 @@ Phases, each printing one line (or a few):
 10. lm phi4 — LM serving at Phi-4-mini's full width (32 layers, d_model
    3072, GQA 24/8, vocab 200,064) in bf16 with random seeded weights:
    ``greedy_generate`` of 32 tokens after a 2,048-token prompt at B = 4
-   with ``attn_impl="flash"`` (exactly 32 flash launches, one prefill);
+   with ``attn_impl="flash"`` (exactly 32 launches of the tensor-core
+   flash forward, one prefill, and none of the FMA forward);
    the prefill's time, a decode step's, decode tokens/s, peak memory and
    where the device time goes (``torch.profiler``); then the kernel path
    against the port's plain attention (``attn_impl="xla"``): every
@@ -58,10 +62,13 @@ Phases, each printing one line (or a few):
    width: 8 requests, B = 4, prompts of 8, 16 new tokens, every 8th
    step's logits captured into a ring table through ``send_step``;
 13. lm train — LM training at Phi-4-mini's full width in bf16: (a) the
-   flash-attention backward kernels (dq; dk/dv) against their plain
+   flash-attention backward kernels (dq on FMA; dk/dv on the tensor cores
+   in bf16, ``attention_bwd_tc.cu``, on FMA in fp32) against their plain
    version at the training shape (B = 1, S = 2,048, H = 24, K = 8,
    dh = 128, bf16) and at one reference tile in fp32, timed beside the
-   backward of ``scaled_dot_product_attention``; (b) on every layer, the
+   backward of ``scaled_dot_product_attention``, dk/dv bit-identical on a
+   second run and a causal-mask-off control failing its limits; (b) on
+   every layer, the
    attention mixer's input gradient and its ``wq/wk/wv/wo`` gradients
    through the kernels (``attn_impl="flash"``) against the plain path
    (``"xla"``) on the same input and cotangent, within
@@ -70,9 +77,10 @@ Phases, each printing one line (or a few):
    then the whole model's loss and ``grad_norm`` on one micro-batch
    through both paths; (c) the launcher a user calls,
    ``repro_torch.launch.train.run(arch="phi4_mini_3_8b", steps=4,
-   batch=2, seq_len=2048, attn_impl="flash")``: exactly 128 forward and
-   64 dq and 64 dk/dv launches per step (32 layers, 2 micro-batches, the
-   forward run again by remat), finite losses and gradient norms, bf16
+   batch=2, seq_len=2048, attn_impl="flash")``: exactly 128 tensor-core
+   forward, 64 dq and 64 tensor-core dk/dv launches per step (32 layers, 2
+   micro-batches, the forward run again by remat) and none of the FMA
+   forward or dk/dv, finite losses and gradient norms, bf16
    params in the reference's layout; its step time, tokens/s, peak memory
    and, from one profiled step, each attention kernel's share of the
    device time and the device's idle share;
@@ -289,8 +297,10 @@ KERNEL_SYMBOLS = (("probe_slots", "probe_kernel"),
                   ("gather_rows_sharded", "gather_sharded_kernel"),
                   ("quadconv_contract", "quadconv_contract_kernel"),
                   ("flash_attention", "flash_fwd_kernel"),
+                  ("flash_attention_tc", "flash_fwd_tc_kernel"),
                   ("flash_attention_bwd_dq", "flash_bwd_dq_kernel"),
                   ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel"),
+                  ("flash_attention_bwd_dkv_tc", "flash_bwd_dkv_tc_kernel"),
                   ("ssd_intra", "ssd_"))
 
 
@@ -768,14 +778,25 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
 def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
                 causal: bool = True, iters: int = 10) -> dict:
     """The flash-attention forward against its plain version (output and
-    log-sum-exp) and against ``scaled_dot_product_attention``, timed."""
+    log-sum-exp) and against ``scaled_dot_product_attention``, timed; the
+    kernel the route rule picks (bf16: the tensor-core one, fp32: the FMA
+    one) must be the one launched, and, as a control that must FAIL the
+    same limits, the kernel without its causal mask."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).mul(0.5)
                .to(dtype) for shape in ((B, S, H, dh), (B, S, K, dh),
                                         (B, S, K, dh)))
+    kern = ops.FLASH_TC if ops.tensor_core_route(dtype, dh) else ops.FLASH
+    before = (ops.FLASH.launches, ops.FLASH_TC.launches)
     o, lse = ops.flash_attention(q, k, v, causal, return_lse=True)
+    grown = (ops.FLASH.launches - before[0],
+             ops.FLASH_TC.launches - before[1])
+    if grown != ((0, 1) if kern is ops.FLASH_TC else (1, 0)):
+        raise AssertionError(f"flash forward at {dtype} dh={dh} launched "
+                             f"(FMA, tensor-core) {grown}, expected "
+                             f"{kern.symbol}")
     o_r, lse_r = ref.flash_attention_ref(q, k, v, causal)
     err = float((o.float() - o_r.float()).abs().max())
     lse_err = float((lse - lse_r).abs().max())
@@ -786,7 +807,13 @@ def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
     if not (err <= tol and lse_err <= lse_tol):
         raise AssertionError(f"flash kernel disagrees at {q.shape} {dtype}: "
                              f"o {err} > {tol} or lse {lse_err} > {lse_tol}")
-    del o_r, lse_r
+    o_c, lse_c = ops.flash_attention(q, k, v, not causal, return_lse=True)
+    err_c = float((o_c.float() - o_r.float()).abs().max())
+    lse_err_c = float((lse_c - lse_r).abs().max())
+    if err_c <= tol or lse_err_c <= lse_tol:
+        raise AssertionError(f"the flash mask-off control passed a limit at "
+                             f"{q.shape} {dtype}: o {err_c}, lse {lse_err_c}")
+    del o_r, lse_r, o_c, lse_c
     kernel = timed(lambda: ops.flash_attention(q, k, v, causal), iters)
     plain = timed(lambda: ref.flash_attention_ref(q, k, v, causal), 3)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -799,8 +826,12 @@ def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     b, by = bound(nbytes, flops, peak)
     b32, _ = bound(nbytes, flops)
-    return {"max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
-            "lse_tol": lse_tol, **kernel, "plain_ms": plain["ms"],
+    return {"kernel": kern.symbol, "max_abs_err": err, "tol": tol,
+            "lse_max_abs_err": lse_err, "lse_tol": lse_tol,
+            "control_mask_off_max_abs_err": err_c,
+            "control_mask_off_lse_max_abs_err": lse_err_c,
+            **kernel,
+            "plain_ms": plain["ms"],
             "plain_wall_ms": plain["wall_ms"], "library_ms": library["ms"],
             "library_wall_ms": library["wall_ms"], "bound_ms": b,
             "bound_by": by, "bound_ms_at_fp32_rate": b32,
@@ -872,9 +903,10 @@ def layer_check(params, cfg_k, cfg_p, prompt) -> list[float]:
 
 
 def lm_phase(dev, arch: str, kernel_impl: dict, plain_impl: dict, kernel,
-             expect: int, control: bool = False) -> dict:
+             expect: int, control: bool = False, absent: tuple = ()) -> dict:
     """Greedy generation at the config's full width through the kernel
-    path; its prefill against the plain path's, layer by layer and at the
+    path (``kernel`` launched exactly ``expect`` times, each of ``absent``
+    never); its prefill against the plain path's, layer by layer and at the
     last-position logits (and, with ``control``, a causal-mask-off
     attention that must fail both limits); where a prefill's and a
     decode step's device time goes."""
@@ -895,17 +927,19 @@ def lm_phase(dev, arch: str, kernel_impl: dict, plain_impl: dict, kernel,
         lm.prefill(params, cfg, prompt[:, :256])       # cuBLAS warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
+    for kern in (kernel, *absent):
+        kern.launches = 0
     t0 = time.perf_counter()
     ids = greedy_generate(params, cfg, prompt, NEW_TOKENS)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = kernel.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
-    if launches != expect:
+    if launches != expect or any(kern.launches for kern in absent):
         raise AssertionError(f"{arch}: {kernel.symbol} launched {launches} "
                              f"times in one greedy_generate, expected "
-                             f"{expect} (one prefill)")
+                             f"{expect} (one prefill); "
+                             f"{[(k.symbol, k.launches) for k in absent]}")
     if ids.shape != (LM_BATCH, NEW_TOKENS) or int(ids.min()) < 0 \
             or int(ids.max()) >= cfg.vocab:
         raise AssertionError(f"{arch}: generated ids {ids.shape}")
@@ -932,7 +966,9 @@ def lm_phase(dev, arch: str, kernel_impl: dict, plain_impl: dict, kernel,
                 f"{arch}: kernel prefill differs from the plain path: "
                 f"logits {err} (limit {LM_LIMIT}), worst layer "
                 f"{max(layer_errs)} (limit {LAYER_LIMIT})")
-        out = {"arch": arch, "impl": kernel_impl, "launches": launches,
+        out = {"arch": arch, "impl": kernel_impl, "kernel": kernel.symbol,
+               "launches": launches,
+               "absent": {kern.symbol: kern.launches for kern in absent},
                "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
                "generate_s": gen_s,
                "decode_tokens_per_s": LM_BATCH * NEW_TOKENS
@@ -998,8 +1034,11 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
                     iters: int = 10) -> tuple[dict, dict]:
     """The two flash-attention backward kernels against their plain
     version on the forward kernel's own o and LSE (causal), timed beside
-    the backward of ``scaled_dot_product_attention``.  Returns the dq row
-    and the dk/dv row."""
+    the backward of ``scaled_dot_product_attention``; dq on the FMA
+    kernel, dk/dv on the kernel the route rule picks (bf16: tensor cores),
+    each launched once; dk/dv bit-identical on a second run; and, as a
+    control that must FAIL dk's and dv's limits, the backward kernels with
+    their causal mask off.  Returns the dq row and the dk/dv row."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1007,7 +1046,19 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
                    .to(dtype) for shape in ((B, S, H, dh), (B, S, K, dh),
                                             (B, S, K, dh), (B, S, H, dh)))
     o, lse = ops.flash_attention(q, k, v, True, return_lse=True)
+    tc = ops.tensor_core_route(dtype, dh)
+    kernels = (ops.FLASH_BWD_DQ, ops.FLASH_BWD_DKV, ops.FLASH_BWD_DKV_TC)
+    before = [kern.launches for kern in kernels]
     got = ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    grown = [kern.launches - b for kern, b in zip(kernels, before)]
+    if grown != [1, int(not tc), int(tc)]:
+        raise AssertionError(f"flash backward at {dtype} launched (dq, dk/dv "
+                             f"FMA, dk/dv tensor-core) {grown}")
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    identical = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+    if not identical:
+        raise AssertionError(f"dk/dv differ between two runs at {dtype}")
+    del again
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
     # fp32: sums in another order; bf16: one bf16 rounding of the output
     rel = 2e-5 if dtype == torch.float32 else 2.0 ** -8
@@ -1019,14 +1070,23 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
             raise AssertionError(f"flash backward kernel disagrees on {name}"
                                  f" at {q.shape} {dtype}: {err} > {tol}")
         errs[name] = (err, tol)
-    del got, want
+    control = ops.flash_attention_bwd(q, k, v, o, do, lse, False)
+    control_errs = {}
+    for name, g, w in zip(("dk", "dv"), control[1:], want[1:]):
+        control_errs[name] = float((g.float() - w.float()).abs().max())
+        if control_errs[name] <= errs[name][1]:
+            raise AssertionError(f"the mask-off backward control passed "
+                                 f"{name}'s limit at {dtype}: "
+                                 f"{control_errs[name]}")
+    del got, want, control
 
     def both():
         return ops.flash_attention_bwd(q, k, v, o, do, lse, True)
 
     wall = time_ms(both, iters)
-    dev_ms = device_ms(both, iters, {"dq": "flash_bwd_dq_kernel",
-                                     "dkv": "flash_bwd_dkv_kernel"})
+    dev_ms = device_ms(both, iters, {
+        "dq": "flash_bwd_dq_kernel",
+        "dkv": "flash_bwd_dkv_tc_kernel" if tc else "flash_bwd_dkv_kernel"})
     plain = timed(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
                                                       True), 3)
     leaves = [t.transpose(1, 2).detach().requires_grad_(True)
@@ -1046,12 +1106,15 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
     shape = (f"B={B} S=T={S} H={H} K={K} dh={dh} "
              f"{str(dtype).split('.')[-1]} causal=True")
     out_rows = []
-    for name, nbytes, flops, errs_of in (
-            ("dq", 3 * rows + 2 * kv + stats, 3 * prod, ("dq",)),
-            ("dkv", 2 * rows + 4 * kv + stats, 4 * prod, ("dk", "dv"))):
+    for name, nbytes, flops, errs_of, kern in (
+            ("dq", 3 * rows + 2 * kv + stats, 3 * prod, ("dq",),
+             ops.FLASH_BWD_DQ),
+            ("dkv", 2 * rows + 4 * kv + stats, 4 * prod, ("dk", "dv"),
+             ops.FLASH_BWD_DKV_TC if tc else ops.FLASH_BWD_DKV)):
         b, by = bound(nbytes, flops, peak)
         b32, _ = bound(nbytes, flops)
         out_rows.append({
+            "kernel": kern.symbol,
             "max_abs_err": max(errs[n][0] for n in errs_of),
             "errors_and_tols": {n: errs[n] for n in errs_of},
             "ms": wall if dev_ms is None else dev_ms[name],
@@ -1061,6 +1124,9 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
             "library_ms": library["ms"],
             "library_wall_ms": library["wall_ms"], "bound_ms": b,
             "bound_by": by, "bound_ms_at_fp32_rate": b32, "shape": shape,
+            **({"bit_identical_rerun": identical,
+                "control_mask_off_max_abs_err": control_errs}
+               if name == "dkv" else {}),
             "notes": "wall_ms, plain_ms and library_ms are the whole "
                      "backward (dq, dk and dv; wall_ms with D = "
                      "rowsum(do*o)); library: the backward of "
@@ -1125,7 +1191,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
     dq32, dkv32 = check_flash_bwd(dev, 1, 128, 24, 8, 128, torch.float32)
     for row, edge in ((dq, dq32), (dkv, dkv32)):
         row["edge"] = {k: edge[k] for k in (
-            "shape", "max_abs_err", "ms", "wall_ms", "plain_ms",
+            "kernel", "shape", "max_abs_err", "ms", "wall_ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")}
     torch.cuda.empty_cache()
 
@@ -1160,7 +1226,12 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                              f"per-layer limit on some layer ({control_min})")
     whole = {}
     batch = {"tokens": tokens, "labels": tokens}
-    kernels = (aops.FLASH, aops.FLASH_BWD_DQ, aops.FLASH_BWD_DKV)
+    # bf16 at dh 128: the tensor-core forward and dk/dv, the FMA dq; the
+    # FMA forward and dk/dv must not run
+    kernels = (aops.FLASH_TC, aops.FLASH_BWD_DQ, aops.FLASH_BWD_DKV_TC)
+    fma_only = (aops.FLASH, aops.FLASH_BWD_DKV)
+    for kern in fma_only:
+        kern.launches = 0
     for name, c in (("kernel", cfg_k), ("plain", cfg_p)):
         for kern in kernels:
             kern.launches = 0
@@ -1172,9 +1243,12 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                        [kern.launches for kern in kernels])
         del grads
     (lk, nk, launch_k), (lp, np_, _) = whole["kernel"], whole["plain"]
-    if launch_k != [2 * base.n_periods, base.n_periods, base.n_periods]:
+    if launch_k != [2 * base.n_periods, base.n_periods, base.n_periods] \
+            or any(kern.launches for kern in fma_only):
         raise AssertionError(f"one micro-batch's value_and_grad launched "
-                             f"{launch_k} (forward, dq, dk/dv)")
+                             f"{launch_k} (forward, dq, dk/dv) and "
+                             f"{[k.launches for k in fma_only]} (FMA forward,"
+                             f" dk/dv)")
     if not (math.isfinite(lk) and abs(lk - lp) <= LOSS_LIMIT * abs(lp)
             and abs(nk - np_) <= GRAD_NORM_LIMIT * abs(np_)):
         raise AssertionError(f"whole model: loss {lk} vs {lp}, grad_norm "
@@ -1209,14 +1283,17 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
     finally:
         train_launcher.make_train_step = make_step
     torch.cuda.synchronize()
-    launches = {kern.symbol: kern.launches for kern in kernels}
+    launches = {kern.symbol: kern.launches for kern in kernels + fma_only}
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = [2 * base.grad_accum * base.n_periods,
             base.grad_accum * base.n_periods,
             base.grad_accum * base.n_periods]
-    if per_step != [want] * TRAIN_STEPS:
+    if per_step != [want] * TRAIN_STEPS \
+            or any(kern.launches for kern in fma_only):
         raise AssertionError(f"launches per step {per_step}, expected "
-                             f"{want} (forward, dq, dk/dv)")
+                             f"{want} (tensor-core forward, dq, tensor-core "
+                             f"dk/dv); FMA forward, dk/dv: "
+                             f"{[k.launches for k in fma_only]}")
     if not all(map(math.isfinite, res.losses + res.grad_norms)):
         raise AssertionError(f"losses {res.losses}, grad norms "
                              f"{res.grad_norms}")
@@ -1449,10 +1526,13 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"[build] {len(libs)} libraries in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s (in parallel; each: "
+          f"{ {lib.name: round(lib.build_s, 1) for lib in libs} })",
+          flush=True)
     for lib in libs:
         for line in lib.build_log.splitlines():
-            if "Used" in line or "spill" in line:
+            # ptxas names each kernel, then its registers and spills
+            if any(w in line for w in ("Compiling entry", "Used", "spill")):
                 print(f"[build] {lib.name}: {line.strip()}")
 
     # 3. kernels vs their plain versions, at their main paths' shapes:
@@ -1676,7 +1756,8 @@ def main() -> int:
 
     # 10-12. LM serving at full width
     phi4 = lm_phase(dev, "phi4_mini_3_8b", {"attn_impl": "flash"},
-                    {"attn_impl": "xla"}, aops.FLASH, 32, control=True)
+                    {"attn_impl": "xla"}, aops.FLASH_TC, 32, control=True,
+                    absent=(aops.FLASH,))
     print(f"[lm phi4] {json.dumps(phi4)}", flush=True)
     mamba = lm_phase(dev, "mamba2_1_3b", {"ssd_impl": "kernel"},
                      {"ssd_impl": "xla"}, dops.SSD_INTRA, 48)
@@ -1712,8 +1793,12 @@ def main() -> int:
             raise AssertionError(f"{name} never launched on its path")
         row["kernel_ms"] = row["ms"]
         rows.append(row)
+    # the attention rows are the main path's bf16 tensor-core kernels; the
+    # fp32 FMA kernels of the same TPU kernels run on no main path and sit
+    # under "fp32" (forward) and "edge" (dk/dv at one tile in fp32)
+    fma_fwd = "src/repro_torch/kernels/attention/csrc/attention.cu"
     for row, name, src, tpu, lm_run in (
-            (flash, "flash_attention", "attention/csrc/attention.cu",
+            (flash, "flash_attention", "attention/csrc/attention_tc.cu",
              "attention/kernel.py:39", phi4),
             (ssd, "ssd_intra", "ssd/csrc/ssd.cu", "ssd/kernel.py:30", mamba)):
         row = dict(row, name=name, route="cuda",
@@ -1722,23 +1807,24 @@ def main() -> int:
                    path=f"lm {lm_run['arch']} prefill",
                    launches=lm_run["launches"], kernel_ms=row["ms"])
         if name == "flash_attention":
-            row["fp32"] = {k: flash32[k] for k in ("shape", "max_abs_err",
-                                                   *timing_keys)}
-            row["edge"] = {k: flash_edge[k] for k in ("shape", "max_abs_err",
-                                                      *timing_keys)}
+            row["fp32"] = {"source": fma_fwd, "kernel": flash32["kernel"],
+                           "launches_on_main_paths": 0,
+                           **{k: flash32[k] for k in (
+                               "shape", "max_abs_err", *timing_keys)}}
+            row["edge"] = {k: flash_edge[k] for k in (
+                "kernel", "shape", "max_abs_err", *timing_keys)}
             row["launches_by_path"] = {
                 "lm phi4 prefill": lm_run["launches"],
                 "lm phi4 train (4 steps)":
-                    trained_lm["launches"]["flash_attention_fwd"]}
+                    trained_lm["launches"]["flash_attention_fwd_tc"]}
         rows.append(row)
-    for row, name, tpu, symbol in (
-            (bwd_dq, "flash_attention_bwd_dq", "bwd.py:47",
-             "flash_attention_bwd_dq"),
-            (bwd_dkv, "flash_attention_bwd_dkv", "bwd.py:74",
-             "flash_attention_bwd_dkv")):
+    for row, name, src, tpu, symbol in (
+            (bwd_dq, "flash_attention_bwd_dq", "attention_bwd.cu",
+             "bwd.py:47", "flash_attention_bwd_dq"),
+            (bwd_dkv, "flash_attention_bwd_dkv", "attention_bwd_tc.cu",
+             "bwd.py:74", "flash_attention_bwd_dkv_tc")):
         row = dict(row, name=name, route="cuda",
-                   source="src/repro_torch/kernels/attention/csrc/"
-                          "attention_bwd.cu",
+                   source=f"src/repro_torch/kernels/attention/csrc/{src}",
                    replaces=f"src/repro/kernels/attention/{tpu}",
                    path="lm phi4 train (launch.train.run, 4 steps)",
                    launches=trained_lm["launches"][symbol],

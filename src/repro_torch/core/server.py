@@ -103,8 +103,8 @@ class StoreServer:
         with self._lock:
             if spec.name in self._specs:
                 raise ValueError(f"table {spec.name!r} already exists")
-            self._state[spec.name] = S.init_table(spec, self.device,
-                                                  slab_sharding)
+            self._state[spec.name] = S.init_table(spec, slab_sharding,
+                                                  device=self.device)
             self._specs[spec.name] = spec
             self._placements[spec.name] = slab_sharding
             self._table_locks[spec.name] = threading.RLock()

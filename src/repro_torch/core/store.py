@@ -133,11 +133,12 @@ class TableState(NamedTuple):
     count: torch.Tensor     # int32 scalar: total successful puts (watermark)
 
 
-def init_table(spec: TableSpec, device=None,
-               slab_sharding: SlabSharding | None = None) -> TableState:
+def init_table(spec: TableSpec, slab_sharding: SlabSharding | None = None,
+               *, device=None) -> TableState:
     """Allocate an empty table on ``device`` (default: the card); with
     ``slab_sharding`` the slab is split over its mesh's devices, one
-    of which must be ``device`` (the metadata's)."""
+    of which must be ``device`` (the metadata's).  The positional order is
+    the reference's (``init_table(spec, slab_sharding)``)."""
     dev = resolve_device(device)
     shape = (spec.capacity, *spec.shape)
     if slab_sharding is None:

@@ -8,8 +8,10 @@ into a shared library with a plain C interface and loaded with ``ctypes``
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so <source>.cu
 
 Libraries land in ``build/repro_torch/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and flags, so an unchanged
-source is never rebuilt.  Nothing is compiled at import time: a library is
+``.gitignore``), named by a hash of the source, the ``*.cuh`` headers of
+its ``csrc/`` directory and the flags (``-I`` paths included, where
+``NVCC_FLAGS`` gains any), so an unchanged source is never rebuilt and
+an edited header never loads a stale library.  Nothing is compiled at import time: a library is
 built at the first launch of one of its kernels, or all at once — one
 ``nvcc`` per source, started together — by :func:`build_all`.
 
@@ -26,6 +28,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 __all__ = ["Kernel", "Library", "build_all", "BUILD_DIR"]
@@ -61,13 +64,19 @@ class Library:
         #: ``nvcc`` output of the last build (``-Xptxas -v`` register and
         #: shared-memory report), empty when the library was cached.
         self.build_log = ""
+        #: seconds from the start of the last build to its end (0.0 when
+        #: the library was cached)
+        self.build_s = 0.0
+        self._started = 0.0
         _LIBRARIES.append(self)
 
     @property
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"{self.name}-{digest[:16]}.so"
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            digest.update(header.name.encode() + b"\0" + header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.name}-{digest.hexdigest()[:16]}.so"
 
     def _command(self, out: Path) -> list[str]:
         return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
@@ -78,6 +87,7 @@ class Library:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
+        self._started = time.perf_counter()
         return subprocess.Popen(self._command(tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
 
@@ -85,6 +95,7 @@ class Library:
         if proc is None:
             return
         out, _ = proc.communicate()
+        self.build_s = time.perf_counter() - self._started
         self.build_log = out
         tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
         if proc.returncode != 0:

@@ -28,7 +28,8 @@
 // shared memory, the limit.  K and V of a tile share one buffer (K for the
 // logits, then V for P.V), so two blocks fit on an SM at dh = 128.  Tiles
 // above the diagonal are skipped whole, loads included, and the q tiles run
-// heaviest first.  wgmma and TMA are later work.
+// heaviest first.  It is the fp32 route: bf16 with dh a multiple of 16
+// runs attention_tc.cu on the tensor cores (ops.tensor_core_route).
 //
 // Takes: fp32 or bf16 (all three alike), dh a multiple of 4 and at most 128,
 // the last axis contiguous; any S and T (ragged tiles are masked).  The

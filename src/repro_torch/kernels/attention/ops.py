@@ -9,17 +9,23 @@ Port of ``src/repro/kernels/attention/ops.py``, ``kernel.py`` and
   ``S`` and ``T`` must be multiples of ``min(128, S)`` and ``min(128, T)``,
   the reference's tiles, or it raises ``ValueError``.  A CPU tensor takes
   the plain version (``ref.flash_attention_ref``); a CUDA tensor launches
-  ``csrc/attention.cu`` or raises — there is no fallback.
+  a kernel or raises — there is no fallback.  Which kernel is a rule of
+  dtype and dh alone (``tensor_core_route``): bf16 with dh a multiple of
+  16 up to 128 takes the wgmma kernel ``csrc/attention_tc.cu``
+  (``FLASH_TC``); fp32, and bf16 with any other dh, the fp32-FMA kernel
+  ``csrc/attention.cu`` (``FLASH``).
 * ``flash_attention_bwd(q, k, v, o, do, lse, causal)`` — the two backward
   kernels (``bwd.py::flash_attention_bwd``: dq, then dk/dv), with the same
   shape contract, in the forward's layout (q, o, do ``[B,S,H,dh]``, k, v
   ``[B,T,K,dh]``, lse ``[B,S,H]``; the reference's entry takes the
   head-major, KV-expanded layout its ``ops.py`` builds).  dk and dv come
-  back per kv head: ``csrc/attention_bwd.cu`` sums the G query heads of a
-  kv head inside one block, where the reference expands K/V and
-  group-sums afterwards.  A CPU tensor takes
-  ``ref.flash_attention_bwd_ref``; a CUDA tensor launches both kernels or
-  raises.
+  back per kv head: the kernels sum the G query heads of a kv head
+  inside one block, where the reference expands K/V and group-sums
+  afterwards.  A CPU tensor takes ``ref.flash_attention_bwd_ref``; a CUDA
+  tensor launches both kernels or raises.  dq is always the FMA kernel of
+  ``csrc/attention_bwd.cu`` (``FLASH_BWD_DQ``); dk/dv follows the
+  forward's rule: ``csrc/attention_bwd_tc.cu`` (``FLASH_BWD_DKV_TC``) on
+  the tensor-core route, else ``FLASH_BWD_DKV``.
 * ``mha(q, k, v, causal, mode)`` — what the model calls, differentiable
   like the reference's ``custom_vjp``: the forward saves (q, k, v, o,
   LSE) and the backward runs ``flash_attention_bwd``.  On a CUDA tensor
@@ -42,7 +48,8 @@ from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_ref, mha_ref
 
 __all__ = ["mha", "flash_attention", "flash_attention_bwd", "FLASH",
-           "FLASH_BWD_DQ", "FLASH_BWD_DKV"]
+           "FLASH_TC", "FLASH_BWD_DQ", "FLASH_BWD_DKV", "FLASH_BWD_DKV_TC",
+           "tensor_core_route"]
 
 BLK = 128        # the reference kernel's tiles, which fix the shape contract
 
@@ -52,17 +59,34 @@ _L = ctypes.c_longlong
 _CSRC = Path(__file__).parent / "csrc"
 _LIB = _build.Library("attention", _CSRC / "attention.cu")
 _BWD_LIB = _build.Library("attention_bwd", _CSRC / "attention_bwd.cu")
-#: ``kernel.py::flash_attention`` on Hopper (see ``csrc/attention.cu``).
-FLASH = _build.Kernel(_LIB, "flash_attention_fwd",
-                      [_P, _P, _P, _P, _P] + [_I] * 6 + [_L] * 9
-                      + [_I, ctypes.c_float, _I, _P])
-_BWD_TAIL = [_I] * 6 + [_L] * 12 + [_I, ctypes.c_float, _I, _P]
+_TC_LIB = _build.Library("attention_tc", _CSRC / "attention_tc.cu")
+_BWD_TC_LIB = _build.Library("attention_bwd_tc", _CSRC / "attention_bwd_tc.cu")
+_FWD_ARGS = [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I, ctypes.c_float]
+#: ``kernel.py::flash_attention`` on Hopper in fp32 FMA (see
+#: ``csrc/attention.cu``): fp32, and bf16 off the tensor-core route.
+FLASH = _build.Kernel(_LIB, "flash_attention_fwd", _FWD_ARGS + [_I, _P])
+#: ``kernel.py::flash_attention`` on Hopper's tensor cores in bf16 (see
+#: ``csrc/attention_tc.cu``).
+FLASH_TC = _build.Kernel(_TC_LIB, "flash_attention_fwd_tc", _FWD_ARGS + [_P])
+_BWD_ARGS = [_I] * 6 + [_L] * 12 + [_I, ctypes.c_float]
 #: ``bwd.py::_dq_kernel`` on Hopper (see ``csrc/attention_bwd.cu``).
 FLASH_BWD_DQ = _build.Kernel(_BWD_LIB, "flash_attention_bwd_dq",
-                             [_P] * 7 + _BWD_TAIL)
-#: ``bwd.py::_dkv_kernel`` on Hopper (see ``csrc/attention_bwd.cu``).
+                             [_P] * 7 + _BWD_ARGS + [_I, _P])
+#: ``bwd.py::_dkv_kernel`` on Hopper in fp32 FMA (see
+#: ``csrc/attention_bwd.cu``).
 FLASH_BWD_DKV = _build.Kernel(_BWD_LIB, "flash_attention_bwd_dkv",
-                              [_P] * 8 + _BWD_TAIL)
+                              [_P] * 8 + _BWD_ARGS + [_I, _P])
+#: ``bwd.py::_dkv_kernel`` on Hopper's tensor cores in bf16 (see
+#: ``csrc/attention_bwd_tc.cu``).
+FLASH_BWD_DKV_TC = _build.Kernel(_BWD_TC_LIB, "flash_attention_bwd_dkv_tc",
+                                 [_P] * 8 + _BWD_ARGS + [_P])
+
+
+def tensor_core_route(dtype: torch.dtype, dh: int) -> bool:
+    """The rule that picks a kernel, from dtype and dh alone: bf16 with dh
+    a multiple of 16 up to 128 runs on the tensor cores (``FLASH_TC``,
+    ``FLASH_BWD_DKV_TC``); everything else on the fp32-FMA kernels."""
+    return dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 128
 
 
 def _check_shapes(q, k, v) -> None:
@@ -95,6 +119,14 @@ def _check_kernel_inputs(q, **others) -> None:
         raise ValueError("flash kernel: the last axis must be contiguous")
 
 
+def _check_rows_aligned(**tensors) -> None:
+    """The tensor-core kernels copy rows in 16-byte pieces."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"flash tensor-core kernel: {name}'s rows are "
+                             f"not 16-byte aligned (strides {t.stride()})")
+
+
 def _stream(t):
     return _P(torch.cuda.current_stream(t.device).cuda_stream)
 
@@ -105,11 +137,14 @@ def _launch(q, k, v, causal: bool):
     _check_kernel_inputs(q, k=k, v=v)
     o = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
-    FLASH.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), B, S, T, H, K, dh, *q.stride()[:3],
-                 *k.stride()[:3], *v.stride()[:3], int(causal),
-                 1.0 / (dh ** 0.5), int(q.dtype == torch.bfloat16),
-                 _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, S, T, H, K, dh, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], int(causal), 1.0 / (dh ** 0.5))
+    if tensor_core_route(q.dtype, dh):
+        _check_rows_aligned(q=q, k=k, v=v)
+        FLASH_TC.launch(*args, _stream(q))
+    else:
+        FLASH.launch(*args, int(q.dtype == torch.bfloat16), _stream(q))
     return o, lse
 
 
@@ -126,13 +161,20 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool):
     dq = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, T, K, dh), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, T, K, dh), dtype=v.dtype, device=q.device)
-    tail = (B, S, T, H, K, dh, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *do.stride()[:3], int(causal),
-            1.0 / (dh ** 0.5), int(q.dtype == torch.bfloat16), _stream(q))
+    shape = (B, S, T, H, K, dh, *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], *do.stride()[:3], int(causal),
+             1.0 / (dh ** 0.5))
+    fma = (int(q.dtype == torch.bfloat16), _stream(q))
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
-    FLASH_BWD_DQ.launch(*common, dq.data_ptr(), *tail)
-    FLASH_BWD_DKV.launch(*common, dk.data_ptr(), dv.data_ptr(), *tail)
+    FLASH_BWD_DQ.launch(*common, dq.data_ptr(), *shape, *fma)
+    if tensor_core_route(q.dtype, dh):
+        _check_rows_aligned(q=q, k=k, v=v, do=do)
+        FLASH_BWD_DKV_TC.launch(*common, dk.data_ptr(), dv.data_ptr(),
+                                *shape, _stream(q))
+    else:
+        FLASH_BWD_DKV.launch(*common, dk.data_ptr(), dv.data_ptr(), *shape,
+                             *fma)
     return dq, dk, dv
 
 

@@ -39,20 +39,21 @@ from ..sim import flatplate as fp
 __all__ = ["make_producer", "run", "main"]
 
 
-def make_producer(*, sim_steps: int, producer: str, fcfg, send_every: int,
-                  compute_s: float, seed: int, producers: int,
-                  device=None) -> Producer:
+def make_producer(*, sim_steps: int, producer: str, fcfg, ncfg=None,
+                  send_every: int, compute_s: float, seed: int,
+                  producers: int, device=None) -> Producer:
     """Declare the simulation producer for the session.
 
     With ``compute_s > 0`` the solver cost is emulated with a sleep, and
     the declaration carries ``traceable=False`` so the plan pins the
     per-verb tier, as in the reference.  Otherwise the plan captures whole
-    chunks of steps and their ring puts per store op.
+    chunks of steps and their ring puts per store op.  ``ncfg`` is the
+    spectral solver's config, which only the spectral producer reads.
     """
-    if producer != "flatplate":
+    if producer != "flatplate" or ncfg is not None:
         raise NotImplementedError(
-            f"--producer {producer}: the spectral producer (sim/spectral.py "
-            f"on torch.fft) is ROADMAP.md A8")
+            f"--producer {producer} (ncfg {ncfg!r}): the spectral producer "
+            f"(sim/spectral.py on torch.fft) is ROADMAP.md A8")
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     modes = [fp.draw_modes(fcfg, gen, dev) for _ in range(producers)]
@@ -102,9 +103,13 @@ def run(epochs: int = 40, sim_steps: int = 200, points: str = "small",
         # paper-comparison runs (emulated solver cost) measure the
         # per-verb consumer so "retrieve" means what Table 2 means
         fused=(compute_s == 0))
+    # the reference builds the spectral solver's NSConfig here and passes
+    # it whatever the producer; its port is ROADMAP.md A8
+    ncfg = None
     prod = make_producer(sim_steps=sim_steps, producer=producer, fcfg=fcfg,
-                         send_every=send_every, compute_s=compute_s,
-                         seed=seed, producers=producers, device=dev)
+                         ncfg=ncfg, send_every=send_every,
+                         compute_s=compute_s, seed=seed, producers=producers,
+                         device=dev)
     inf_modes = fp.draw_modes(fcfg, torch.Generator().manual_seed(seed + 1),
                               dev)
 

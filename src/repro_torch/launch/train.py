@@ -17,8 +17,9 @@ and at the config's full width; ``--smoke`` takes the reduced
 same-family config (the reference's launcher defaults to it and takes
 ``--full`` for the other).  ``attn_impl`` overrides the config's
 attention plan (``"flash"``: the hand-written forward and backward
-kernels).  Durable checkpoints (``--ckpt-dir``, ``--resume``,
-``train/checkpoint.py``) are ``ROADMAP.md`` A4 and A7; vision and
+kernels).  Durable checkpoints (``--ckpt-dir``, ``--ckpt-every``,
+``--resume``, ``train/checkpoint.py``) are ``ROADMAP.md`` A4: as in the
+reference, ``ckpt_every`` is read only with a ``ckpt_dir``; vision and
 encoder-decoder models are A7.
 """
 
@@ -55,11 +56,11 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
         smoke: bool = False, capture: bool = False, seed: int = 0,
         log_every: int = 10, straggler_factor: float = 3.0, device=None,
         attn_impl: str | None = None, ckpt_dir: str | None = None,
-        resume: bool = False) -> TrainRun:
+        ckpt_every: int = 20, resume: bool = False) -> TrainRun:
     if ckpt_dir or resume:
         raise NotImplementedError(
-            "durable checkpoints (--ckpt-dir, --resume; train/checkpoint.py)"
-            " are ROADMAP.md A7")
+            f"durable checkpoints (--ckpt-dir, --ckpt-every {ckpt_every}, "
+            f"--resume; train/checkpoint.py) are ROADMAP.md A4")
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if attn_impl is not None:
@@ -130,6 +131,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
@@ -138,7 +140,7 @@ def main() -> None:
         smoke=args.smoke, capture=args.capture, seed=args.seed,
         log_every=args.log_every, device=args.device,
         attn_impl=args.attn_impl, ckpt_dir=args.ckpt_dir,
-        resume=args.resume)
+        ckpt_every=args.ckpt_every, resume=args.resume)
 
 
 if __name__ == "__main__":

@@ -510,9 +510,9 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
             # the slab-sharded tier warms up on a table placed like its own
             placement = slab_sharding(spec, cfg.mesh) \
                 if tier == "slab_sharded" else None
-            block_until_ready(epoch_fn(S.init_table(spec, dev, placement),
-                                       state, _warm_draws(cfg, dev), mu,
-                                       sd)[1])
+            table = S.init_table(spec, placement, device=dev)
+            block_until_ready(epoch_fn(table, state, _warm_draws(cfg, dev),
+                                       mu, sd)[1])
         else:
             epoch_fn.warmup(state, mu, sd)
 

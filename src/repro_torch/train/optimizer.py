@@ -106,9 +106,9 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 # Schedules (a step in, an fp32 0-d tensor on the step's device out)
 # ---------------------------------------------------------------------------
 
-def constant_schedule(value: float) -> Callable:
+def constant_schedule(lr: float) -> Callable:
     def sched(step):
-        return value
+        return lr
     return sched
 
 
@@ -173,16 +173,23 @@ class AdamState(NamedTuple):
 
 def adam(lr: float | Callable = 1e-4, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8, weight_decay: float = 0.0,
+         mu_dtype: torch.dtype = torch.float32,
          inplace: bool = False) -> GradientTransformation:
-    """Adam / AdamW (decoupled decay).  ``lr`` may be a schedule."""
+    """Adam / AdamW (decoupled decay).  ``lr`` may be a schedule; the first
+    moment μ is kept in ``mu_dtype``, the second in fp32, as the
+    reference's."""
     sched = lr if callable(lr) else constant_schedule(lr)
+    # the reference's Python scalars are weakly typed: in μ's update they
+    # take μ's dtype before they multiply (a no-op for fp32)
+    mu_b1, mu_1mb1 = (torch.tensor(c, dtype=mu_dtype).item()
+                      for c in (b1, 1 - b1))
 
     def init(params):
         leaves = tree_leaves(params)
         device = leaves[0].device if leaves else None
         return AdamState(
             step=torch.zeros((), dtype=torch.int32, device=device),
-            mu=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+            mu=tree_map(lambda p: torch.zeros_like(p, dtype=mu_dtype),
                         params),
             nu=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                         params))
@@ -195,7 +202,7 @@ def adam(lr: float | Callable = 1e-4, b1: float = 0.9, b2: float = 0.999,
         bc2 = 1 - torch.pow(b2, stepf)
 
         def _mu(m, g):
-            return b1 * m + (1 - b1) * g.to(m.dtype)
+            return mu_b1 * m + mu_1mb1 * g.to(m.dtype)
 
         def _nu(v, g):
             return b2 * v + (1 - b2) * torch.square(g.to(torch.float32))
@@ -226,10 +233,10 @@ def adam(lr: float | Callable = 1e-4, b1: float = 0.9, b2: float = 0.999,
 
 
 def adamw(lr: float | Callable = 1e-4, b1: float = 0.9, b2: float = 0.95,
-          eps: float = 1e-8, weight_decay: float = 0.1
-          ) -> GradientTransformation:
+          eps: float = 1e-8, weight_decay: float = 0.1,
+          mu_dtype: torch.dtype = torch.float32) -> GradientTransformation:
     """AdamW, in place (see the module's docstring)."""
-    return adam(lr, b1, b2, eps, weight_decay, inplace=True)
+    return adam(lr, b1, b2, eps, weight_decay, mu_dtype, inplace=True)
 
 
 def adafactor(*args, **kwargs) -> GradientTransformation:

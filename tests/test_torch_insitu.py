@@ -239,6 +239,20 @@ def test_launcher_runs_on_the_cpu():
     assert bool(torch.isfinite(inf.last).all())
 
 
+def test_make_producer_takes_ncfg():
+    """``make_producer`` takes the reference's ``ncfg``: ``None`` (the
+    flat-plate producer never reads it) declares the producer; a spectral
+    config or ``producer="spectral"`` raises naming ROADMAP.md A8."""
+    kw = dict(sim_steps=4, fcfg=tlaunch.fp.FlatPlateConfig(nx=4, ny=4, nz=2),
+              send_every=2, compute_s=0.0, seed=0, producers=1,
+              device="cpu")
+    prod = tlaunch.make_producer(producer="flatplate", ncfg=None, **kw)
+    assert isinstance(prod, TProducer) and prod.steps == 4
+    for producer, ncfg in (("flatplate", object()), ("spectral", None)):
+        with pytest.raises(NotImplementedError, match="A8"):
+            tlaunch.make_producer(producer=producer, ncfg=ncfg, **kw)
+
+
 # ---------------------------------------------------------------------------
 # The plan's tiers and predictions across the tier grid (no model runs on
 # the reference side: plan() is host logic in both packages)

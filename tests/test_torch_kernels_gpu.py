@@ -17,11 +17,15 @@ same gradients as with ``mode="ref"`` (its backward is the same einsums
 either way) and an output within the forward's tolerance.
 
 The flash-attention forward is held to its plain version (fp32 math on
-the same inputs) within 2e-5 in fp32 (output and log-sum-exp), and in
-bf16 within one bf16 rounding of the output's magnitude (2^-8 of max|o|;
-the two round the same fp32 value to bf16 after sums taken in another
-order) and 1e-4 for the fp32 log-sum-exp; at G = 3, at S equal to one
-tile, at S below a tile and without the causal mask.  The SSD intra-chunk
+the same inputs) within 2e-5 in fp32 (output and log-sum-exp).  In bf16
+its output is held, as the plain version's is, to the exact value (fp64
+math on the same inputs) within one bf16 rounding of the output's
+magnitude (2^-8 of max|o|), and its fp32 log-sum-exp to the plain
+version's within 1e-4.  (Two fp32 sums in different orders can round an
+output that lies near a bf16 midpoint to its two sides, a whole bf16 ulp
+apart, which in the top binade of |o| is more than 2^-8 max|o|: the
+exact value is the one both are a rounding of.)  At G = 3, at S equal to
+one tile, at S below a tile and without the causal mask.  The SSD intra-chunk
 kernel is held to its plain version within 1e-4 of each output's
 magnitude (3e-5 for ``cum``, a 256-term fp32 prefix sum taken in another
 order), with decays large enough that the masked entries above the
@@ -211,6 +215,18 @@ def test_quadconv_kernel_refuses_what_it_does_not_take(cuda):
                                            dtype=torch.double))
 
 
+def _counts(*kernels) -> list:
+    return [kern.launches for kern in kernels]
+
+
+def _qkv(cuda, shape, seed, n=3, dtype="bfloat16"):
+    B, S, H, K, dh = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    shapes = ((B, S, H, dh), (B, S, K, dh), (B, S, K, dh), (B, S, H, dh))
+    return [torch.randn(s, generator=gen, device=cuda).mul(0.5)
+            .to(getattr(torch, dtype)) for s in shapes[:n]]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,K,dh,causal", [
     (2, 256, 6, 2, 128, True),      # G = 3 (Phi-4-mini's), dh 128
@@ -219,21 +235,25 @@ def test_quadconv_kernel_refuses_what_it_does_not_take(cuda):
     (1, 256, 4, 4, 64, False),      # no causal mask
 ])
 def test_flash_kernel_close(cuda, dtype, B, S, H, K, dh, causal):
+    """fp32 runs the FMA kernel, bf16 (dh 64, 128) the tensor-core one."""
     gen = torch.Generator(device=cuda).manual_seed(S + H)
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).mul(0.5).to(dt)
                for shape in ((B, S, H, dh), (B, S, K, dh), (B, S, K, dh)))
-    launches = aops.FLASH.launches
+    launches = _counts(aops.FLASH, aops.FLASH_TC)
     o, lse = aops.flash_attention(q, k, v, causal, return_lse=True)
-    o_r, lse_r = aref.flash_attention_ref(q, k, v, causal)
     torch.cuda.synchronize()
-    assert aops.FLASH.launches == launches + 1
+    tc = dtype == "bfloat16"
+    assert _counts(aops.FLASH, aops.FLASH_TC) == [
+        launches[0] + (not tc), launches[1] + tc]
     assert o.dtype == dt and lse.dtype == torch.float32
-    o_tol = 2e-5 if dtype == "float32" else 2.0 ** -8 * float(
-        o_r.float().abs().max())
-    lse_tol = 2e-5 if dtype == "float32" else 1e-4
-    assert float((o.float() - o_r.float()).abs().max()) <= o_tol
-    assert float((lse - lse_r).abs().max()) <= lse_tol
+    if tc:
+        err, tol, lse_err = _fwd_errors(q, k, v, o, lse, causal)
+        assert err <= tol and lse_err <= 1e-4, (err, tol, lse_err)
+    else:
+        o_r, lse_r = aref.flash_attention_ref(q, k, v, causal)
+        assert float((o - o_r).abs().max()) <= 2e-5
+        assert float((lse - lse_r).abs().max()) <= 2e-5
     # mha, the model's entry, is the same launch
     assert torch.equal(aops.mha(q, k, v, causal), o)
 
@@ -286,18 +306,128 @@ def test_flash_bwd_kernels_close(cuda, dtype, B, S, H, K, dh, causal):
                    .to(dt) for shape in ((B, S, H, dh), (B, S, K, dh),
                                          (B, S, K, dh), (B, S, H, dh)))
     o, lse = aops.flash_attention(q, k, v, causal, return_lse=True)
-    counts = aops.FLASH_BWD_DQ.launches, aops.FLASH_BWD_DKV.launches
+    kernels = (aops.FLASH_BWD_DQ, aops.FLASH_BWD_DKV, aops.FLASH_BWD_DKV_TC)
+    counts = _counts(*kernels)
     got = aops.flash_attention_bwd(q, k, v, o, do, lse, causal)
     want = aref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
     torch.cuda.synchronize()
-    assert (aops.FLASH_BWD_DQ.launches, aops.FLASH_BWD_DKV.launches) == (
-        counts[0] + 1, counts[1] + 1)
+    tc = dtype == "bfloat16"      # dk/dv on the tensor cores; dq on FMA
+    assert _counts(*kernels) == [counts[0] + 1, counts[1] + (not tc),
+                                 counts[2] + tc]
     rel = 2e-5 if dtype == "float32" else 2.0 ** -8
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dt and g.shape == w.shape, name
         assert bool(torch.isfinite(g).all()), name
         err = float((g.float() - w.float()).abs().max())
         assert err <= rel * float(w.float().abs().max()), (name, err)
+
+
+def _exact_o(q, k, v, causal):
+    """The attention output in fp64 from the same inputs, unrounded."""
+    B, S, H, dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    logits = torch.einsum("bskgd,btkd->bkgst",
+                          q.double().reshape(B, S, K, H // K, dh),
+                          k.double()) / dh ** 0.5
+    if causal:                              # top-left: qpos >= kpos
+        logits.masked_fill_(torch.ones((S, T), dtype=torch.bool,
+                                       device=q.device).triu(1),
+                            float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.double()).reshape(
+        B, S, H, dh)
+
+
+def _fwd_errors(q, k, v, o, lse, causal):
+    """(o error, o limit, LSE error) of a bf16 forward: o against the
+    exact value, whose one bf16 rounding of max|o| is the limit (the plain
+    version's o must meet it too); the LSE against the plain version's."""
+    o_r, lse_r = aref.flash_attention_ref(q, k, v, causal)
+    exact = _exact_o(q, k, v, causal)
+    tol = 2.0 ** -8 * float(exact.abs().max())
+    plain_err = float((o_r.double() - exact).abs().max())
+    assert plain_err <= tol, ("plain version", plain_err, tol)
+    return (float((o.double() - exact).abs().max()), tol,
+            float((lse - lse_r).abs().max()))
+
+
+def _dkv_errors(got, want):
+    """dk and dv's errors over their bf16 limits (2^-8 of the max)."""
+    return [float((g.float() - w.float()).abs().max())
+            / (2.0 ** -8 * float(w.float().abs().max()))
+            for g, w in zip(got[1:], want[1:])]
+
+
+PHI4_TRAIN = (1, 2048, 24, 8, 128)   # one micro-batch of the training cell
+
+
+def test_flash_tc_kernels_at_the_phi4_training_shape(cuda):
+    """bf16 at Phi-4-mini's training shape runs the tensor-core forward and
+    dk/dv (and the FMA dq), one launch each, within the bf16 limits."""
+    q, k, v, do = _qkv(cuda, PHI4_TRAIN, seed=7, n=4)
+    kernels = (aops.FLASH, aops.FLASH_TC, aops.FLASH_BWD_DQ,
+               aops.FLASH_BWD_DKV, aops.FLASH_BWD_DKV_TC)
+    counts = _counts(*kernels)
+    o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
+    got = aops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    torch.cuda.synchronize()
+    assert _counts(*kernels) == [counts[0], counts[1] + 1, counts[2] + 1,
+                                 counts[3], counts[4] + 1]
+    err, tol, lse_err = _fwd_errors(q, k, v, o, lse, True)
+    assert err <= tol and lse_err <= 1e-4, (err, tol, lse_err)
+    want = aref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
+    assert max(_dkv_errors(got, want)) <= 1.0
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 6, 2, 128), (2, 48, 4, 2, 64)])
+def test_flash_tc_forward_warpgroups(cuda, shape):
+    """The tensor-core forward's block of two consumer warpgroups (128 q
+    rows) meets the limits on whole blocks and where the second
+    warpgroup has no rows (S = 48, a ragged tile)."""
+    q, k, v = _qkv(cuda, shape, seed=2)
+    o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
+    err, tol, lse_err = _fwd_errors(q, k, v, o, lse, True)
+    assert err <= tol and lse_err <= 1e-4, (err, tol, lse_err)
+
+
+def test_flash_bwd_dkv_tc_is_deterministic(cuda):
+    """No atomics: each (b, kv head, kv tile) has one owner, so two runs
+    of dk/dv on the same inputs are bit-identical."""
+    q, k, v, do = _qkv(cuda, PHI4_TRAIN, seed=8, n=4)
+    o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
+    first = aops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    again = aops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    assert torch.equal(first[1], again[1]) and torch.equal(first[2],
+                                                           again[2])
+
+
+def test_flash_tc_mask_off_control_fails(cuda):
+    """The limits can fail: the tensor-core kernels with the causal mask
+    off, held to the causal exact value and plain version, miss them."""
+    q, k, v, do = _qkv(cuda, (2, 256, 6, 2, 128), seed=9, n=4)
+    o, lse = aops.flash_attention(q, k, v, False, return_lse=True)
+    err, tol, lse_err = _fwd_errors(q, k, v, o, lse, True)
+    assert err > tol and lse_err > 1e-4
+    o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
+    got = aops.flash_attention_bwd(q, k, v, o, do, lse, False)
+    want = aref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
+    assert min(_dkv_errors(got, want)) > 1.0
+
+
+def test_flash_bf16_off_the_tensor_core_route(cuda):
+    """bf16 with dh not a multiple of 16 takes the FMA kernels, by the
+    route rule alone."""
+    q, k, v, do = _qkv(cuda, (1, 128, 4, 2, 72), seed=10, n=4)
+    kernels = (aops.FLASH, aops.FLASH_TC, aops.FLASH_BWD_DKV,
+               aops.FLASH_BWD_DKV_TC)
+    counts = _counts(*kernels)
+    o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
+    aops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    torch.cuda.synchronize()
+    assert _counts(*kernels) == [counts[0] + 1, counts[1], counts[2] + 1,
+                                 counts[3]]
+    err, tol, _ = _fwd_errors(q, k, v, o, lse, True)
+    assert err <= tol
 
 
 def test_mha_autograd_through_the_kernels(cuda):

@@ -207,6 +207,44 @@ def test_ssd_scan_matches_reference(with_h0):
     np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), atol=SSD_TOL)
 
 
+def test_flash_route_is_a_rule_of_dtype_and_dh():
+    """bf16 with dh a multiple of 16 up to 128 takes the tensor-core
+    kernels; fp32, and bf16 with any other dh, the FMA kernels."""
+    route = tattn.tensor_core_route
+    assert all(route(torch.bfloat16, dh) for dh in (16, 64, 80, 128))
+    assert not any(route(torch.bfloat16, dh) for dh in (8, 72, 100, 144))
+    assert not any(route(torch.float32, dh) for dh in (64, 128))
+
+
+def test_build_cache_key_covers_headers_and_flags(tmp_path, monkeypatch):
+    """A library's cached ``.so`` is named by its source, the ``*.cuh``
+    headers beside it and the flags (an ``-I`` path, say): editing any of
+    them names a new library, so a stale one is never loaded."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    (tmp_path / "notes.txt").write_text("not a header\n")
+    lib = _build.Library("probe", tmp_path / "k.cu")
+    try:
+        first = lib.path
+        assert first == _build.Library("probe", tmp_path / "k.cu").path
+        (tmp_path / "notes.txt").write_text("edited\n")
+        assert lib.path == first
+        (tmp_path / "h.cuh").write_text("// two\n")
+        header = lib.path
+        assert header != first
+        (tmp_path / "g.cuh").write_text("// new header\n")
+        assert lib.path != header
+        (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+        assert lib.path not in (first, header)
+        before = lib.path
+        monkeypatch.setattr(_build, "NVCC_FLAGS",
+                            _build.NVCC_FLAGS + ("-I", str(tmp_path)))
+        assert lib.path != before
+    finally:
+        del _build._LIBRARIES[-2:]
+
+
 def test_lm_wrappers_never_fall_back():
     """A tensor on neither the CPU nor a card has no kernel and no plain
     path: the wrappers raise instead of computing elsewhere."""

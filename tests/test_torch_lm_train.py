@@ -235,13 +235,18 @@ def _close(got, want, rtol=1e-6):
                                    err_msg=path)
 
 
+@pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("piece", [8, None])
-def test_optimizer_pieces_match_reference(piece, monkeypatch):
+def test_optimizer_pieces_match_reference(piece, mu_dtype, monkeypatch):
     """``warmup_cosine``, ``global_norm``, ``clip_by_global_norm`` (norm
     above and below the limit), ``adamw``, ``chain``,
     ``scale_by_schedule`` and ``apply_updates`` against the reference's,
     in place as the LM train step runs them, with every leaf cut into
-    pieces of 8 elements and with the default piece (no leaf cut)."""
+    pieces of 8 elements and with the default piece (no leaf cut), and
+    with Adam's μ in fp32 and in bf16 (``mu_dtype``; a bf16 μ bit for
+    bit).  The
+    reference's gradients are JAX arrays, as in its train step (a NumPy
+    gradient would take μ's update out of bf16)."""
     if piece is not None:
         monkeypatch.setattr(topt, "PIECE", piece)
     sched_j = jopt.warmup_cosine(3e-4, 10, 100)
@@ -261,22 +266,35 @@ def test_optimizer_pieces_match_reference(piece, monkeypatch):
         _close(tg, jg)
     jtx = jopt.chain(jopt.clip_by_global_norm(1.0),
                      jopt.adamw(lr=sched_j, b1=0.9, b2=0.95,
-                                weight_decay=0.1))
+                                weight_decay=0.1,
+                                mu_dtype=getattr(jnp, mu_dtype)))
     ttx = topt.chain(topt.clip_by_global_norm(1.0),
                      topt.adamw(lr=sched_t, b1=0.9, b2=0.95,
-                                weight_decay=0.1))
+                                weight_decay=0.1,
+                                mu_dtype=getattr(torch, mu_dtype)))
     jstate = jtx.init(params)
     tparams = _to_torch(params)
     tstate_ = ttx.init(tparams)
     jp = params
     for i in range(3):
         g = _random_tree(rng, 0.3)
-        jup, jstate = jtx.update(g, jstate, jp)
+        jup, jstate = jtx.update(jax.tree.map(jnp.asarray, g), jstate, jp)
         jp = jopt.apply_updates(jp, jup)
         tup, tstate_ = ttx.update(_to_torch(g), tstate_, tparams)
         tparams = topt.apply_updates(tparams, tup, inplace=True)
         _close(tparams, jp)
-        _close(tstate_[1].mu, jstate[1].mu)
+        assert {m.dtype for m in tree_leaves(tstate_[1].mu)} \
+            == {getattr(torch, mu_dtype)}
+        assert {m.dtype for m in jax.tree.leaves(jstate[1].mu)} \
+            == {jnp.dtype(mu_dtype)}
+        tmu = tree_map(lambda m: m.float(), tstate_[1].mu)
+        if mu_dtype == "float32":
+            _close(tmu, jstate[1].mu)       # the clip's norm rounds apart
+        else:                   # bit for bit: μ's bf16 rounding absorbs it
+            got, want = _flat(tmu), _flat(jstate[1].mu)
+            assert sorted(got) == sorted(want)
+            for path, w in want.items():
+                np.testing.assert_array_equal(got[path], w, err_msg=path)
         _close(tstate_[1].nu, jstate[1].nu)
         assert int(tstate_[1].step) == int(jstate[1].step) == i + 1
     jsc, tsc = (jopt.scale_by_schedule(sched_j),
@@ -337,7 +355,7 @@ def test_prefetch_raises_what_its_thread_raised():
 def test_launcher_runs_on_the_cpu(monkeypatch):
     """``launch.train.run`` at the smoke config: three steps, capture on;
     the params stay in the reference's layout and dtype.  Without a card
-    and without a device it raises; checkpoints raise naming A7."""
+    and without a device it raises; checkpoints raise naming A4."""
     res = ttrain.run(PHI4, steps=3, batch=2, seq_len=32, smoke=True,
                      capture=True, device="cpu", log_every=1)
     assert len(res.losses) == len(res.grad_norms) == len(res.step_s) == 3
@@ -353,11 +371,45 @@ def test_launcher_runs_on_the_cpu(monkeypatch):
     got = _flat(res.state.params)
     assert {k: v.shape for k, v in got.items()} == spec_shapes
     assert {p.dtype for p in tree_leaves(res.state.params)} == {cfg.dtype}
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A4"):
         ttrain.run(PHI4, steps=1, smoke=True, device="cpu", ckpt_dir="x")
+    with pytest.raises(NotImplementedError, match="A4"):
+        ttrain.run(PHI4, steps=1, smoke=True, device="cpu", ckpt_dir="x",
+                   ckpt_every=5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.run(PHI4, steps=1, smoke=True)
+
+
+def test_schedule_and_adam_take_the_references_arguments():
+    """``constant_schedule(lr=...)``, and ``adam``/``adamw``'s ``mu_dtype``:
+    μ is allocated and kept in it (ν stays fp32), out of place (``adam``)
+    and in place (``adamw``), and one step's update equals the fp32-μ
+    update to within μ's bf16 rounding."""
+    assert topt.constant_schedule(lr=0.25)(7) == 0.25
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn((4, 3), generator=gen),
+              "b": torch.randn((3,), generator=gen)}
+    grads = {k: torch.randn(v.shape, generator=gen)
+             for k, v in params.items()}
+
+    def one_step(make, mu_dtype):
+        tx = make(mu_dtype)
+        state = tx.init(params)
+        assert {m.dtype for m in tree_leaves(state.mu)} == {mu_dtype}
+        upd, state = tx.update({k: g.clone() for k, g in grads.items()},
+                               state, params)
+        assert {m.dtype for m in tree_leaves(state.mu)} == {mu_dtype}
+        assert {v.dtype for v in tree_leaves(state.nu)} == {torch.float32}
+        return upd
+
+    for make in (lambda d: topt.adam(lr=1e-2, mu_dtype=d),
+                 lambda d: topt.adamw(1e-2, 0.9, 0.95, 1e-8, 0.1, d)):
+        got, want = (one_step(make, d)
+                     for d in (torch.bfloat16, torch.float32))
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=2 ** -7,
+                                       atol=0)
 
 
 def test_unported_training_options_raise():

@@ -362,4 +362,4 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tae.init_autoencoder(tae.AEConfig(n_points=16),
                              torch.Generator().manual_seed(0))
-    assert TS.init_table(spec, "cpu").slab.device.type == "cpu"
+    assert TS.init_table(spec, device="cpu").slab.device.type == "cpu"

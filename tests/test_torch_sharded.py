@@ -297,8 +297,8 @@ def _port_epochs(tier: str, D: int, snaps, mu, sd, draws, cfg_ae, coords,
     mesh = data_mesh(D, devices=["cpu"] * D)
     spec = TS.TableSpec("field", shape=(4, cfg_ae.n_points), capacity=CAP)
     slab = tier == "slab_sharded"
-    table = TS.init_table(spec, "cpu",
-                          slab_sharding(spec, mesh) if slab else None)
+    table = TS.init_table(spec, slab_sharding(spec, mesh) if slab else None,
+                          device="cpu")
     for i, snap in enumerate(snaps):
         table = TS.put(spec, table, TS.make_key(0, i), snap)
     cfg = ttr.TrainerConfig(ae=cfg_ae, gather=GATHER, batch_size=BATCH,
@@ -407,7 +407,7 @@ def test_collective_counts_by_entry():
     the gradients, each slab-sharded gather psums once."""
     spec = TS.TableSpec("field", shape=(4, 64), capacity=CAP)
     mesh = data_mesh(2, devices=["cpu"] * 2)
-    table = TS.init_table(spec, "cpu", slab_sharding(spec, mesh))
+    table = TS.init_table(spec, slab_sharding(spec, mesh), device="cpu")
     for i in range(PUTS):
         table = TS.put(spec, table, TS.make_key(0, i),
                        torch.full((4, 64), float(i)))
@@ -557,6 +557,6 @@ def test_mesh_axis_is_the_mesh_axis():
     placement = slab_sharding(spec, cfg.mesh)
     assert placement.mesh.shape == {"dp": 2} \
         and placement.local_cap == CAP // 2
-    state = TS.init_table(spec, "cpu")
+    state = TS.init_table(spec, device="cpu")
     with pytest.raises(ValueError, match="not slab-sharded"):
         TS.sample_sharded_impl(spec, state, torch.zeros(GATHER))

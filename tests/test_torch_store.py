@@ -47,7 +47,7 @@ class _Pair:
         self.t = TS.TableSpec(name, shape=shape, capacity=capacity,
                               engine=engine)
         self.jst = JS.init_table(self.j)
-        self.tst = TS.init_table(self.t, "cpu")
+        self.tst = TS.init_table(self.t, device="cpu")
 
     def apply(self, verb, *args):
         jargs = [jnp.asarray(a) for a in args]
@@ -55,6 +55,18 @@ class _Pair:
         self.jst = getattr(JS, verb)(self.j, self.jst, *jargs)
         self.tst = getattr(TS, verb)(self.t, self.tst, *targs)
         _assert_same(self.jst, self.tst)
+
+
+def test_init_table_takes_the_references_positional_order(monkeypatch):
+    """``init_table(spec, slab_sharding)`` as the reference orders it, the
+    device keyword-only: the same empty table as the reference's."""
+    j = JS.TableSpec("t", shape=SHAPE, capacity=3)
+    t = TS.TableSpec("t", shape=SHAPE, capacity=3)
+    _assert_same(JS.init_table(j, None), TS.init_table(t, None, device="cpu"))
+    _assert_same(JS.init_table(j), TS.init_table(t, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.init_table(t, None)           # the card by default, as before
 
 
 def _vals(rng, n):

@@ -171,7 +171,7 @@ def test_get_many_on_tables_matches_reference(engine):
     vals = rng.standard_normal((6, 2, 3)).astype(np.float32)   # 17≡26≡8
     jspec = JS.TableSpec("t", shape=(2, 3), capacity=9, engine=engine)
     tspec = TS.TableSpec("t", shape=(2, 3), capacity=9, engine=engine)
-    jst, tst = JS.init_table(jspec), TS.init_table(tspec, "cpu")
+    jst, tst = JS.init_table(jspec), TS.init_table(tspec, device="cpu")
     for k, v in zip(keys, vals):
         jst = JS.put(jspec, jst, jnp.uint32(k), jnp.asarray(v))
         tst = TS.put(tspec, tst, int(k), torch.as_tensor(v))
