@@ -15,7 +15,11 @@ Phases, each printing one line (or a few):
    library call's, and the least time the card could take (its bound);
    the flash forward in bf16 (the tensor-core kernel, ``attention_tc.cu``)
    and fp32 (the FMA kernel, ``attention.cu``), each the kernel its route
-   rule names, with a causal-mask-off control that must fail its limits;
+   rule names, with a causal-mask-off control that must fail its limits,
+   at the prefill and at a training micro-batch (B = 1); ``ssd_intra`` at
+   Mamba-2's prefill, its scores, y and state kernels timed apart,
+   bit-identical on a rerun, with a control (two heads' decays swapped)
+   that must fail y's limit;
 4. serving — the port's serving plane end to end: 4 clients × 8 requests
    of flat-plate snapshots [4, 4096] through ``continuous_batch`` (max
    batch 8), served by the QuadConv encoder at the paper config's widths
@@ -56,18 +60,20 @@ Phases, each printing one line (or a few):
    control that must FAIL both, the kernel path with its causal mask off;
 11. lm mamba2 — the same at Mamba-2 1.3B's full width (48 layers,
    d_model 2048, 64 SSD heads of 64, state 128, chunk 256) with
-   ``ssd_impl="kernel"`` (exactly 48 ``ssd_intra`` launches) against
-   ``"xla"`` (the chunked scan);
+   ``ssd_impl="kernel"`` (exactly 48 ``ssd_intra`` launches, its scores,
+   y and state kernels on the tensor cores) against ``"xla"`` (the
+   chunked scan);
 12. serve_loop — ``repro_torch.launch.serve.run`` at Phi-4-mini's full
    width: 8 requests, B = 4, prompts of 8, 16 new tokens, every 8th
    step's logits captured into a ring table through ``send_step``;
 13. lm train — LM training at Phi-4-mini's full width in bf16: (a) the
-   flash-attention backward kernels (dq on FMA; dk/dv on the tensor cores
-   in bf16, ``attention_bwd_tc.cu``, on FMA in fp32) against their plain
+   flash-attention backward kernels (dq and dk/dv on the tensor cores in
+   bf16, ``attention_bwd_tc.cu``, on FMA in fp32) against their plain
    version at the training shape (B = 1, S = 2,048, H = 24, K = 8,
    dh = 128, bf16) and at one reference tile in fp32, timed beside the
-   backward of ``scaled_dot_product_attention``, dk/dv bit-identical on a
-   second run and a causal-mask-off control failing its limits; (b) on
+   backward of ``scaled_dot_product_attention``, dq, dk and dv
+   bit-identical on a second run and a causal-mask-off control failing
+   each one's limit; (b) on
    every layer, the
    attention mixer's input gradient and its ``wq/wk/wv/wo`` gradients
    through the kernels (``attn_impl="flash"``) against the plain path
@@ -78,9 +84,9 @@ Phases, each printing one line (or a few):
    through both paths; (c) the launcher a user calls,
    ``repro_torch.launch.train.run(arch="phi4_mini_3_8b", steps=4,
    batch=2, seq_len=2048, attn_impl="flash")``: exactly 128 tensor-core
-   forward, 64 dq and 64 tensor-core dk/dv launches per step (32 layers, 2
-   micro-batches, the forward run again by remat) and none of the FMA
-   forward or dk/dv, finite losses and gradient norms, bf16
+   forward, 64 tensor-core dq and 64 tensor-core dk/dv launches per step
+   (32 layers, 2 micro-batches, the forward run again by remat) and none
+   of the FMA forward, dq or dk/dv, finite losses and gradient norms, bf16
    params in the reference's layout; its step time, tokens/s, peak memory
    and, from one profiled step, each attention kernel's share of the
    device time and the device's idle share;
@@ -299,6 +305,7 @@ KERNEL_SYMBOLS = (("probe_slots", "probe_kernel"),
                   ("flash_attention", "flash_fwd_kernel"),
                   ("flash_attention_tc", "flash_fwd_tc_kernel"),
                   ("flash_attention_bwd_dq", "flash_bwd_dq_kernel"),
+                  ("flash_attention_bwd_dq_tc", "flash_bwd_dq_tc_kernel"),
                   ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel"),
                   ("flash_attention_bwd_dkv_tc", "flash_bwd_dkv_tc_kernel"),
                   ("ssd_intra", "ssd_"))
@@ -840,7 +847,9 @@ def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
 
 
 def check_ssd(dev, BC: int, Q: int, H: int, P: int, N: int) -> dict:
-    """The SSD intra-chunk kernel against its plain version, timed."""
+    """The SSD intra-chunk kernel against its plain version, timed, and,
+    as a control that must FAIL y's limit, the kernel given ``a`` with
+    heads 0 and 1 swapped."""
     from repro_torch.kernels.ssd import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
     xdt = torch.randn((BC, Q, H, P), generator=gen, device=dev) * 0.5
@@ -859,19 +868,40 @@ def check_ssd(dev, BC: int, Q: int, H: int, P: int, N: int) -> dict:
             raise AssertionError(f"ssd kernel disagrees on {name}: {err} > "
                                  f"{tol}")
         errs[name] = (err, tol)
-    del got, want
+    again = ops.ssd_intra(xdt, a, b, c)
+    identical = all(torch.equal(x, z) for x, z in zip(got, again))
+    if not identical:
+        raise AssertionError("ssd_intra differs between two runs")
+    swapped = a[:, :, [1, 0, *range(2, H)]].contiguous()
+    control = float((ops.ssd_intra(xdt, swapped, b, c)[0] - want[0])
+                    .abs().max())
+    if control <= errs["y"][1]:
+        raise AssertionError(f"the ssd head-swap control passed y's limit: "
+                             f"{control}")
+    del got, want, again
     kernel = timed(lambda: ops.ssd_intra(xdt, a, b, c), 10)
+    split = device_ms(lambda: ops.ssd_intra(xdt, a, b, c), 10, {
+        "scores": "ssd_scores_tc_kernel", "y": "ssd_y_tc_kernel",
+        "state": "ssd_state_tc_kernel"})
     plain = timed(lambda: ref.ssd_intra_ref(xdt, a, b, c), 3)
     tri = Q * (Q + 1) // 2                       # pairs j <= i per chunk
     flops = 2.0 * BC * (tri * N + H * tri * P + H * Q * P * N)
     nbytes = 4 * (2 * xdt.numel() + 2 * a.numel() + b.numel() + c.numel()
                   + BC * H * P * N)
-    bd, by = bound(nbytes, flops)
+    # the route: every product as three bf16 products (hi and lo terms)
+    bd, by = bound(nbytes, 3 * flops, PEAK_BF16_FLOPS)
+    b32, by32 = bound(nbytes, flops)
     return {"max_abs_err": max(e for e, _ in errs.values()),
-            "errors_and_tols": errs, **kernel, "plain_ms": plain["ms"],
+            "errors_and_tols": errs, "bit_identical_rerun": identical,
+            "control_head_swap_y_max_abs_err": control,
+            **kernel, "kernel_ms_by_kernel": split, "plain_ms": plain["ms"],
             "plain_wall_ms": plain["wall_ms"], "library_ms": None,
-            "bound_ms": bd, "bound_by": by,
-            "shape": f"BC={BC} Q={Q} H={H} P={P} N={N} f32 (B=4, S=2048)"}
+            "bound_ms": bd, "bound_by": by, "bound_ms_at_fp32_rate": b32,
+            "bound_by_at_fp32_rate": by32,
+            "shape": f"BC={BC} Q={Q} H={H} P={P} N={N} f32 (B=4, S=2048)",
+            "notes": "bound_ms: the tensor-core route, each product as "
+                     "three bf16 products at 989 TFLOP/s, or the bytes; "
+                     "bound_ms_at_fp32_rate: the products at 67 TFLOP/s"}
 
 
 def rel_frobenius(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1034,11 +1064,11 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
                     iters: int = 10) -> tuple[dict, dict]:
     """The two flash-attention backward kernels against their plain
     version on the forward kernel's own o and LSE (causal), timed beside
-    the backward of ``scaled_dot_product_attention``; dq on the FMA
-    kernel, dk/dv on the kernel the route rule picks (bf16: tensor cores),
-    each launched once; dk/dv bit-identical on a second run; and, as a
-    control that must FAIL dk's and dv's limits, the backward kernels with
-    their causal mask off.  Returns the dq row and the dk/dv row."""
+    the backward of ``scaled_dot_product_attention``; dq and dk/dv on the
+    kernels the route rule picks (bf16: tensor cores), each launched once;
+    dq, dk and dv bit-identical on a second run; and, as a control that
+    must FAIL each one's limit, the backward kernels with their causal
+    mask off.  Returns the dq row and the dk/dv row."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1047,17 +1077,21 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
                                             (B, S, K, dh), (B, S, H, dh)))
     o, lse = ops.flash_attention(q, k, v, True, return_lse=True)
     tc = ops.tensor_core_route(dtype, dh)
-    kernels = (ops.FLASH_BWD_DQ, ops.FLASH_BWD_DKV, ops.FLASH_BWD_DKV_TC)
+    kernels = (ops.FLASH_BWD_DQ, ops.FLASH_BWD_DQ_TC, ops.FLASH_BWD_DKV,
+               ops.FLASH_BWD_DKV_TC)
     before = [kern.launches for kern in kernels]
     got = ops.flash_attention_bwd(q, k, v, o, do, lse, True)
     grown = [kern.launches - b for kern, b in zip(kernels, before)]
-    if grown != [1, int(not tc), int(tc)]:
-        raise AssertionError(f"flash backward at {dtype} launched (dq, dk/dv "
-                             f"FMA, dk/dv tensor-core) {grown}")
+    if grown != [int(not tc), int(tc)] * 2:
+        raise AssertionError(f"flash backward at {dtype} launched (dq FMA, "
+                             f"dq tensor-core, dk/dv FMA, dk/dv tensor-core)"
+                             f" {grown}")
+    dq_kernel, dkv_kernel = ops.bwd_kernels(dtype, dh)
     again = ops.flash_attention_bwd(q, k, v, o, do, lse, True)
-    identical = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
-    if not identical:
-        raise AssertionError(f"dk/dv differ between two runs at {dtype}")
+    identical = [torch.equal(a, b) for a, b in zip(got, again)]
+    if not all(identical):
+        raise AssertionError(f"dq, dk, dv bit-identical between two runs "
+                             f"at {dtype}: {identical}")
     del again
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
     # fp32: sums in another order; bf16: one bf16 rounding of the output
@@ -1072,7 +1106,7 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
         errs[name] = (err, tol)
     control = ops.flash_attention_bwd(q, k, v, o, do, lse, False)
     control_errs = {}
-    for name, g, w in zip(("dk", "dv"), control[1:], want[1:]):
+    for name, g, w in zip(("dq", "dk", "dv"), control, want):
         control_errs[name] = float((g.float() - w.float()).abs().max())
         if control_errs[name] <= errs[name][1]:
             raise AssertionError(f"the mask-off backward control passed "
@@ -1085,7 +1119,7 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
 
     wall = time_ms(both, iters)
     dev_ms = device_ms(both, iters, {
-        "dq": "flash_bwd_dq_kernel",
+        "dq": "flash_bwd_dq_tc_kernel" if tc else "flash_bwd_dq_kernel",
         "dkv": "flash_bwd_dkv_tc_kernel" if tc else "flash_bwd_dkv_kernel"})
     plain = timed(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
                                                       True), 3)
@@ -1107,10 +1141,9 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
              f"{str(dtype).split('.')[-1]} causal=True")
     out_rows = []
     for name, nbytes, flops, errs_of, kern in (
-            ("dq", 3 * rows + 2 * kv + stats, 3 * prod, ("dq",),
-             ops.FLASH_BWD_DQ),
+            ("dq", 3 * rows + 2 * kv + stats, 3 * prod, ("dq",), dq_kernel),
             ("dkv", 2 * rows + 4 * kv + stats, 4 * prod, ("dk", "dv"),
-             ops.FLASH_BWD_DKV_TC if tc else ops.FLASH_BWD_DKV)):
+             dkv_kernel)):
         b, by = bound(nbytes, flops, peak)
         b32, _ = bound(nbytes, flops)
         out_rows.append({
@@ -1124,9 +1157,10 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
             "library_ms": library["ms"],
             "library_wall_ms": library["wall_ms"], "bound_ms": b,
             "bound_by": by, "bound_ms_at_fp32_rate": b32, "shape": shape,
-            **({"bit_identical_rerun": identical,
-                "control_mask_off_max_abs_err": control_errs}
-               if name == "dkv" else {}),
+            "bit_identical_rerun": all(
+                identical[("dq", "dk", "dv").index(n)] for n in errs_of),
+            "control_mask_off_max_abs_err": {n: control_errs[n]
+                                             for n in errs_of},
             "notes": "wall_ms, plain_ms and library_ms are the whole "
                      "backward (dq, dk and dv; wall_ms with D = "
                      "rowsum(do*o)); library: the backward of "
@@ -1226,10 +1260,10 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                              f"per-layer limit on some layer ({control_min})")
     whole = {}
     batch = {"tokens": tokens, "labels": tokens}
-    # bf16 at dh 128: the tensor-core forward and dk/dv, the FMA dq; the
-    # FMA forward and dk/dv must not run
-    kernels = (aops.FLASH_TC, aops.FLASH_BWD_DQ, aops.FLASH_BWD_DKV_TC)
-    fma_only = (aops.FLASH, aops.FLASH_BWD_DKV)
+    # bf16 at dh 128: the tensor-core forward, dq and dk/dv; the FMA
+    # forward, dq and dk/dv must not run
+    kernels = (aops.FLASH_TC, aops.FLASH_BWD_DQ_TC, aops.FLASH_BWD_DKV_TC)
+    fma_only = (aops.FLASH, aops.FLASH_BWD_DQ, aops.FLASH_BWD_DKV)
     for kern in fma_only:
         kern.launches = 0
     for name, c in (("kernel", cfg_k), ("plain", cfg_p)):
@@ -1248,7 +1282,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         raise AssertionError(f"one micro-batch's value_and_grad launched "
                              f"{launch_k} (forward, dq, dk/dv) and "
                              f"{[k.launches for k in fma_only]} (FMA forward,"
-                             f" dk/dv)")
+                             f" dq, dk/dv)")
     if not (math.isfinite(lk) and abs(lk - lp) <= LOSS_LIMIT * abs(lp)
             and abs(nk - np_) <= GRAD_NORM_LIMIT * abs(np_)):
         raise AssertionError(f"whole model: loss {lk} vs {lp}, grad_norm "
@@ -1291,8 +1325,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
     if per_step != [want] * TRAIN_STEPS \
             or any(kern.launches for kern in fma_only):
         raise AssertionError(f"launches per step {per_step}, expected "
-                             f"{want} (tensor-core forward, dq, tensor-core "
-                             f"dk/dv); FMA forward, dk/dv: "
+                             f"{want} (tensor-core forward, dq, dk/dv); FMA "
+                             f"forward, dq, dk/dv: "
                              f"{[k.launches for k in fma_only]}")
     if not all(map(math.isfinite, res.losses + res.grad_norms)):
         raise AssertionError(f"losses {res.losses}, grad norms "
@@ -1549,15 +1583,18 @@ def main() -> int:
                        check_quadconv(dev, BATCH, 2048, 16, 16))
     train_blocks = [enc0, mid, mid, dec1]   # encoder 0, 1; decoder 0, 1
     # LM serving: Phi-4-mini's prefill (B = 4, S = 2,048) in bf16 and fp32,
-    # one tile of the reference (S = 128); Mamba-2's prefill (32 chunks)
+    # one tile of the reference (S = 128), a training micro-batch (B = 1);
+    # Mamba-2's prefill (32 chunks)
     flash = check_flash(dev, LM_BATCH, PROMPT, 24, 8, 128, torch.bfloat16)
+    flash_micro = check_flash(dev, 1, TRAIN_SEQ, 24, 8, 128, torch.bfloat16)
     flash32 = check_flash(dev, LM_BATCH, PROMPT, 24, 8, 128, torch.float32,
                           iters=3)
     flash_edge = check_flash(dev, LM_BATCH, 128, 24, 8, 128, torch.bfloat16)
     ssd = check_ssd(dev, LM_BATCH * PROMPT // 256, 256, 64, 64, 128)
     torch.cuda.empty_cache()
     for row in (probe, sample, gather_serving, gather, *serve_blocks,
-                enc0, mid, dec1, flash, flash32, flash_edge, ssd):
+                enc0, mid, dec1, flash, flash32, flash_edge, flash_micro,
+                ssd):
         print(f"[kernels] {json.dumps(row)}", flush=True)
     timing_keys = ("ms", "wall_ms", "plain_ms", "plain_wall_ms",
                    "library_ms", "bound_ms")
@@ -1795,7 +1832,7 @@ def main() -> int:
         rows.append(row)
     # the attention rows are the main path's bf16 tensor-core kernels; the
     # fp32 FMA kernels of the same TPU kernels run on no main path and sit
-    # under "fp32" (forward) and "edge" (dk/dv at one tile in fp32)
+    # under "fp32" (forward) and "edge" (dq and dk/dv at one tile in fp32)
     fma_fwd = "src/repro_torch/kernels/attention/csrc/attention.cu"
     for row, name, src, tpu, lm_run in (
             (flash, "flash_attention", "attention/csrc/attention_tc.cu",
@@ -1813,14 +1850,16 @@ def main() -> int:
                                "shape", "max_abs_err", *timing_keys)}}
             row["edge"] = {k: flash_edge[k] for k in (
                 "kernel", "shape", "max_abs_err", *timing_keys)}
+            row["train_micro_batch"] = {k: flash_micro[k] for k in (
+                "kernel", "shape", "max_abs_err", *timing_keys)}
             row["launches_by_path"] = {
                 "lm phi4 prefill": lm_run["launches"],
                 "lm phi4 train (4 steps)":
                     trained_lm["launches"]["flash_attention_fwd_tc"]}
         rows.append(row)
     for row, name, src, tpu, symbol in (
-            (bwd_dq, "flash_attention_bwd_dq", "attention_bwd.cu",
-             "bwd.py:47", "flash_attention_bwd_dq"),
+            (bwd_dq, "flash_attention_bwd_dq", "attention_bwd_tc.cu",
+             "bwd.py:47", "flash_attention_bwd_dq_tc"),
             (bwd_dkv, "flash_attention_bwd_dkv", "attention_bwd_tc.cu",
              "bwd.py:74", "flash_attention_bwd_dkv_tc")):
         row = dict(row, name=name, route="cuda",

@@ -5,15 +5,18 @@ into a shared library with a plain C interface and loaded with ``ctypes``
 (no PyTorch headers, so a source builds in seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o <build>/<name>-<hash>.so <source>.cu
+         -Xcompiler -fPIC -I kernels/csrc -o <build>/<name>-<hash>.so \\
+         <source>.cu
 
-Libraries land in ``build/repro_torch/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source, the ``*.cuh`` headers of
-its ``csrc/`` directory and the flags (``-I`` paths included, where
-``NVCC_FLAGS`` gains any), so an unchanged source is never rebuilt and
-an edited header never loads a stale library.  Nothing is compiled at import time: a library is
-built at the first launch of one of its kernels, or all at once — one
-``nvcc`` per source, started together — by :func:`build_all`.
+``kernels/csrc/`` holds the headers that kernels of several packages share
+(``sm90.cuh``, Hopper's wgmma and copy helpers).  Libraries land in
+``build/repro_torch/`` at the repository root (listed in ``.gitignore``),
+named by a hash of the source, the ``*.cuh`` headers of its own ``csrc/``
+directory and of the shared one, and the flags, so an unchanged source is
+never rebuilt and an edited header never loads a stale library.  Nothing
+is compiled at import time: a library is built at the first launch of one
+of its kernels, or all at once — one ``nvcc`` per source, started
+together — by :func:`build_all`.
 
 Every C entry point takes raw device pointers and PyTorch's current stream
 as ``void*`` and returns ``cudaGetLastError()`` after its launch;
@@ -35,6 +38,8 @@ __all__ = ["Kernel", "Library", "build_all", "BUILD_DIR"]
 
 _REPO = Path(__file__).resolve().parents[3]
 BUILD_DIR = _REPO / "build" / "repro_torch"
+#: headers shared by the kernels of several packages (``-I`` of every build)
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -73,13 +78,16 @@ class Library:
     @property
     def path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(self.source.parent.glob("*.cuh")):
+        headers = {*self.source.parent.glob("*.cuh"),
+                   *INCLUDE_DIR.glob("*.cuh")}
+        for header in sorted(headers):
             digest.update(header.name.encode() + b"\0" + header.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{digest.hexdigest()[:16]}.so"
 
     def _command(self, out: Path) -> list[str]:
-        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
+        return [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(out),
+                str(self.source)]
 
     def start_build(self) -> subprocess.Popen | None:
         """Start ``nvcc`` for this source (``None`` if already built)."""

@@ -41,9 +41,9 @@
 // operands read from shared memory as float4 (rows padded by 4 floats).
 // The tiles are held in fp32: dq keeps q, do, k, v and dS (152.6 KB at
 // dh = 128), dk/dv keeps k, v, q, do, P and dS (170.5 KB), one block per
-// SM either way.  dq runs here on every route; dk/dv only on the fp32
-// route: bf16 with dh a multiple of 16 runs attention_bwd_tc.cu on the
-// tensor cores (ops.tensor_core_route).
+// SM either way.  Both run only off the tensor-core route (fp32, and bf16
+// with dh not a multiple of 16): bf16 with dh a multiple of 16 runs
+// attention_bwd_tc.cu on the tensor cores (ops.tensor_core_route).
 //
 // Takes: fp32 or bf16 (all inputs alike), dh a multiple of 4 and at most
 // 128, the last axis contiguous, lse and D fp32 contiguous [B, S, H]; any

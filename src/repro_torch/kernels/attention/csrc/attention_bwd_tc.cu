@@ -1,49 +1,59 @@
-// Hand-written Hopper (sm_90a) kernel: the dk/dv pass of the causal GQA
-// flash-attention backward in bf16 on the tensor cores (wgmma)
+// Hand-written Hopper (sm_90a) kernels: the causal GQA flash-attention
+// backward in bf16 on the tensor cores (wgmma), both of its passes
 //
-//     P^T[j, i]  = exp(scale * k_j . q_i - lse_i)            (0 where masked)
-//     dS^T[j, i] = P^T[j, i] * (v_j . do_i - D_i),  D_i = rowsum(do_i * o_i)
-//     dv_j       = sum_i P^T[j, i] do_i
-//     dk_j       = scale * sum_i dS^T[j, i] q_i
+//     P[i, j]  = exp(scale * q_i . k_j - lse_i)              (0 where masked)
+//     dS[i, j] = P[i, j] * (do_i . v_j - D_i),  D_i = rowsum(do_i * o_i)
+//     dq_i     = scale * sum_j dS[i, j] k_j                      (dq pass)
+//     dv_j     = sum_i P[i, j] do_i,
+//     dk_j     = scale * sum_i dS[i, j] q_i                      (dk/dv pass)
 //
-// It replaces src/repro/kernels/attention/bwd.py::_dkv_kernel (:74-100, with
-// _p_and_ds :28-44) for bf16 inputs with dh a multiple of 16 up to 128; fp32
-// inputs and other head sizes keep the fp32-FMA kernel of attention_bwd.cu,
-// and dq stays there too.  The contract is that kernel's: dk and dv come
-// back per kv head, [B, T, K, dh], the G = H / K query heads summed inside
-// the block; P is recomputed from the forward's LSE; D comes from the
-// wrapper; the top-left causal mask qpos >= kpos.
+// They replace src/repro/kernels/attention/bwd.py::_dq_kernel (:47-71) and
+// _dkv_kernel (:74-100), with _p_and_ds (:28-44), for bf16 inputs with dh a
+// multiple of 16 up to 128; fp32 inputs and other head sizes keep the
+// fp32-FMA kernels of attention_bwd.cu.  The contract is those kernels':
+// dq comes back [B, S, H, dh], dk and dv per kv head, [B, T, K, dh], the
+// G = H / K query heads summed inside the block; P is recomputed from the
+// forward's LSE; D comes from the wrapper; the top-left causal mask
+// qpos >= kpos.
 //
 // Bound at the Phi-4-mini training shape (B = 1, S = T = 2048, H = 24,
-// K = 8, dh = 128): four causal products (k.q, v.do, P^T do, dS^T q) of
-// 2 B H dh S (S + 1) / 2 FLOP each, 5.2e10 FLOP, 0.052 ms at the bf16
-// tensor-core peak; ~40 MB of reads and writes, 0.012 ms.  The operations
-// bound it, and every product is a wgmma with fp32 accumulators:
+// K = 8, dh = 128): one causal product is 2 B H dh S (S + 1) / 2 FLOP; dq
+// does three (q.k, do.v, dS.k), 0.039 ms at the bf16 tensor-core peak,
+// dk/dv four (k.q, v.do, P^T do, dS^T q), 0.052 ms; ~40 MB of reads and
+// writes a pass, 0.012 ms.  The operations bound both, and every product
+// is a wgmma with fp32 accumulators.  The two passes mirror each other:
 //
-// * a block (one warpgroup) owns one (b, kv head, 64-row kv tile) and one
-//   of its two outputs, dv or dk: two blocks a tile, the heaviest kv tiles
-//   first (the tile is the slowest grid axis); K (and for dk, V) stay in
-//   shared memory as bf16 for the whole block; it walks the G query heads
-//   and, for each, the 64-row q tiles from the diagonal down; the q, do
-//   tiles (bf16, 128-byte swizzled, sm90.cuh) and their lse and D slices
-//   stream through a two-stage cp.async ring;
-// * S^T = K Q^T (and for dk, dP^T = V dO^T) are wgmma m64n64k16 from
-//   shared memory; P^T = exp2(scale log2(e) S^T - log2(e) lse), masked,
-//   and dS^T = P^T (dP^T - D) run on the fragments in fp32 registers;
-// * dv += P^T dO or dk += dS^T Q is wgmma m64nDHPk16 with A from registers
-//   and dO or Q read as the MN-major B operand of the same tiles; A goes
-//   in as three bf16 terms whose sum is the fp32 P^T or dS^T exactly
-//   (sm90.cuh split_a), since one bf16 rounding of either moves dv or dk
-//   by up to a bf16 ulp where they are largest, past the limit of one
-//   bf16 rounding of their maximum that the kernel is held to;
-// * each q tile's share is summed by the tensor cores into a register
-//   block of its own and added to the output's fp32 accumulator (round to
+// * a dk/dv block (one warpgroup) owns one (b, kv head, 64-row kv tile)
+//   and one of its two outputs, dv or dk: two blocks a tile, the heaviest
+//   kv tiles first (the tile is the slowest grid axis); K (and for dk, V)
+//   stay in shared memory as bf16 for the whole block; it walks the G
+//   query heads and, for each, the 64-row q tiles from the diagonal down;
+//   the q, do tiles (bf16, 128-byte swizzled, sm90.cuh) and their lse and
+//   D slices stream through a two-stage cp.async ring;
+// * a dq block (one warpgroup) owns one (b, query head, 64-row q tile),
+//   the heaviest q tiles first; Q and dO stay in shared memory, the rows'
+//   lse and D in registers; it walks the kv tiles of kv head h / G from 0
+//   up to the diagonal, the K and V tiles streaming through a two-stage
+//   cp.async ring;
+// * S = Q K^T and dP = dO V^T (S^T = K Q^T and dP^T = V dO^T for dk/dv) are
+//   wgmma m64n64k16 from shared memory; P = exp2(scale log2(e) S -
+//   log2(e) lse), masked, and dS = P (dP - D) run on the fragments in
+//   fp32 registers;
+// * dq += dS K, dv += P^T dO or dk += dS^T Q is wgmma m64nDHPk16 with A
+//   from registers and K, dO or Q read as the MN-major B operand of the
+//   same tiles; A goes in as three bf16 terms whose sum is the fp32 dS or
+//   P^T exactly (sm90.cuh split_a), since one bf16 rounding of it moves
+//   the output by up to a bf16 ulp where it is largest, past the limit of
+//   one bf16 rounding of its maximum that the kernels are held to;
+// * each tile's share is summed by the tensor cores into a register block
+//   of its own and added to the output's fp32 accumulator (round to
 //   nearest): the tensor cores' fp32 sums truncate, and an accumulator fed
-//   by every wgmma of up to 96 q tiles drifts from the plain version's
-//   rounding; the scale multiplies dk once at the end;
+//   by every wgmma of up to 96 tiles drifts from the plain version's
+//   rounding; the scale multiplies dq and dk once at the end;
 // * splitting dv and dk over two blocks keeps one accumulator, one partial
 //   and one set of A terms a thread (no spill), doubles the blocks (512 at
-//   B = 1 for 132 SMs, two a SM) and costs S^T twice;
+//   B = 1 for 132 SMs, two a SM) and costs S^T twice; dq's block holds the
+//   same (768 blocks at B = 1, two a SM);
 // * each output element has one owner and no atomics, so repeated runs are
 //   bit-identical.
 //
@@ -60,7 +70,7 @@ using bf16 = __nv_bfloat16;
 using namespace sm90;
 
 constexpr int kBQ = 64;                      // q rows per tile
-constexpr int kBK = 64;                      // kv rows per block
+constexpr int kBK = 64;                      // kv rows per tile
 constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -237,6 +247,177 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
 }
 
 template <int DHP>
+constexpr int dq_smem_bytes() {
+  // Q, dO; two stages of (K, V); slack to align to 1024 bytes
+  return 2 * kBQ * DHP * 2 + 2 * 2 * kBK * DHP * 2 + 1024;
+}
+
+template <int DHP>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int S, int T_len, int H, int K, int dh,
+    Strides st, int causal, float scale, float scale_log2) {
+  constexpr uint32_t kTile = 64 * DHP * 2;         // bytes of one tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdO = sQ + kTile;
+  const uint32_t sStages = sdO + kTile;            // stage s: K, V
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // most kv tiles first
+  const int kh = h / (H / K);
+
+  load_tile<kBQ, DHP>(sQ, q + b * st.q_sb + h * st.q_sh +
+                              (long long)q0 * st.q_ss,
+                      st.q_ss, S - q0, dh, tid, kThreads);
+  load_tile<kBQ, DHP>(sdO, dout + b * st.do_sb + h * st.do_sh +
+                               (long long)q0 * st.do_ss,
+                      st.do_ss, S - q0, dh, tid, kThreads);
+
+  const int n_k = (T_len + kBK - 1) / kBK;
+  const int last_row = min(q0 + kBQ, S) - 1;
+  const int n_iter = causal ? min(n_k, last_row / kBK + 1) : n_k;
+
+  // one stage: the k and v tiles of kv tile ``it``
+  auto load_stage = [&](int it) {
+    const int k0 = it * kBK;
+    const uint32_t dst = sStages + (it & 1) * 2 * kTile;
+    load_tile<kBK, DHP>(dst, k + b * st.k_sb + kh * st.k_sh +
+                                 (long long)k0 * st.k_ss,
+                        st.k_ss, T_len - k0, dh, tid, kThreads);
+    load_tile<kBK, DHP>(dst + kTile, v + b * st.v_sb + kh * st.v_sh +
+                                         (long long)k0 * st.v_ss,
+                        st.v_ss, T_len - k0, dh, tid, kThreads);
+  };
+  if (n_iter > 0) load_stage(0);
+  cp_async_commit();                  // with Q and dO
+
+  // this thread's two q rows: row_lo and row_lo + 8; kv columns
+  // 8 j + col_in; their lse (times log2(e)) and D
+  const int row_lo = q0 + 16 * warp + (lane >> 2);
+  const int col_in = 2 * (lane & 3);
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long at =
+        ((long long)b * S + min(row_lo + 8 * r, S - 1)) * H + h;
+    lse_r[r] = lse[at] * kLog2e;
+    d_r[r] = delta[at];
+  }
+  float acc[DHP / 2];                 // dq, fp32
+  float part[DHP / 2];                // one kv tile's share of it
+#pragma unroll
+  for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int cur = it & 1;
+    if (it + 1 < n_iter) {
+      load_stage(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t sK = sStages + cur * 2 * kTile;
+    const uint32_t sV = sK + kTile;
+    const int k0 = it * kBK;
+
+    // S = Q K^T and dP = dO V^T, fp32 in registers
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DHP / 16; ++kk)
+      wgmma_ss_n64<0>(s, desc_k_major(sQ, kBQ, 0, kk),
+                      desc_k_major(sK, kBK, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DHP / 16; ++kk)
+      wgmma_ss_n64<0>(dp, desc_k_major(sdO, kBQ, 0, kk),
+                      desc_k_major(sV, kBK, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS = P (dP - D), P masked, on the fragments: rows q, columns kv
+    const bool masked = (causal && k0 + kBK - 1 > q0) || q0 + kBQ > S ||
+                        k0 + kBK > T_len;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = row_lo + 8 * (e >> 1);
+        const int kpos = k0 + 8 * j + col_in + (e & 1);
+        float p = ex2(fmaf(s[4 * j + e], scale_log2, -lse_r[e >> 1]));
+        if (masked &&
+            (qpos >= S || kpos >= T_len || (causal && qpos < kpos)))
+          p = 0.f;
+        s[4 * j + e] = p * (dp[4 * j + e] - d_r[e >> 1]);
+      }
+
+    // this kv tile's dq = dS K, summed by the tensor cores into ``part``
+    // (A from registers as kTerms bf16 terms), then added to acc in fp32
+    uint32_t af[4][kTerms][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) split_a(af[kk], s, kk);
+    fence_regs(part);
+    wgmma_fence();
+    issue_split_product<DHP>(part, af, sK);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+    fence_regs(af);
+#pragma unroll
+    for (int i = 0; i < DHP / 2; ++i) acc[i] += part[i];
+    __syncthreads();  // the stage is free for iteration it + 2
+  }
+  cp_async_wait<0>();  // Q and dO's group when the block had no iteration
+
+  // dq (times the scale) in bf16, contiguous [B, S, H, dh]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    if (row >= S) continue;
+    const long long at = (((long long)b * S + row) * H + h) * dh;
+#pragma unroll
+    for (int j = 0; j < DHP / 8; ++j) {
+      const int col = 8 * j + col_in;
+      if (col < dh)
+        *reinterpret_cast<__nv_bfloat162*>(dq + at + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale,
+                                  acc[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
+template <int DHP>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int B, int S,
+              int T_len, int H, int K, int dh, Strides st, int causal,
+              float scale, cudaStream_t stream) {
+  constexpr int smem = dq_smem_bytes<DHP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_kernel<DHP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(H, B, (S + kBQ - 1) / kBQ);
+  flash_bwd_dq_tc_kernel<DHP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), S, T_len, H, K, dh, st, causal, scale,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DHP>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv, int B,
            int S, int T_len, int H, int K, int dh, Strides st, int causal,
@@ -257,6 +438,27 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }
 
 }  // namespace
+
+// Strides (in elements) of q, k, v, do over (batch, row, head); dq is
+// written contiguous [B, S, H, dh] in bf16.
+extern "C" int flash_attention_bwd_dq_tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int B, int S, int T_len,
+    int H, int K, int dh, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long do_sb, long long do_ss,
+    long long do_sh, int causal, float scale, void* stream) {
+  if (dh > 128 || dh % 16 || H % K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                   v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh <= 64)
+    return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, T_len, H, K,
+                         dh, st, causal, scale, s);
+  return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, T_len, H, K,
+                        dh, st, causal, scale, s);
+}
 
 // Strides (in elements) of q, k, v, do over (batch, row, head); dk and dv
 // are written contiguous [B, T, K, dh] in bf16.

@@ -22,10 +22,11 @@ Port of ``src/repro/kernels/attention/ops.py``, ``kernel.py`` and
   back per kv head: the kernels sum the G query heads of a kv head
   inside one block, where the reference expands K/V and group-sums
   afterwards.  A CPU tensor takes ``ref.flash_attention_bwd_ref``; a CUDA
-  tensor launches both kernels or raises.  dq is always the FMA kernel of
-  ``csrc/attention_bwd.cu`` (``FLASH_BWD_DQ``); dk/dv follows the
-  forward's rule: ``csrc/attention_bwd_tc.cu`` (``FLASH_BWD_DKV_TC``) on
-  the tensor-core route, else ``FLASH_BWD_DKV``.
+  tensor launches both kernels or raises.  Both follow the forward's rule:
+  on the tensor-core route the wgmma kernels of
+  ``csrc/attention_bwd_tc.cu`` (``FLASH_BWD_DQ_TC``, ``FLASH_BWD_DKV_TC``),
+  else the FMA kernels of ``csrc/attention_bwd.cu`` (``FLASH_BWD_DQ``,
+  ``FLASH_BWD_DKV``).
 * ``mha(q, k, v, causal, mode)`` — what the model calls, differentiable
   like the reference's ``custom_vjp``: the forward saves (q, k, v, o,
   LSE) and the backward runs ``flash_attention_bwd``.  On a CUDA tensor
@@ -48,8 +49,8 @@ from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_ref, mha_ref
 
 __all__ = ["mha", "flash_attention", "flash_attention_bwd", "FLASH",
-           "FLASH_TC", "FLASH_BWD_DQ", "FLASH_BWD_DKV", "FLASH_BWD_DKV_TC",
-           "tensor_core_route"]
+           "FLASH_TC", "FLASH_BWD_DQ", "FLASH_BWD_DQ_TC", "FLASH_BWD_DKV",
+           "FLASH_BWD_DKV_TC", "tensor_core_route", "bwd_kernels"]
 
 BLK = 128        # the reference kernel's tiles, which fix the shape contract
 
@@ -69,9 +70,14 @@ FLASH = _build.Kernel(_LIB, "flash_attention_fwd", _FWD_ARGS + [_I, _P])
 #: ``csrc/attention_tc.cu``).
 FLASH_TC = _build.Kernel(_TC_LIB, "flash_attention_fwd_tc", _FWD_ARGS + [_P])
 _BWD_ARGS = [_I] * 6 + [_L] * 12 + [_I, ctypes.c_float]
-#: ``bwd.py::_dq_kernel`` on Hopper (see ``csrc/attention_bwd.cu``).
+#: ``bwd.py::_dq_kernel`` on Hopper in fp32 FMA (see
+#: ``csrc/attention_bwd.cu``): fp32, and bf16 off the tensor-core route.
 FLASH_BWD_DQ = _build.Kernel(_BWD_LIB, "flash_attention_bwd_dq",
                              [_P] * 7 + _BWD_ARGS + [_I, _P])
+#: ``bwd.py::_dq_kernel`` on Hopper's tensor cores in bf16 (see
+#: ``csrc/attention_bwd_tc.cu``).
+FLASH_BWD_DQ_TC = _build.Kernel(_BWD_TC_LIB, "flash_attention_bwd_dq_tc",
+                                [_P] * 7 + _BWD_ARGS + [_P])
 #: ``bwd.py::_dkv_kernel`` on Hopper in fp32 FMA (see
 #: ``csrc/attention_bwd.cu``).
 FLASH_BWD_DKV = _build.Kernel(_BWD_LIB, "flash_attention_bwd_dkv",
@@ -85,8 +91,16 @@ FLASH_BWD_DKV_TC = _build.Kernel(_BWD_TC_LIB, "flash_attention_bwd_dkv_tc",
 def tensor_core_route(dtype: torch.dtype, dh: int) -> bool:
     """The rule that picks a kernel, from dtype and dh alone: bf16 with dh
     a multiple of 16 up to 128 runs on the tensor cores (``FLASH_TC``,
-    ``FLASH_BWD_DKV_TC``); everything else on the fp32-FMA kernels."""
+    ``FLASH_BWD_DQ_TC``, ``FLASH_BWD_DKV_TC``); everything else on the
+    fp32-FMA kernels."""
     return dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 128
+
+
+def bwd_kernels(dtype: torch.dtype, dh: int) -> tuple:
+    """The backward's (dq, dk/dv) kernels, by ``tensor_core_route``."""
+    if tensor_core_route(dtype, dh):
+        return FLASH_BWD_DQ_TC, FLASH_BWD_DKV_TC
+    return FLASH_BWD_DQ, FLASH_BWD_DKV
 
 
 def _check_shapes(q, k, v) -> None:
@@ -164,17 +178,16 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool):
     shape = (B, S, T, H, K, dh, *q.stride()[:3], *k.stride()[:3],
              *v.stride()[:3], *do.stride()[:3], int(causal),
              1.0 / (dh ** 0.5))
-    fma = (int(q.dtype == torch.bfloat16), _stream(q))
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
-    FLASH_BWD_DQ.launch(*common, dq.data_ptr(), *shape, *fma)
     if tensor_core_route(q.dtype, dh):
         _check_rows_aligned(q=q, k=k, v=v, do=do)
-        FLASH_BWD_DKV_TC.launch(*common, dk.data_ptr(), dv.data_ptr(),
-                                *shape, _stream(q))
-    else:
-        FLASH_BWD_DKV.launch(*common, dk.data_ptr(), dv.data_ptr(), *shape,
-                             *fma)
+        tail = (_stream(q),)
+    else:       # the FMA kernels take the element type
+        tail = (int(q.dtype == torch.bfloat16), _stream(q))
+    dq_kernel, dkv_kernel = bwd_kernels(q.dtype, dh)
+    dq_kernel.launch(*common, dq.data_ptr(), *shape, *tail)
+    dkv_kernel.launch(*common, dk.data_ptr(), dv.data_ptr(), *shape, *tail)
     return dq, dk, dv
 
 

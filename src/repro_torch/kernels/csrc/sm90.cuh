@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core attention
-// kernels (attention_tc.cu, attention_bwd_tc.cu): 16-byte cp.async copies
-// into the 128-byte-swizzled shared-memory layout that wgmma reads, the
-// wgmma shared-memory descriptors, and the wgmma instructions themselves
-// (bf16 inputs, fp32 accumulators) as inline PTX.
+// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
+// (attention/csrc/attention_tc.cu, attention_bwd_tc.cu, ssd/csrc/ssd.cu;
+// each is compiled with -I pointing here): 16-byte cp.async copies into the
+// 128-byte-swizzled shared-memory layout that wgmma reads, the wgmma
+// shared-memory descriptors, and the wgmma instructions themselves (bf16
+// inputs, fp32 accumulators) as inline PTX.
 //
 // Tile layout.  A tile of R rows by DHP bf16 columns (DHP = 64 or 128) is
 // stored as DHP / 64 column blocks, each R rows of 128 bytes; block c
@@ -179,6 +180,23 @@ __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int rows,
   return desc_sw128(tile + k * 2048, rows * 128, 1024);
 }
 
+// Byte offset of the 16-byte chunk c (columns [8 c, 8 c + 8)) of row r in a
+// swizzled tile of kRows rows (the tile layout above).
+template <int kRows>
+__device__ __forceinline__ uint32_t swizzle_offset(int r, int c) {
+  return (c >> 3) * (kRows * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// 16 bytes registers -> shared memory (a generic-proxy write: publish it to
+// wgmma with fence_proxy_async and a barrier, as a cp.async copy).
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t x,
+                                             uint32_t y, uint32_t z,
+                                             uint32_t w) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(x), "r"(y), "r"(z), "r"(w)
+               : "memory");
+}
+
 // Rows [0, kRows) of a [rows, dh] bf16 matrix (row stride ``ld`` elements,
 // 16-byte aligned rows) into a swizzled tile of kRows x DHP; rows from
 // ``n_rows`` on and columns from ``dh`` on are zeros.  Every thread of the
@@ -195,9 +213,7 @@ __device__ __forceinline__ void load_tile(uint32_t tile,
     const int c = id % kChunks;
     const bool ok = r < n_rows && c * 8 < dh;
     const __nv_bfloat16* g = ok ? src + r * ld + c * 8 : src;
-    cp_async_16(tile + (c >> 3) * (kRows * 128) + r * 128 +
-                    (((c & 7) ^ (r & 7)) << 4),
-                g, ok ? 16 : 0);
+    cp_async_16(tile + swizzle_offset<kRows>(r, c), g, ok ? 16 : 0);
   }
 }
 
@@ -228,8 +244,8 @@ __device__ __forceinline__ void split_a(uint32_t (&a)[kTerms][4],
   }
 }
 
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory
-// through descriptors; trans_b 1 reads B as MN-major (N contiguous).
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A (K-major) and B from shared
+// memory through descriptors; trans_b 1 reads B as MN-major (N contiguous).
 template <int kTransB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
                                              uint64_t desc_b,

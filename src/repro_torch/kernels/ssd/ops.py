@@ -4,8 +4,10 @@ Port of ``src/repro/kernels/ssd/ops.py`` and ``kernel.py``:
 
 * ``ssd_intra(xdt, a, b, c)`` — the intra-chunk step
   (``kernel.py::ssd_intra``): a CPU tensor takes the plain version
-  (``ref.ssd_intra_ref``), a CUDA tensor launches ``csrc/ssd.cu`` or
-  raises.  The kernel takes fp32 only, as the reference computes.
+  (``ref.ssd_intra_ref``), a CUDA tensor launches ``csrc/ssd.cu`` (its
+  scores, y and state kernels, on the tensor cores with operands split
+  into two bf16 terms) or raises.  The kernel takes fp32 only, as the reference
+  computes.
 * ``ssd_scan(xdt, a, b_coef, c_coef, chunk, mode, h0)`` — reproduces
   ``models.ssd.ssd_scan_chunked`` (note its argument order: ``b`` before
   ``c`` here, ``c`` before ``b`` there), with the O(S/chunk) inter-chunk
@@ -35,7 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LIB = _build.Library("ssd", Path(__file__).parent / "csrc" / "ssd.cu")
 #: ``kernel.py::ssd_intra`` on Hopper (see ``csrc/ssd.cu``).
-SSD_INTRA = _build.Kernel(_LIB, "ssd_intra", [_P] * 7 + [_I] * 5 + [_P])
+SSD_INTRA = _build.Kernel(_LIB, "ssd_intra", [_P] * 8 + [_I] * 5 + [_P])
 
 
 def _launch(xdt, a, b, c):
@@ -60,9 +62,14 @@ def _launch(xdt, a, b, c):
     state = torch.empty((BC, H, P, N), dtype=torch.float32, device=dev)
     cum = torch.empty((BC, Q, H), dtype=torch.float32, device=dev)
     if BC and Q and H:
+        # scratch: each chunk's causal 64 x 64 score tiles, built once and
+        # shared by every head
+        tiles = -(-Q // 64)
+        scores = torch.empty(BC * tiles * (tiles + 1) // 2 * 64 * 64,
+                             dtype=torch.float32, device=dev)
         SSD_INTRA.launch(xdt.data_ptr(), a.data_ptr(), b.data_ptr(),
                          c.data_ptr(), y.data_ptr(), state.data_ptr(),
-                         cum.data_ptr(), BC, Q, H, P, N,
+                         cum.data_ptr(), scores.data_ptr(), BC, Q, H, P, N,
                          _P(torch.cuda.current_stream(dev).cuda_stream))
     return y, state, cum
 

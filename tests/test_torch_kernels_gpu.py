@@ -29,12 +29,16 @@ one tile, at S below a tile and without the causal mask.  The SSD intra-chunk
 kernel is held to its plain version within 1e-4 of each output's
 magnitude (3e-5 for ``cum``, a 256-term fp32 prefix sum taken in another
 order), with decays large enough that the masked entries above the
-diagonal overflow: a mask applied after the exp would show as NaN.
+diagonal overflow: a mask applied after the exp would show as NaN, and
+with head counts that leave the kernel's last group of four heads short;
+given ``a`` with two heads swapped it must miss y's limit.
 
 The flash-attention backward kernels (dq; dk/dv) are held to their plain
 version on the forward kernel's own o and LSE, on the reference's four
 sweep shapes and Phi-4-mini's head layout (H = 24, K = 8, dh = 128): fp32
-within 2e-5 of each output's magnitude, bf16 within 2^-8 of it; ``mha``
+within 2e-5 of each output's magnitude, bf16 within 2^-8 of it; the bf16
+ones run on the tensor cores, each bit-identical on a rerun and missing
+its limit with the causal mask off; ``mha``
 differentiated through the kernels agrees with autograd through
 ``mha_ref`` within the reference's 1e-4.
 """
@@ -306,14 +310,15 @@ def test_flash_bwd_kernels_close(cuda, dtype, B, S, H, K, dh, causal):
                    .to(dt) for shape in ((B, S, H, dh), (B, S, K, dh),
                                          (B, S, K, dh), (B, S, H, dh)))
     o, lse = aops.flash_attention(q, k, v, causal, return_lse=True)
-    kernels = (aops.FLASH_BWD_DQ, aops.FLASH_BWD_DKV, aops.FLASH_BWD_DKV_TC)
+    kernels = (aops.FLASH_BWD_DQ, aops.FLASH_BWD_DQ_TC, aops.FLASH_BWD_DKV,
+               aops.FLASH_BWD_DKV_TC)
     counts = _counts(*kernels)
     got = aops.flash_attention_bwd(q, k, v, o, do, lse, causal)
     want = aref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
     torch.cuda.synchronize()
-    tc = dtype == "bfloat16"      # dk/dv on the tensor cores; dq on FMA
-    assert _counts(*kernels) == [counts[0] + 1, counts[1] + (not tc),
-                                 counts[2] + tc]
+    tc = dtype == "bfloat16"      # dq and dk/dv on the tensor cores
+    assert _counts(*kernels) == [counts[0] + (not tc), counts[1] + tc,
+                                 counts[2] + (not tc), counts[3] + tc]
     rel = 2e-5 if dtype == "float32" else 2.0 ** -8
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dt and g.shape == w.shape, name
@@ -351,32 +356,34 @@ def _fwd_errors(q, k, v, o, lse, causal):
             float((lse - lse_r).abs().max()))
 
 
-def _dkv_errors(got, want):
-    """dk and dv's errors over their bf16 limits (2^-8 of the max)."""
+def _bwd_errors(got, want):
+    """dq, dk and dv's errors over their bf16 limits (2^-8 of the max)."""
     return [float((g.float() - w.float()).abs().max())
             / (2.0 ** -8 * float(w.float().abs().max()))
-            for g, w in zip(got[1:], want[1:])]
+            for g, w in zip(got, want)]
 
 
 PHI4_TRAIN = (1, 2048, 24, 8, 128)   # one micro-batch of the training cell
 
 
 def test_flash_tc_kernels_at_the_phi4_training_shape(cuda):
-    """bf16 at Phi-4-mini's training shape runs the tensor-core forward and
-    dk/dv (and the FMA dq), one launch each, within the bf16 limits."""
+    """bf16 at Phi-4-mini's training shape runs the tensor-core forward,
+    dq and dk/dv, one launch each and none of the FMA kernels, within the
+    bf16 limits."""
     q, k, v, do = _qkv(cuda, PHI4_TRAIN, seed=7, n=4)
     kernels = (aops.FLASH, aops.FLASH_TC, aops.FLASH_BWD_DQ,
-               aops.FLASH_BWD_DKV, aops.FLASH_BWD_DKV_TC)
+               aops.FLASH_BWD_DQ_TC, aops.FLASH_BWD_DKV,
+               aops.FLASH_BWD_DKV_TC)
     counts = _counts(*kernels)
     o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
     got = aops.flash_attention_bwd(q, k, v, o, do, lse, True)
     torch.cuda.synchronize()
-    assert _counts(*kernels) == [counts[0], counts[1] + 1, counts[2] + 1,
-                                 counts[3], counts[4] + 1]
+    assert _counts(*kernels) == [counts[0], counts[1] + 1, counts[2],
+                                 counts[3] + 1, counts[4], counts[5] + 1]
     err, tol, lse_err = _fwd_errors(q, k, v, o, lse, True)
     assert err <= tol and lse_err <= 1e-4, (err, tol, lse_err)
     want = aref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
-    assert max(_dkv_errors(got, want)) <= 1.0
+    assert max(_bwd_errors(got, want)) <= 1.0
 
 
 @pytest.mark.parametrize("shape", [(2, 256, 6, 2, 128), (2, 48, 4, 2, 64)])
@@ -401,6 +408,18 @@ def test_flash_bwd_dkv_tc_is_deterministic(cuda):
                                                            again[2])
 
 
+def test_flash_bwd_dq_tc_is_deterministic(cuda):
+    """No atomics: each (b, query head, q tile) of dq has one owner, so
+    two runs on the same inputs are bit-identical."""
+    q, k, v, do = _qkv(cuda, PHI4_TRAIN, seed=8, n=4)
+    o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
+    launches = aops.FLASH_BWD_DQ_TC.launches
+    first = aops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    again = aops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    assert aops.FLASH_BWD_DQ_TC.launches == launches + 2
+    assert torch.equal(first[0], again[0])
+
+
 def test_flash_tc_mask_off_control_fails(cuda):
     """The limits can fail: the tensor-core kernels with the causal mask
     off, held to the causal exact value and plain version, miss them."""
@@ -411,21 +430,22 @@ def test_flash_tc_mask_off_control_fails(cuda):
     o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
     got = aops.flash_attention_bwd(q, k, v, o, do, lse, False)
     want = aref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
-    assert min(_dkv_errors(got, want)) > 1.0
+    assert min(_bwd_errors(got, want)) > 1.0
 
 
 def test_flash_bf16_off_the_tensor_core_route(cuda):
     """bf16 with dh not a multiple of 16 takes the FMA kernels, by the
     route rule alone."""
     q, k, v, do = _qkv(cuda, (1, 128, 4, 2, 72), seed=10, n=4)
-    kernels = (aops.FLASH, aops.FLASH_TC, aops.FLASH_BWD_DKV,
+    kernels = (aops.FLASH, aops.FLASH_TC, aops.FLASH_BWD_DQ,
+               aops.FLASH_BWD_DQ_TC, aops.FLASH_BWD_DKV,
                aops.FLASH_BWD_DKV_TC)
     counts = _counts(*kernels)
     o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
     aops.flash_attention_bwd(q, k, v, o, do, lse, True)
     torch.cuda.synchronize()
     assert _counts(*kernels) == [counts[0] + 1, counts[1], counts[2] + 1,
-                                 counts[3]]
+                                 counts[3], counts[4] + 1, counts[5]]
     err, tol, _ = _fwd_errors(q, k, v, o, lse, True)
     assert err <= tol
 
@@ -469,18 +489,25 @@ def test_ssd_kernel_refuses_a_gradient(cuda):
         dops.ssd_intra(xdt, a, bc, bc)
 
 
-@pytest.mark.parametrize("BC,Q,H,P,N,decay", [
-    (4, 256, 8, 64, 128, 1.0),      # Mamba-2's chunk, state and head width
-    (3, 100, 5, 16, 40, 1.0),       # ragged tiles in Q, N and P
-    (2, 256, 4, 64, 128, 20.0),     # steep decay: cum_i - cum_j ~ 1e3
-])
-def test_ssd_intra_kernel_close(cuda, BC, Q, H, P, N, decay):
+def _ssd_inputs(cuda, BC, Q, H, P, N, decay):
     gen = torch.Generator(device=cuda).manual_seed(Q + H)
     xdt = torch.randn((BC, Q, H, P), generator=gen, device=cuda) * 0.5
     a = -torch.nn.functional.softplus(
         torch.randn((BC, Q, H), generator=gen, device=cuda)) * decay
     b = torch.randn((BC, Q, N), generator=gen, device=cuda) * 0.5
     c = torch.randn((BC, Q, N), generator=gen, device=cuda) * 0.5
+    return xdt, a, b, c
+
+
+@pytest.mark.parametrize("BC,Q,H,P,N,decay", [
+    (4, 256, 8, 64, 128, 1.0),      # Mamba-2's chunk, state and head width
+    (3, 100, 5, 16, 40, 1.0),       # ragged tiles in Q, N and P
+    (2, 256, 4, 64, 128, 20.0),     # steep decay: cum_i - cum_j ~ 1e3
+    (2, 256, 12, 64, 128, 1.0),     # three whole groups of four heads
+    (2, 200, 6, 64, 128, 1.0),      # a last group of two heads, ragged Q
+])
+def test_ssd_intra_kernel_close(cuda, BC, Q, H, P, N, decay):
+    xdt, a, b, c = _ssd_inputs(cuda, BC, Q, H, P, N, decay)
     launches = dops.SSD_INTRA.launches
     got = dops.ssd_intra(xdt, a, b, c)
     want = dref.ssd_intra_ref(xdt, a, b, c)
@@ -494,3 +521,13 @@ def test_ssd_intra_kernel_close(cuda, BC, Q, H, P, N, decay):
         assert g.shape == w.shape, name
         err = float((g - w).abs().max())
         assert err <= rel * float(w.abs().max()), (name, err)
+
+
+def test_ssd_intra_head_swap_control_fails(cuda):
+    """The limit can fail: the kernel given ``a`` with heads 0 and 1
+    swapped, held to the plain version on the true ``a``, misses y's."""
+    xdt, a, b, c = _ssd_inputs(cuda, 2, 256, 8, 64, 128, 1.0)
+    swapped = a[:, :, [1, 0, *range(2, 8)]].contiguous()
+    y = dops.ssd_intra(xdt, swapped, b, c)[0]
+    want = dref.ssd_intra_ref(xdt, a, b, c)[0]
+    assert float((y - want).abs().max()) > 1e-4 * float(want.abs().max())

@@ -209,25 +209,47 @@ def test_ssd_scan_matches_reference(with_h0):
 
 def test_flash_route_is_a_rule_of_dtype_and_dh():
     """bf16 with dh a multiple of 16 up to 128 takes the tensor-core
-    kernels; fp32, and bf16 with any other dh, the FMA kernels."""
+    kernels, dq's and dk/dv's both; fp32, and bf16 with any other dh, the
+    FMA kernels."""
     route = tattn.tensor_core_route
     assert all(route(torch.bfloat16, dh) for dh in (16, 64, 80, 128))
     assert not any(route(torch.bfloat16, dh) for dh in (8, 72, 100, 144))
     assert not any(route(torch.float32, dh) for dh in (64, 128))
+    tc = (tattn.FLASH_BWD_DQ_TC, tattn.FLASH_BWD_DKV_TC)
+    fma = (tattn.FLASH_BWD_DQ, tattn.FLASH_BWD_DKV)
+    assert tattn.bwd_kernels(torch.bfloat16, 128) == tc
+    assert tattn.bwd_kernels(torch.bfloat16, 72) == fma
+    assert tattn.bwd_kernels(torch.float32, 128) == fma
+    assert tattn.FLASH_BWD_DQ_TC.symbol == "flash_attention_bwd_dq_tc"
+    assert tattn.FLASH_BWD_DQ_TC.library is tattn.FLASH_BWD_DKV_TC.library
 
 
 def test_build_cache_key_covers_headers_and_flags(tmp_path, monkeypatch):
     """A library's cached ``.so`` is named by its source, the ``*.cuh``
-    headers beside it and the flags (an ``-I`` path, say): editing any of
-    them names a new library, so a stale one is never loaded."""
+    headers beside it and in the shared include directory, and the flags
+    (an ``-I`` path, say): editing any of them names a new library, so a
+    stale one is never loaded.  Every build gets ``-I`` to the shared
+    directory, which holds ``sm90.cuh``."""
     from repro_torch.kernels import _build
+    assert (_build.INCLUDE_DIR / "sm90.cuh").exists()
+    declared = len(_build._LIBRARIES)
+    shared = tmp_path / "shared"
+    shared.mkdir()
+    (shared / "s.cuh").write_text("// shared one\n")
+    monkeypatch.setattr(_build, "INCLUDE_DIR", shared)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")   # none here
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
     (tmp_path / "h.cuh").write_text("// one\n")
     (tmp_path / "notes.txt").write_text("not a header\n")
     lib = _build.Library("probe", tmp_path / "k.cu")
     try:
+        command = lib._command(tmp_path / "out.so")
+        assert command[command.index("-I") + 1] == str(shared)
         first = lib.path
         assert first == _build.Library("probe", tmp_path / "k.cu").path
+        (shared / "s.cuh").write_text("// shared two\n")
+        assert lib.path != first
+        first = lib.path
         (tmp_path / "notes.txt").write_text("edited\n")
         assert lib.path == first
         (tmp_path / "h.cuh").write_text("// two\n")
@@ -242,12 +264,17 @@ def test_build_cache_key_covers_headers_and_flags(tmp_path, monkeypatch):
                             _build.NVCC_FLAGS + ("-I", str(tmp_path)))
         assert lib.path != before
     finally:
-        del _build._LIBRARIES[-2:]
+        del _build._LIBRARIES[declared:]
 
 
 def test_lm_wrappers_never_fall_back():
     """A tensor on neither the CPU nor a card has no kernel and no plain
-    path: the wrappers raise instead of computing elsewhere."""
+    path: the wrappers raise instead of computing elsewhere, and launch
+    nothing."""
+    kernels = (tattn.FLASH, tattn.FLASH_TC, tattn.FLASH_BWD_DQ,
+               tattn.FLASH_BWD_DQ_TC, tattn.FLASH_BWD_DKV,
+               tattn.FLASH_BWD_DKV_TC, tssd.SSD_INTRA)
+    counts = [kern.launches for kern in kernels]
     q = torch.zeros((1, 128, 2, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tattn.flash_attention(q, q, q)
@@ -259,3 +286,4 @@ def test_lm_wrappers_never_fall_back():
     bc = torch.zeros((2, 16, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tssd.ssd_intra(x, a, bc, bc)
+    assert [kern.launches for kern in kernels] == counts
