@@ -471,12 +471,21 @@ def check_gather_sharded(dev) -> dict:
                      f"checked: D=4, the shards' sum, a mask-off control)"}
 
 
-def check_quadconv(dev, B: int, I: int, C: int, O: int) -> dict:
+def check_quadconv(dev, B: int, I: int, C: int, O: int,
+                   rerun: bool = False) -> dict:
+    """The split-I kernel at J = I against the plain einsum (1e-4 of the
+    output's magnitude); with ``rerun``, also bit-identical on a second call
+    and a control, w with the plan's middle chunk zeroed, that must miss the
+    limit.  Times: the kernel, the einsum, and cuBLAS's product of (f ⊙ w)
+    [B, I·C] by G laid out as Gm [I·C, J·O] beforehand (the transpose not
+    timed; TF32 off)."""
     from repro_torch.kernels.quadconv import ops, ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
     f = torch.randn((B, I, C), generator=gen, device=dev)
     w = torch.rand((I,), generator=gen, device=dev) / I
     g = torch.randn((I, I, O, C), generator=gen, device=dev)
+    plan = ops._split_plan(I, I, O, C,
+                           ops._sm_count(torch.cuda.current_device()))
     out = ops.quadconv_contract(f, w, g)
     out_r = ref.quadconv_contract_ref(f, w, g)
     err = float((out - out_r).abs().max())
@@ -486,17 +495,47 @@ def check_quadconv(dev, B: int, I: int, C: int, O: int) -> dict:
     if not err <= tol:
         raise AssertionError(f"quadconv kernel disagrees at I={I}: max err "
                              f"{err} > {tol}")
+    extra = {}
+    if rerun:
+        if not torch.equal(ops.quadconv_contract(f, w, g), out):
+            raise AssertionError(f"quadconv kernel at I={I}: a rerun "
+                                 "differs")
+        i0, i1 = plan.chunks()[plan.splits // 2]
+        dropped = w.clone()
+        dropped[i0:i1] = 0
+        ctrl = float((ops.quadconv_contract(f, dropped, g) - out_r)
+                     .abs().max())
+        if not ctrl > tol:
+            raise AssertionError(f"quadconv control (chunk [{i0}, {i1}) "
+                                 f"dropped) passed: {ctrl} <= {tol}")
+        extra = {"rerun_identical": True, "dropped_chunk": [i0, i1],
+                 "dropped_chunk_err": ctrl}
     kernel = timed(lambda: ops.quadconv_contract(f, w, g), 20)
     plain = timed(lambda: ref.quadconv_contract_ref(f, w, g), 10)
     library = timed(
         lambda: torch.einsum("i,jioc,bic->bjo", w, g, f), 10)
-    b, by = bound(4 * (g.numel() + f.numel() + w.numel() + B * I * O),
-                  2.0 * B * I * I * O * C)
+    gm = g.permute(1, 3, 0, 2).reshape(I * C, I * O).contiguous()
     del g
     torch.cuda.empty_cache()
-    return {"max_abs_err": err, "tol": tol, **kernel,
+
+    def matmul():
+        return torch.matmul((f * w[:, None]).reshape(B, I * C), gm)
+
+    mm_err = float((matmul().view(B, I, O) - out_r).abs().max())
+    if not mm_err <= tol:
+        raise AssertionError(f"cuBLAS yardstick disagrees: {mm_err} > {tol}")
+    cublas = timed(matmul, 10)
+    b, by = bound(4 * (gm.numel() + f.numel() + w.numel() + B * I * O),
+                  2.0 * B * I * I * O * C)
+    del gm
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "tol": tol, **extra, **kernel,
+            "bound_share": b / kernel["ms"],
             "plain_ms": plain["ms"], "plain_wall_ms": plain["wall_ms"],
-            "library_ms": library["ms"], "bound_ms": b, "bound_by": by,
+            "library_ms": library["ms"],
+            "library_matmul_ms": cublas["ms"], "bound_ms": b, "bound_by": by,
+            "plan": {"splits": plan.splits, "chunk": plan.chunk,
+                     "stages": plan.stages, "items": plan.items},
             "shape": f"B={B} I=J={I} C={C} O={O}"}
 
 
@@ -1576,12 +1615,15 @@ def main() -> int:
     sample = check_sample(dev)
     gather_serving = check_gather(dev, CLIENTS * REQUESTS, MAX_BATCH, 4096)
     gather = check_gather(dev, RING, GATHER, 2048)
-    serve_blocks = [check_quadconv(dev, MAX_BATCH, 4096, 4, 16),
+    serve_blocks = [check_quadconv(dev, MAX_BATCH, 4096, 4, 16, rerun=True),
                     check_quadconv(dev, MAX_BATCH, 1024, 16, 16)]
-    enc0, mid, dec1 = (check_quadconv(dev, BATCH, 2048, 4, 16),
+    enc0, mid, dec1 = (check_quadconv(dev, BATCH, 2048, 4, 16, rerun=True),
                        check_quadconv(dev, BATCH, 512, 16, 16),
                        check_quadconv(dev, BATCH, 2048, 16, 16))
     train_blocks = [enc0, mid, mid, dec1]   # encoder 0, 1; decoder 0, 1
+    # a rank's microstep on the 2-rank mesh: B = 2 at the training shapes
+    mesh_blocks = [check_quadconv(dev, BATCH // SHARDS, 2048, 4, 16),
+                   check_quadconv(dev, BATCH // SHARDS, 512, 16, 16)]
     # LM serving: Phi-4-mini's prefill (B = 4, S = 2,048) in bf16 and fp32,
     # one tile of the reference (S = 128), a training micro-batch (B = 1);
     # Mamba-2's prefill (32 chunks)
@@ -1593,8 +1635,8 @@ def main() -> int:
     ssd = check_ssd(dev, LM_BATCH * PROMPT // 256, 256, 64, 64, 128)
     torch.cuda.empty_cache()
     for row in (probe, sample, gather_serving, gather, *serve_blocks,
-                enc0, mid, dec1, flash, flash32, flash_edge, flash_micro,
-                ssd):
+                enc0, mid, dec1, *mesh_blocks, flash, flash32, flash_edge,
+                flash_micro, ssd):
         print(f"[kernels] {json.dumps(row)}", flush=True)
     timing_keys = ("ms", "wall_ms", "plain_ms", "plain_wall_ms",
                    "library_ms", "bound_ms")
@@ -1608,11 +1650,12 @@ def main() -> int:
             "shape": "one training forward at B=4: encoder 0 (I=J=2048, "
                      "C=4), encoder 1 and decoder 0 (I=J=512, C=16), "
                      "decoder 1 (I=J=2048, C=16); times summed",
-            **{k: sum(b[k] for b in train_blocks) for k in timing_keys},
+            **{k: sum(b[k] for b in train_blocks)
+               for k in (*timing_keys, "library_matmul_ms")},
             "serving": {"shape": "encoder blocks 0 + 1 at B=8, 4,096 "
                                  "points (times summed)",
                         **{k: sum(b[k] for b in serve_blocks)
-                           for k in timing_keys}}}
+                           for k in (*timing_keys, "library_matmul_ms")}}}
     gather["serving"] = {k: gather_serving[k] for k in
                          ("shape", *timing_keys)}
 

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (attention/csrc/attention_tc.cu, attention_bwd_tc.cu, ssd/csrc/ssd.cu;
-// each is compiled with -I pointing here): 16-byte cp.async copies into the
+// (attention/csrc/attention_tc.cu, attention_bwd_tc.cu, ssd/csrc/ssd.cu,
+// quadconv/csrc/quadconv.cu; each is compiled with -I pointing here):
+// mbarriers with TMA copies (tensor-map tiles and 1-D bulk copies),
+// 16-byte cp.async copies into the
 // 128-byte-swizzled shared-memory layout that wgmma reads, the wgmma
 // shared-memory descriptors, and the wgmma instructions themselves (bf16
 // inputs, fp32 accumulators) as inline PTX.
@@ -103,6 +105,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+// One plain arrival (a consumer releasing a ring stage).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
 // Spins until the barrier's phase ``parity`` has completed.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
@@ -128,6 +136,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ``bytes`` contiguous bytes global -> shared by TMA (a 1-D bulk copy, no
+// tensor map); they complete on ``bar``.  Addresses and size 16-byte
+// aligned.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

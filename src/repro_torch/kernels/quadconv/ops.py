@@ -13,6 +13,16 @@ the card, as the JAX package's ``mode="ref"``).  The kernel reads ``g`` in
 its native ``[J, I, O, C]`` layout, so no transpose or padding happens
 here.
 
+The kernel splits the reduction over i into chunks, gives each SM an
+equal run of the (chunk, j tile) items' ring stages, and streams G
+through a TMA ring (see the source).  :func:`_split_plan` picks the
+chunks, the runs and the ring from the shape and the card's SM count —
+never from B, so a row's bits do not depend on the batch it rides in.
+The wrapper allocates the partials' workspace ``[2 S, B, J, O]`` (16.8
+MB at serving block 0, 1 MB at I = J = 512), and the C entry runs a
+second, small kernel that sums it in order; ``QUADCONV.launches`` counts
+one per contraction.
+
 The contraction is a ``torch.autograd.Function``.  Its backward is the
 reference's own VJP (``_bwd``, three einsums — not a Pallas kernel there
 either), with the shared intermediate ``t[b,i,c] = Σ_{j,o} G[j,i,o,c]
@@ -29,6 +39,8 @@ transposed copy that ``torch.einsum`` makes (G's size, freed on return).
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -44,7 +56,88 @@ _LIB = _build.Library("quadconv",
                       Path(__file__).parent / "csrc" / "quadconv.cu")
 #: ``kernel.py::quadconv_matmul`` on Hopper (see ``csrc/quadconv.cu``).
 QUADCONV = _build.Kernel(_LIB, "quadconv_contract",
-                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P])
+
+# The kernel's fixed shapes (csrc/quadconv.cu): batch rows per group,
+# output points j per work item, floats of G per point j in a ring stage,
+# consumer warps; and Hopper's shared memory per block.
+_MAX_B, _J_TILE, _STAGE_FLOATS, _CONSUMER_WARPS = 8, 4, 1024, 8
+_SMEM_BLOCK = 232_448
+#: staged f floats per batch row in one chunk (L·C): bounds the chunk
+_FW_FLOATS = 4096
+_MAX_STAGES = 8
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """How the kernel cuts one contraction: ``splits`` chunks of
+    ``chunk`` rows of i (the last may be shorter) times ``tiles`` tiles of
+    4 output points j are the work items.  Their ``units`` ring stages of
+    ``rows`` rows of i are cut into ``grid`` equal runs, one per block;
+    ``stages`` ring stages fill the shared memory left."""
+    I: int
+    rows: int
+    chunk: int
+    splits: int
+    tiles: int
+    stages: int
+    grid: int
+
+    @property
+    def items(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def units(self) -> int:
+        return self.tiles * max(1, -(-self.I // self.rows))
+
+    def balance(self, n_sm: int) -> float:
+        """Busy share of ``n_sm`` SMs: the mean run over the longest."""
+        return self.units / (n_sm * -(-self.units // self.grid))
+
+    def chunks(self) -> list[tuple[int, int]]:
+        return [(s * self.chunk, min(self.I, (s + 1) * self.chunk))
+                for s in range(self.splits)]
+
+
+def _smem_bytes(O: int, C: int, chunk: int, stages: int) -> int:
+    """Dynamic shared memory of the kernel (``smem_bytes`` in the source):
+    the ring, the staged f and w, the partials, the mbarriers."""
+    groups = min(_STAGE_FLOATS // (O * C), _CONSUMER_WARPS)
+    return 4 * (stages * _J_TILE * _STAGE_FLOATS + _MAX_B * chunk * C
+                + chunk + groups * _J_TILE * _MAX_B * O) + 16 * stages
+
+
+@functools.lru_cache(maxsize=None)
+def _split_plan(I: int, J: int, O: int, C: int, n_sm: int,
+                fw_floats: int = _FW_FLOATS) -> SplitPlan:
+    """The split of one contraction for a card with ``n_sm`` SMs.
+
+    A chunk holds at most ``fw_floats // C`` rows of i (its staged f) and
+    is a whole number of ring stages.  There are as few chunks as that
+    allows, but at least enough that the items outnumber the SMs where i
+    is long enough.  The blocks' runs are at least one item long, so a
+    run's end cuts an item once at most.  B plays no part."""
+    rows = _STAGE_FLOATS // (O * C)
+    tiles = -(-J // _J_TILE)
+    n_stages = max(1, -(-I // rows))             # ring stages along i
+    per_chunk = max(1, fw_floats // C // rows)   # stages a chunk may hold
+    splits = min(n_stages, max(-(-n_stages // per_chunk), -(-n_sm // tiles)))
+    k = -(-n_stages // splits)                   # stages per chunk
+    splits = -(-n_stages // k)
+    fixed = _smem_bytes(O, C, k * rows, 0)
+    per_stage = _smem_bytes(O, C, 0, 1) - _smem_bytes(O, C, 0, 0)
+    return SplitPlan(I=I, rows=rows, chunk=k * rows, splits=splits,
+                     tiles=tiles,
+                     stages=min(_MAX_STAGES,
+                                (_SMEM_BLOCK - fixed) // per_stage),
+                     grid=min(n_sm, tiles * n_stages // k))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(f, w, g) -> None:
@@ -106,11 +199,34 @@ def _forward(f, w, g, mode):
     if f.device.type != "cuda":
         raise ValueError(f"quadconv_contract: no kernel for {f.device}")
     _check(f, w, g)
+    n_sm = _sm_count(_index(f.device))
+    return _launch(f, w, g, _plan(f.shape, g.shape, n_sm))
+
+
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def _plan(f_shape, g_shape, n_sm: int) -> SplitPlan:
+    """The wrapper's plan for f [B, I, C] and g [J, I, O, C]: B is not
+    passed on."""
+    j, i, o, c = g_shape
+    return _split_plan(i, j, o, c, n_sm)
+
+
+def _launch(f, w, g, plan: SplitPlan, grid: int | None = None):
+    """One launch of the kernel with ``plan`` (on ``grid`` runs instead of
+    the plan's, if given: at most ``plan.units // (chunk // rows)``)."""
     b, i, _ = f.shape
     j, _, o, c = g.shape
+    if not (b and j and i):
+        return torch.zeros((b, j, o), dtype=torch.float32, device=f.device)
     out = torch.empty((b, j, o), dtype=torch.float32, device=f.device)
-    if b and j:
-        QUADCONV.launch(f.data_ptr(), w.data_ptr(), g.data_ptr(),
-                        out.data_ptr(), b, i, j, o, c,
-                        _P(torch.cuda.current_stream(f.device).cuda_stream))
+    ws = torch.empty((2 * plan.splits, b, j, o), dtype=torch.float32,
+                     device=f.device)
+    QUADCONV.launch(f.data_ptr(), w.data_ptr(), g.data_ptr(),
+                    out.data_ptr(), ws.data_ptr(), b, i, j, o, c,
+                    plan.chunk, plan.splits, plan.stages, grid or plan.grid,
+                    _P(torch.cuda.current_stream(f.device).cuda_stream))
     return out

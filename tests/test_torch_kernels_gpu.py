@@ -10,8 +10,10 @@ machine that has only the port's dependencies:
 probe, sample, gather and the sharded gather must agree exactly (and the
 shards' results of the sharded gather sum to the whole gather); the
 QuadConv contraction
-within fp32 rounding (1e-5 relative to the output's magnitude), and bit
-for bit between batch sizes (its summation order does not depend on B).
+within fp32 rounding (1e-5 relative to the output's magnitude), bit for
+bit between batch sizes (its summation order does not depend on B) and
+on a rerun, at shapes that reach each branch of its split plan; given w
+with any one of the plan's chunks of i zeroed it must miss that limit.
 The contraction's autograd Function with the kernel forward gives the
 same gradients as with ``mode="ref"`` (its backward is the same einsums
 either way) and an output within the forward's tolerance.
@@ -185,18 +187,31 @@ def test_gather_sharded_kernel_refuses_what_it_does_not_take(cuda):
         sops.gather_rows_sharded(slab, slots.long(), 0)
 
 
-@pytest.mark.parametrize("B,I,C,J,O", [
-    (8, 4096, 4, 64, 16),      # encoder block 0 (J cut: the kernel's j
-    (8, 1024, 16, 64, 16),     # blocks are independent), block 1
-    (3, 40, 4, 10, 16),        # ragged tile and j-group tails
-    (11, 70, 16, 5, 16),       # more batch rows than one block holds
-    (2, 16, 8, 9, 2),
-])
-def test_quadconv_kernel_close(cuda, B, I, C, J, O):
+def _quadconv_inputs(cuda, B, I, C, J, O):
     gen = torch.Generator(device=cuda).manual_seed(2)
     f = torch.randn((B, I, C), generator=gen, device=cuda)
     w = torch.rand((I,), generator=gen, device=cuda) / I
     g = torch.randn((J, I, O, C), generator=gen, device=cuda)
+    return f, w, g
+
+
+def _quadconv_plan(cuda, I, C, J, O):
+    return qops._split_plan(I, J, O, C, qops._sm_count(qops._index(cuda)))
+
+
+@pytest.mark.parametrize("B,I,C,J,O", [
+    (8, 4096, 4, 64, 16),      # encoder block 0 (J cut: the kernel's j
+    (8, 1024, 16, 64, 16),     # tiles are independent), block 1
+    (3, 40, 4, 10, 16),        # ragged tile and j-group tails
+    (11, 70, 16, 5, 16),       # more batch rows than one block holds
+    (2, 16, 8, 9, 2),
+    (4, 512, 16, 512, 16),     # encoder 1 / decoder 0 in training, whole
+    (2, 2048, 4, 2048, 16),    # encoder 0 at a mesh rank's B = 2, whole
+    (5, 1000, 16, 64, 16),     # I that no chunk length divides
+    (3, 530, 4, 3, 16),        # J below one j tile; a 2-row last stage
+])
+def test_quadconv_kernel_close(cuda, B, I, C, J, O):
+    f, w, g = _quadconv_inputs(cuda, B, I, C, J, O)
     out = qops.quadconv_contract(f, w, g)
     want = qref.quadconv_contract_ref(f, w, g)
     tol = 1e-5 * float(want.abs().max())
@@ -205,6 +220,38 @@ def test_quadconv_kernel_close(cuda, B, I, C, J, O):
     for b in range(B):
         one = qops.quadconv_contract(f[b:b + 1].contiguous(), w, g)
         assert torch.equal(one[0], out[b])
+
+
+@pytest.mark.parametrize("B,I,C,J,O", [
+    (4, 512, 16, 512, 16),     # training, two chunks
+    (8, 4096, 4, 64, 16),      # serving block 0 (J cut), sixteen chunks
+])
+def test_quadconv_kernel_bit_identical_rerun(cuda, B, I, C, J, O):
+    f, w, g = _quadconv_inputs(cuda, B, I, C, J, O)
+    launches = qops.QUADCONV.launches
+    first = qops.quadconv_contract(f, w, g)
+    second = qops.quadconv_contract(f, w, g)
+    torch.cuda.synchronize()
+    assert qops.QUADCONV.launches == launches + 2
+    assert _quadconv_plan(cuda, I, C, J, O).splits > 1
+    assert torch.equal(first, second)
+
+
+def test_quadconv_kernel_dropped_chunk_fails(cuda):
+    """The control: w with any one chunk of the plan zeroed misses the
+    1e-5 limit against the plain version of the unmodified inputs, so the
+    limit would catch a chunk the kernel dropped."""
+    B, I, C, J, O = 5, 1000, 16, 64, 16
+    f, w, g = _quadconv_inputs(cuda, B, I, C, J, O)
+    want = qref.quadconv_contract_ref(f, w, g)
+    tol = 1e-5 * float(want.abs().max())
+    chunks = _quadconv_plan(cuda, I, C, J, O).chunks()
+    assert len(chunks) > 1 and I % (chunks[0][1] - chunks[0][0])
+    for i0, i1 in chunks:
+        dropped = w.clone()
+        dropped[i0:i1] = 0
+        out = qops.quadconv_contract(f, dropped, g)
+        assert float((out - want).abs().max()) > tol, (i0, i1)
 
 
 def test_quadconv_kernel_refuses_what_it_does_not_take(cuda):
