@@ -111,7 +111,28 @@ Phases, each printing one line (or a few):
    limit, the same session with rank 1's gradients and loss dropped
    (rank 0's counted for both ranks); each tier's CUDA-event time per
    epoch, idle share and peak memory.  Two ranks on one card measure the
-   mesh's overhead, not its scaling.
+   mesh's overhead, not its scaling;
+15. reproducer — the paper's reproducer (``repro_torch.sim.reproducer``):
+   ``run_transfer`` at the paper's default (24 ranks x 256 KB, 2 warm-up
+   + 40 timed iterations), vectorized and per rank, every value read back
+   equal to its payload row bit for bit, ``op_count`` 2 (vectorized) and
+   2 x 24 (per rank) an iteration, the probe and gather kernels launched
+   exactly once an iteration on the vectorized path and never on the
+   per-rank one; then the vectorized loop at Fig. 4's 16 KB .. 16 MB a
+   rank, each size's send and retrieve per op and MB/s beside the bytes
+   bound; the probe at the reproducer's ring (48 slots, 24 keys) and the
+   gather kernel at 24 rows of 256 KB and of 16 MB against their plain
+   versions bit for bit (the gather with a moved-slot control that must
+   fail), timed beside ``index_select`` and the bound; ``run_inference``
+   with ResNet-50 (registered through ``fold_registry_axis``) at Fig. 7's
+   batches 1, 4 and 16, three-step and fused, and the in-line
+   ``apply_resnet50`` call, TF32 off (the in-line call also with TF32 on),
+   three-step and fused within the registry tolerance of each other; the
+   card's logits against the same function on the CPU within
+   ``RESNET_CARD_RTOL``, a symmetric-padding stem failing it; and the
+   model through ``InSituSession`` with ``InferenceConsumer`` tiers
+   ``three_step`` and ``fused_registry`` (``examples/insitu_inference.py``'s
+   path), each ``ok``.
 
 Kernel, plain and library times in the kernels line are device times per
 call (``torch.profiler``: the summed device time of every kernel and copy
@@ -119,7 +140,9 @@ the call launched); ``wall_ms`` beside them is the CUDA-event time per
 call over back-to-back calls, which a launch-bound kernel spends mostly
 in host enqueue.
 
-Then one JSON line with every kernel's numbers, the ``nvidia-smi`` line,
+Then one JSON line with every kernel's numbers (the probe's and the
+gather's rows carry the reproducer's shapes, with their launches there,
+under ``"reproducer"``), the ``nvidia-smi`` line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 raises and the script exits non-zero; without a CUDA device it exits 1
 before doing anything.
@@ -173,6 +196,16 @@ DRIFT_PARAM_ATOL, DRIFT_LOSS_RTOL = 1e-5, 1e-6
 LAYER_GRAD_LIMIT = 2e-2
 LOSS_LIMIT = 1e-3
 GRAD_NORM_LIMIT = 5e-2
+# the paper's reproducer (paper §3): its default deployment (24 ranks x
+# 256 KB, 2 warm-up + 40 timed iterations), Fig. 4's message sizes at 24
+# ranks, Fig. 7's ResNet-50 batches; ResNet-50's logits on the card
+# against the same port function on the CPU, TF32 off on both (relative to
+# max|logits|; PERF.md); the in-situ inference session's batch and steps
+# (examples/insitu_inference.py's)
+FIG4_SIZES = (16 << 10, 64 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20)
+FIG7_BATCHES = (1, 4, 16)
+RESNET_CARD_RTOL = 1e-4
+INFER_BATCH, INFER_STEPS = 2, 5
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -387,17 +420,25 @@ def check_sample(dev) -> dict:
                      "(also checked: C=4096 n=256, an empty table)"}
 
 
-def check_gather(dev, capacity: int, n: int, points: int) -> dict:
+def check_gather(dev, capacity: int, n: int, row: tuple) -> dict:
+    """The gather kernel against its plain version, bit for bit, on ``n``
+    distinct random slots of a ``[capacity, *row]`` fp32 slab (so the bound
+    reads each row once, as the paths' gathers do); a control with one slot
+    moved must not be equal.  Timed beside ``index_select`` and the
+    bound."""
     from repro_torch.kernels.store import ops, ref
-    gen = torch.Generator().manual_seed(SEED)
-    slab = torch.randn((capacity, 4, points), generator=gen).to(dev)
-    slots = torch.randint(0, capacity, (n,), generator=gen,
-                          dtype=torch.int32).to(dev)
-    out = ops.gather_rows(slab, slots)
-    out_r = ref.gather_rows_ref(slab, slots)
-    err = float((out - out_r).abs().max())
-    if err:
-        raise AssertionError(f"gather kernel disagrees (max err {err})")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    slab = torch.randn((capacity, *row), generator=gen, device=dev)
+    slots = torch.randperm(capacity, generator=gen, device=dev,
+                           dtype=torch.int32)[:n]
+    want = ref.gather_rows_ref(slab, slots)
+    if not torch.equal(ops.gather_rows(slab, slots), want):
+        raise AssertionError(f"gather kernel disagrees at {n} rows of "
+                             f"{list(row)}")
+    moved = slots.clone()
+    moved[n // 2] = (moved[n // 2] + 1) % capacity
+    if torch.equal(ops.gather_rows(slab, moved), want):
+        raise AssertionError("gather control (one slot moved) passed")
     kernel = timed(lambda: ops.gather_rows(slab, slots), 200)
     plain = timed(lambda: ref.gather_rows_ref(slab, slots), 200)
     slots64 = slots.long()
@@ -406,10 +447,11 @@ def check_gather(dev, capacity: int, n: int, points: int) -> dict:
     return {"name": "gather_rows", "route": "cuda",
             "source": "src/repro_torch/kernels/store/csrc/store.cu",
             "replaces": "src/repro/kernels/store/kernel.py:142",
-            "max_abs_err": err, **kernel, "plain_ms": plain["ms"],
+            "max_abs_err": 0, "moved_slot_control": "failed, as it must",
+            **kernel, "plain_ms": plain["ms"],
             "plain_wall_ms": plain["wall_ms"], "library_ms": library["ms"],
             "bound_ms": b, "bound_by": by,
-            "shape": f"capacity={capacity} n={n} rows of [4, {points}] f32"}
+            "shape": f"capacity={capacity} n={n} rows of {list(row)} f32"}
 
 
 def check_gather_sharded(dev) -> dict:
@@ -1565,6 +1607,299 @@ def mesh_epoch_check(dev, fused: dict, sf: dict, sl: dict) -> dict:
     return got
 
 
+def transfer_run(dev, cfg, vectorized: bool, counters) -> dict:
+    """One ``run_transfer`` on a fresh server with a seeded payload: every
+    value read back must equal its payload row bit for bit with every
+    ``found`` true; ``op_count`` must be 2 a step (vectorized) or
+    ``2 · n_ranks`` (per rank), warm-up included; the probe and gather
+    kernels must launch exactly once a step on the vectorized path and
+    never on the per-rank one (``get`` is plain, as in the reference).
+    Returns each component's mean and std per op, its MB/s and the bytes
+    bound of one op (payload read once, written once)."""
+    from repro_torch.core import StoreServer
+    from repro_torch.sim import reproducer as rp
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    data = torch.randn((cfg.n_ranks, cfg.elems_per_rank), generator=gen,
+                       device=dev)
+    server = StoreServer(device=dev)
+    bad = []
+
+    def on_read(step, values, founds):
+        if not (torch.equal(values, data) and bool(founds.all())):
+            bad.append(step)
+
+    torch.cuda.synchronize()
+    for k in counters:
+        k.launches = 0
+    timers = rp.run_transfer(cfg, server, vectorized=vectorized, data=data,
+                             on_read=on_read)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in counters}
+    steps = cfg.warmup + cfg.iterations
+    ops = server.stats()["op_count"]
+    mode = "vectorized" if vectorized else "per_rank"
+    if bad:
+        raise AssertionError(f"run_transfer {mode} at {cfg.bytes_per_rank} "
+                             f"B: steps {bad} read back other values")
+    if ops != (2 if vectorized else 2 * cfg.n_ranks) * steps:
+        raise AssertionError(f"run_transfer {mode}: op_count {ops}")
+    if any(n != (steps if vectorized else 0) for n in launches.values()):
+        raise AssertionError(f"run_transfer {mode}: launches {launches}")
+    op_bytes = cfg.bytes_per_rank * (cfg.n_ranks if vectorized else 1)
+    out = {"mode": mode, "n_ranks": cfg.n_ranks,
+           "bytes_per_rank": cfg.bytes_per_rank,
+           "iterations": cfg.iterations, "warmup": cfg.warmup,
+           "op_count": ops, "launches": launches, "reads_bit_identical": True,
+           "bound_ms_per_op": 2 * op_bytes / PEAK_BYTES_PER_S * 1e3}
+    for comp, st in timers.summary().items():
+        if comp in ("send", "retrieve"):
+            out[f"{comp}_ms"] = st["mean_s"] * 1e3
+            out[f"{comp}_std_ms"] = st["std_s"] * 1e3
+            out[f"{comp}_mb_per_s"] = op_bytes / st["mean_s"] / 1e6
+            out[f"{comp}_count"] = st["count"]
+    del server, data
+    return out
+
+
+def check_probe_ring(dev, n_ranks: int) -> dict:
+    """The probe kernel against its plain version at the reproducer's
+    shape: a ring of ``2 · n_ranks`` slots holding two steps, queried for
+    the newer step's ``n_ranks`` keys."""
+    from repro_torch.core.store import make_key
+    from repro_torch.kernels.store import ops, ref
+    ranks = torch.arange(n_ranks)
+    keys = torch.cat([make_key(ranks, 0), make_key(ranks, 1)]).to(dev)
+    version = torch.arange(1, 2 * n_ranks + 1, dtype=torch.int32,
+                           device=dev)
+    query = make_key(ranks, 1).to(dev)
+    idx, found = ops.probe_slots(keys, version, query)
+    idx_r, found_r = ref.probe_slots_ref(keys, version, query)
+    if not (torch.equal(idx, idx_r) and torch.equal(found, found_r)):
+        raise AssertionError(f"probe kernel disagrees: {idx} vs {idx_r}")
+    kernel = timed(lambda: ops.probe_slots(keys, version, query), 200)
+    plain = timed(lambda: ref.probe_slots_ref(keys, version, query), 200)
+    b, by = bound(2 * n_ranks * (8 + 4) + n_ranks * (8 + 4))
+    return {"shape": f"capacity={2 * n_ranks} n={n_ranks} (run_transfer)",
+            "max_abs_err": 0, **kernel, "plain_ms": plain["ms"],
+            "plain_wall_ms": plain["wall_ms"], "library_ms": None,
+            "bound_ms": b, "bound_by": by}
+
+
+def inference_run(dev, params, b: int) -> dict:
+    """``run_inference`` with ResNet-50 at batch ``b`` (paper defaults: 2
+    warm-up + 40 timed iterations), three-step and fused, and the in-line
+    ``apply_resnet50`` call (Fig. 7's three columns): each component's
+    mean and std; three-step 4 store ops an iteration, fused none; the
+    two paths' outputs within the registry tolerance of each other."""
+    from repro_torch.core import StoreServer, Timers
+    from repro_torch.core.store import name_key
+    from repro_torch.ml.resnet import apply_resnet50
+    from repro_torch.sim import reproducer as rp
+    gen = torch.Generator(device=dev).manual_seed(SEED + b)
+    x = torch.randn((b, 3, 224, 224), generator=gen, device=dev)
+    cfg = rp.ReproducerConfig()
+    server = StoreServer(device=dev)
+    server.set_model("resnet50", rp.fold_registry_axis(apply_resnet50),
+                     params)
+    out = {"batch": b, "tf32": torch.backends.cudnn.allow_tf32}
+    steps = cfg.warmup + cfg.iterations
+    for fused in (False, True):
+        timers = rp.run_inference(cfg, server, "resnet50", x, fused=fused)
+        torch.cuda.synchronize()
+        mode = "fused" if fused else "three_step"
+        for comp, st in timers.summary().items():
+            out[f"{mode}_{comp}_ms"] = st["mean_s"] * 1e3
+            out[f"{mode}_{comp}_std_ms"] = st["std_s"] * 1e3
+    if server.stats()["op_count"] != 4 * steps:
+        raise AssertionError(f"run_inference: {server.stats()}")
+    y3 = server.get("infer_out", name_key("y"))[0]
+    yf = server.run_model("resnet50", x)
+    tol = 1e-4 * (1.0 + float(yf.abs().max()))
+    diff = float((y3 - yf).abs().max())
+    if tuple(yf.shape) != (b, 1000) or not bool(torch.isfinite(yf).all()) \
+            or not diff <= tol:
+        raise AssertionError(f"three-step vs fused at b={b}: {diff} > {tol}")
+    out["three_step_vs_fused_max_abs"] = diff
+    inline = Timers()
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        name = "inline_tf32" if tf32 else "inline"
+        for it in range(steps):
+            with inline.time(name if it >= cfg.warmup else "warmup") as box:
+                box[0] = apply_resnet50(params, x)
+    torch.backends.cudnn.allow_tf32 = False
+    for name in ("inline", "inline_tf32"):
+        st = inline.summary()[name]
+        out[f"{name}_ms"] = st["mean_s"] * 1e3
+        out[f"{name}_std_ms"] = st["std_s"] * 1e3
+    out["bound_ms_fp32"] = 2 * b * resnet50_macs(params, 224) \
+        / PEAK_FP32_FLOPS * 1e3
+    return out
+
+
+def resnet50_macs(params, hw: int) -> int:
+    """Multiply-adds of one ResNet-50 image of ``hw`` x ``hw`` (SAME
+    convolutions: ceil(size / stride) outputs), from the params' shapes."""
+    def conv(w, size, stride=1):
+        out = -(-size // stride)
+        kh, kw, cin, cout = w.shape
+        return out * out * kh * kw * cin * cout, out
+
+    macs, size = conv(params["stem"], hw, 2)
+    size = -(-size // 2)                      # the max pool
+    for s, stage in enumerate(params["stages"]):
+        for b, block in enumerate(stage):
+            stride = 2 if (b == 0 and s > 0) else 1
+            m1, _ = conv(block["conv1"], size)
+            m2, out = conv(block["conv2"], size, stride)
+            m3, _ = conv(block["conv3"], out)
+            mp = conv(block["proj"], size, stride)[0] if "proj" in block \
+                else 0
+            macs, size = macs + m1 + m2 + m3 + mp, out
+    return macs + params["fc"]["w"].numel()
+
+
+def resnet_card_check(dev, params) -> dict:
+    """ResNet-50's logits on the card against the same port function on
+    the CPU, TF32 off on both, within ``RESNET_CARD_RTOL`` of max|logits|;
+    a stem padded symmetrically (as ``nn.Conv2d(padding=3)`` and
+    ``MaxPool2d(3, 2, padding=1)`` pad) must fail it.  The TF32-on
+    reading is reported beside it, unchecked."""
+    import torch.nn.functional as F
+    from repro_torch.ml import resnet
+    from repro_torch.tree import tree_map
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    x = torch.randn((4, 3, 224, 224), generator=gen, device=dev)
+    want = resnet.apply_resnet50(tree_map(lambda t: t.cpu(), params),
+                                 x.cpu())
+    scale = float(want.abs().max())
+
+    def rel(y):
+        return float((y.cpu() - want).abs().max()) / scale
+
+    err = rel(resnet.apply_resnet50(params, x))
+    h = F.conv2d(x, params["stem"].permute(3, 2, 0, 1), stride=2, padding=3)
+    h = F.max_pool2d(F.relu(resnet._bn(h, params["bn_stem"])), 3, 2,
+                     padding=1)
+    control = rel(resnet._trunk(params, h))
+    torch.backends.cudnn.allow_tf32 = True
+    err_tf32 = rel(resnet.apply_resnet50(params, x))
+    torch.backends.cudnn.allow_tf32 = False
+    if not err <= RESNET_CARD_RTOL:
+        raise AssertionError(f"ResNet-50 card vs CPU: {err} > "
+                             f"{RESNET_CARD_RTOL}")
+    if control <= RESNET_CARD_RTOL:
+        raise AssertionError(f"symmetric-stem control passed: {control}")
+    return {"batch": 4, "max_abs_logit": scale, "rel_err_vs_cpu": err,
+            "limit": RESNET_CARD_RTOL, "symmetric_stem_control": control,
+            "rel_err_vs_cpu_tf32_on": err_tf32}
+
+
+def inference_sessions(dev, params) -> dict:
+    """ResNet-50 through ``InSituSession`` with one ``InferenceConsumer``
+    per tier, the model registered by ``preload``, as
+    ``examples/insitu_inference.py`` runs it: each run ``ok``, op_count as
+    planned, every output within the registry tolerance of the in-line
+    call."""
+    from repro_torch.insitu import InferenceConsumer, InSituSession
+    from repro_torch.ml.resnet import apply_resnet50
+    from repro_torch.sim import reproducer as rp
+    gen = torch.Generator(device=dev).manual_seed(SEED + 200)
+    x = torch.randn((INFER_BATCH, 3, 224, 224), generator=gen, device=dev)
+    want = apply_resnet50(params, x)
+    tol = 1e-4 * (1.0 + float(want.abs().max()))
+    out = {}
+    for tier in ("three_step", "fused_registry"):
+        sess = InSituSession(device=dev, components=[InferenceConsumer(
+            "resnet50", lambda client, step: x, steps=INFER_STEPS,
+            wait_meta=None, tier=tier)])
+        plan = sess.plan()
+        t0 = time.perf_counter()
+        res = sess.run(plan=plan, max_wall_s=600, sequential=True,
+                       preload=lambda server: server.set_model(
+                           "resnet50", rp.fold_registry_axis(apply_resnet50),
+                           params))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not res.ok:
+            raise AssertionError({n: c.error
+                                  for n, c in res.run.components.items()})
+        got = res.output("inference")
+        diff = max(float((y - want).abs().max()) for y in got.outputs)
+        ops = res.server.stats()["op_count"]
+        if got.steps != INFER_STEPS or ops != plan.store_dispatches \
+                or not diff <= tol:
+            raise AssertionError(f"{tier}: steps {got.steps} op_count {ops} "
+                                 f"(plan {plan.store_dispatches}) max err "
+                                 f"{diff} > {tol}")
+        out[tier] = {"ok": True, "steps": got.steps, "op_count": ops,
+                     "max_abs_vs_inline": diff, "wall_s": wall,
+                     "verb_mean_ms": {n: t["mean_s"] * 1e3 for n, t in
+                                      res.run.timers.summary().items()}}
+    return out
+
+
+def reproducer_phase(dev) -> tuple[list, list]:
+    """Phase 15: the paper's reproducer.  Returns the probe's and the
+    gather's rows at the reproducer's shapes, with their launches on its
+    vectorized path (extra shapes of the kernels line's rows 1 and 3)."""
+    from repro_torch.core import StoreServer
+    from repro_torch.kernels.store import ops as sops
+    from repro_torch.ml.resnet import apply_resnet50, init_resnet50
+    from repro_torch.sim.reproducer import ReproducerConfig, run_transfer
+    counters = [sops.PROBE, sops.GATHER]
+    cfg = ReproducerConfig()
+    runs = {"default": transfer_run(dev, cfg, True, counters),
+            "default_per_rank": transfer_run(dev, cfg, False, counters)}
+    for run in runs.values():
+        print(f"[reproducer] transfer {json.dumps(run)}", flush=True)
+    sweep = []
+    for size in FIG4_SIZES:
+        run = transfer_run(dev, replace(cfg, bytes_per_rank=size), True,
+                           counters)
+        sweep.append(run)
+        print(f"[reproducer] fig4 {json.dumps(run)}", flush=True)
+        torch.cuda.empty_cache()
+    probes = [dict(check_probe_ring(dev, cfg.n_ranks),
+                   launches=runs["default"]["launches"]["probe_slots"])]
+    gathers = [dict(check_gather(dev, 2 * cfg.n_ranks, cfg.n_ranks,
+                                 (size // 4,)),
+                    launches=run["launches"]["gather_rows"])
+               for size, run in ((cfg.bytes_per_rank, runs["default"]),
+                                 (FIG4_SIZES[-1], sweep[-1]))]
+    for row in (*probes, *gathers):
+        print(f"[reproducer] kernel {json.dumps(row)}", flush=True)
+    for size in (cfg.bytes_per_rank, FIG4_SIZES[-1]):
+        sized = replace(cfg, bytes_per_rank=size)
+        print(f"[reproducer] profile run_transfer at {size} B a rank "
+              f"(fresh server and payload, 42 iterations): " + profile(
+                  lambda: run_transfer(sized, StoreServer(device=dev)),
+                  top=4), flush=True)
+        torch.cuda.empty_cache()
+    params = init_resnet50(SEED, device=dev)
+    infer = []
+    for b in FIG7_BATCHES:
+        infer.append(inference_run(dev, params, b))
+        print(f"[reproducer] fig7 {json.dumps(infer[-1])}", flush=True)
+    card = resnet_card_check(dev, params)
+    print(f"[reproducer] resnet50 card vs cpu {json.dumps(card)}",
+          flush=True)
+    sessions = inference_sessions(dev, params)
+    print(f"[reproducer] insitu_inference {json.dumps(sessions)}",
+          flush=True)
+    for b in (1, FIG7_BATCHES[-1]):
+        x = torch.randn((b, 3, 224, 224), device=dev)
+        apply_resnet50(params, x)
+        print(f"[reproducer] profile apply_resnet50 b={b} x10: " + profile(
+            lambda: [apply_resnet50(params, x) for _ in range(10)], top=4),
+              flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return probes, gathers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1613,8 +1948,9 @@ def main() -> int:
     # 2,048 points; a ring of 24, 6 rows gathered per epoch)
     probe = check_probe(dev)
     sample = check_sample(dev)
-    gather_serving = check_gather(dev, CLIENTS * REQUESTS, MAX_BATCH, 4096)
-    gather = check_gather(dev, RING, GATHER, 2048)
+    gather_serving = check_gather(dev, CLIENTS * REQUESTS, MAX_BATCH,
+                                  (4, 4096))
+    gather = check_gather(dev, RING, GATHER, (4, 2048))
     serve_blocks = [check_quadconv(dev, MAX_BATCH, 4096, 4, 16, rerun=True),
                     check_quadconv(dev, MAX_BATCH, 1024, 16, 16)]
     enc0, mid, dec1 = (check_quadconv(dev, BATCH, 2048, 4, 16, rerun=True),
@@ -1856,6 +2192,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded_row, sharded = sharded_phase(dev, tcfg, tfcfg, trained)
     print(f"[sharded] {json.dumps(sharded)}", flush=True)
+
+    # 15. the paper's reproducer: transfer and ResNet-50 inference loops
+    torch.cuda.empty_cache()
+    probe["reproducer"], gather["reproducer"] = reproducer_phase(dev)
 
     serving_launches = launches
     rows = []

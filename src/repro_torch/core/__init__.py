@@ -1,5 +1,6 @@
-"""Core in-situ coupling layer — port of ``src/repro/core`` (the serving
-slice: local store, server, client, driver, telemetry, fault taxonomy)."""
+"""Core in-situ coupling layer — port of ``src/repro/core``: the local
+store, server, client, driver, telemetry and fault taxonomy, with the
+reference's names except its deployments (``ROADMAP.md`` A5)."""
 
 from . import store
 from .client import Client

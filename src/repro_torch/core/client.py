@@ -1,14 +1,16 @@
 """Client: the SmartRedis-verb API (paper §2.2).
 
 Port of ``src/repro/core/client.py`` — the single-device verbs: named
-tensors (``put_tensor``/``get_tensor``), the rank/step-keyed ``send_step``
-(the LM serving loop's capture hook), pre-made-key ``put_kv``/``get_kv``,
-the producer's fused ``capture_scan``, the trainer's ``sample_batch`` and
-``capture_epoch``, watermarks and metadata, the model registry verbs
-(``set_model``, ``run_model``, the fused ``infer``), the serving drain
-``serve_batch``, ``fault_point`` and the fault boundary every verb goes
-through.  Every verb is timed into the paper's component buckets
-(``client_init`` / ``metadata`` / ``send`` / ``retrieve`` /
+tensors (``put_tensor``/``get_tensor``/``poll_tensor``), the rank/step-keyed
+``send_step``/``retrieve_step`` (the reproducer's per-rank loop and the LM
+serving loop's capture hook) and their vectorized ``send_batch``,
+pre-made-key ``put_kv``/``get_kv``, the newest elements
+(``latest_batch``), the producer's fused ``capture_scan``, the trainer's
+``sample_batch`` and ``capture_epoch``, watermarks and metadata, the
+model registry verbs (``set_model``, ``run_model``, the fused ``infer``),
+the serving drain ``serve_batch``, ``fault_point`` and the fault boundary
+every verb goes through.  Every verb is timed into the paper's component
+buckets (``client_init`` / ``metadata`` / ``send`` / ``retrieve`` /
 ``model_eval`` / ``model_load``).  The reference's logged and staged
 capture paths belong to later slices (``ROADMAP.md`` A4, A5).
 """
@@ -19,10 +21,12 @@ import contextlib
 import time
 from typing import Callable, Sequence
 
+import torch
+
 from . import store as S
-from .faults import call_with_retry
+from .faults import StoreTimeout, call_with_retry
 from .server import StoreServer
-from .telemetry import Timers
+from .telemetry import Timers, poll_backoff
 
 __all__ = ["Client"]
 
@@ -83,6 +87,23 @@ class Client:
             box[0] = value
         return value, found
 
+    def poll_tensor(self, name: str, table: str = "default",
+                    timeout: float = 10.0, interval: float = 0.001,
+                    max_interval: float = 0.05, strict: bool = True) -> bool:
+        """Poll until the key exists (SmartRedis ``poll_tensor``), one
+        store op a probe, backing off exponentially between probes.  On
+        timeout raises :class:`~.faults.StoreTimeout` (``strict=False``:
+        returns False)."""
+        key = S.name_key(name)
+        with self.timers.time("metadata"):
+            for _ in poll_backoff(timeout, interval, max_interval):
+                if self.server.poll(table, key):
+                    return True
+            if strict:
+                raise StoreTimeout("tensor", name, timeout,
+                                   f"table {table!r}")
+            return False
+
     # -- rank/step-keyed streaming ---------------------------------------------
 
     def send_step(self, table: str, step: int, value) -> None:
@@ -93,6 +114,24 @@ class Client:
                 "put", table,
                 lambda: self.server.put(table, S.make_key(self.rank, step),
                                         value))
+
+    def retrieve_step(self, table: str, rank: int, step: int):
+        """Fetch ``rank``'s contribution of ``step`` → ``(value, found)``."""
+        with self.timers.time("retrieve") as box:
+            value, found = self.server.get(table, S.make_key(rank, step))
+            box[0] = value
+        return value, found
+
+    def send_batch(self, table: str, step: int, values, ranks=None) -> None:
+        """Many ranks' contributions of one step in ONE op (``put_many``):
+        ``values [n, *shape]``, ranks ``0..n-1`` unless given."""
+        dev = self.server.device
+        n = values.shape[0]
+        ranks = torch.arange(n, device=dev) if ranks is None \
+            else torch.as_tensor(ranks, device=dev)
+        keys = S.make_key(ranks, step)
+        with self.timers.time("send", payload=values):
+            self.server.put_many(table, keys, values)
 
     # -- pre-made keys (the serving clients' path) ----------------------------
 
@@ -186,6 +225,13 @@ class Client:
                 return body(txn)
 
         return self._call_verb("capture", table, attempt)
+
+    def latest_batch(self, table: str, n: int):
+        """The ``n`` newest elements → ``(values, keys, valid)``."""
+        with self.timers.time("retrieve") as box:
+            values, keys, valid = self.server.latest(table, n)
+            box[0] = values
+        return values, keys, valid
 
     def wait_for_data(self, table: str, minimum: int = 1,
                       timeout: float = 60.0) -> bool:

@@ -119,6 +119,13 @@ class StoreServer:
     def spec(self, table: str) -> S.TableSpec:
         return self._specs[table]
 
+    def tables(self) -> list[str]:
+        return list(self._specs)
+
+    def hbm_bytes(self) -> int:
+        """Every table's footprint (``store.table_bytes``), summed."""
+        return sum(S.table_bytes(sp) for sp in self._specs.values())
+
     # -- capture transactions ------------------------------------------------
 
     def checkout(self, table: str) -> S.TableState:
@@ -164,6 +171,15 @@ class StoreServer:
             self._counts[table] += 1
         self._bump_ops()
 
+    def put_many(self, table: str, keys, values) -> None:
+        """One op for ``len(keys)`` puts (``store.put_many``)."""
+        spec = self._specs[table]
+        with self._table_locks[table]:
+            self._state[table] = S.put_many(spec, self._state[table], keys,
+                                            values)
+            self._counts[table] += len(keys)
+        self._bump_ops()
+
     def put_stream(self, table: str, keys, values) -> None:
         """One op for a whole trajectory of sends (``store.put_stream``)."""
         spec = self._specs[table]
@@ -178,6 +194,15 @@ class StoreServer:
         spec = self._specs[table]
         with self._table_locks[table]:
             out = S.get(spec, self._state[table], key)
+        self._bump_ops()
+        return out
+
+    def get_many(self, table: str, keys):
+        """Batched get through the probe and gather kernels
+        (``store.get_many``) → ``(values [n, *shape], founds [n])``."""
+        spec = self._specs[table]
+        with self._table_locks[table]:
+            out = S.get_many(spec, self._state[table], keys)
         self._bump_ops()
         return out
 
@@ -210,6 +235,21 @@ class StoreServer:
         self._bump_ops()
         return out
 
+    def latest(self, table: str, n: int):
+        """The ``n`` newest elements (``store.latest``)."""
+        spec = self._specs[table]
+        with self._table_locks[table]:
+            out = S.latest(spec, self._state[table], n)
+        self._bump_ops()
+        return out
+
+    def poll(self, table: str, key) -> bool:
+        spec = self._specs[table]
+        with self._table_locks[table]:
+            hit = S.poll(spec, self._state[table], key)
+        self._bump_ops()
+        return bool(hit)
+
     def stats(self) -> dict:
         """Telemetry snapshot: dispatched-op count, staged transfers (0 on
         the local deployment), fault counters, model swaps and every
@@ -231,6 +271,20 @@ class StoreServer:
     def watermark(self, table: str) -> int:
         """Total writes so far (host-side cached counter, lock-free)."""
         return self._counts[table]
+
+    def watermark_device(self, table: str) -> int:
+        """The watermark read from the table's device state (a blocking
+        read; it always equals the cached :meth:`watermark`)."""
+        with self._table_locks[table]:
+            count = self._state[table].count
+        return int(count)
+
+    def valid_count(self, table: str) -> int:
+        spec = self._specs[table]
+        with self._table_locks[table]:
+            n = S.valid_count(spec, self._state[table])
+        self._bump_ops()
+        return int(n)
 
     def wait_watermark(self, table: str, minimum: int, timeout: float = 60.0,
                        interval: float = 0.001, max_interval: float = 0.05,
@@ -290,6 +344,14 @@ class StoreServer:
             self._models[key] = (apply_fn, params)
             self._model_versions[key] = \
                 self._model_versions.get(key, 0) + 1
+
+    def has_model(self, key: str) -> bool:
+        with self._lock:
+            return key in self._models
+
+    def model_keys(self) -> list[str]:
+        with self._lock:
+            return list(self._models)
 
     def run_model(self, key: str, *inputs):
         """Evaluate model ``key`` on single elements (a batch of one)."""

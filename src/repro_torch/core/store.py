@@ -1,9 +1,9 @@
 """TensorStore: a device-resident in-memory key-value tensor store.
 
 Port of ``src/repro/core/store.py``: tables, the write verbs, the
-batched gets, the serving dispatch, the trainer's random gather
-(``sample``), its slab-sharded form (``sample_sharded_impl``) and the
-producer's capture family.  Each table is a fixed-capacity slab
+batched gets, ``latest`` and ``poll``, the serving dispatch, the
+trainer's random gather (``sample``), its slab-sharded form
+(``sample_sharded_impl``) and the producer's capture family.  Each table is a fixed-capacity slab
 ``[capacity, *elem_shape]`` on the device plus per-slot metadata
 (``keys``, ``version``) and scalar cursors (``ptr``, ``count``), with two
 engines: ``ring`` (slots from a monotone write pointer) and ``hash``
@@ -52,13 +52,15 @@ Differences from the reference, all deliberate:
   through ``on_put``.  Eager torch compiles nothing, so no chunk is
   padded to its bucket (``bucket_length`` stays for the plan).
 
-``get_many`` and ``sample`` route through the hand-written probe, sample,
-gather and sharded-gather kernels (``repro_torch.kernels.store``) on the
-card and their plain versions on the CPU.
+``get_many``, ``latest`` and ``sample`` route through the hand-written
+probe, sample, gather and sharded-gather kernels
+(``repro_torch.kernels.store``) on the card and their plain versions on
+the CPU.
 """
 
 from __future__ import annotations
 
+import math
 import zlib
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
@@ -77,7 +79,8 @@ __all__ = [
     "TableSpec", "TableState", "ShardedSlab", "make_key", "name_key",
     "init_table", "put", "put_many", "put_masked", "put_stream", "get",
     "get_many", "serve_batch", "sample", "sample_sharded_impl",
-    "valid_count", "slab_bytes", "capture_scan",
+    "latest", "poll", "valid_count", "table_bytes", "slab_bytes",
+    "capture_scan",
     "capture_scan_multi", "capture_emit_count", "capture_emit_count_multi",
     "capture_rows", "bucket_length", "MIN_BUCKET", "EMPTY_KEY", "KEY_DTYPE",
 ]
@@ -112,6 +115,14 @@ class TableSpec:
             raise ValueError(f"unknown engine {self.engine!r}")
         if self.capacity < 1:
             raise ValueError("capacity must be >= 1")
+
+    @property
+    def elem_bytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+    @property
+    def slab_bytes(self) -> int:
+        return self.capacity * self.elem_bytes
 
 
 class ShardedSlab(NamedTuple):
@@ -166,6 +177,13 @@ def init_table(spec: TableSpec, slab_sharding: SlabSharding | None = None,
         ptr=torch.zeros((), dtype=torch.int32, device=dev),
         count=torch.zeros((), dtype=torch.int32, device=dev),
     )
+
+
+def table_bytes(spec: TableSpec) -> int:
+    """Device footprint of the table (slab + metadata) in the reference's
+    accounting, which holds keys as uint32: the port's int64 keys take
+    ``4 · capacity`` bytes more."""
+    return spec.slab_bytes + spec.capacity * (4 + 4) + 8
 
 
 def _as_keys(keys, device) -> torch.Tensor:
@@ -454,6 +472,27 @@ def sample_sharded_impl(spec: TableSpec, state: TableState,
             state.keys.index_select(0, slots), ok)
 
 
+def latest(spec: TableSpec, state: TableState, n: int):
+    """The ``n`` most recently written elements, newest first →
+    ``(values [n, *shape], keys [n], valid [n])``.  Slots of equal version
+    (the empty ones, when ``n`` exceeds the live count) come lowest slot
+    first, as the reference's ``top_k`` orders them: a stable descending
+    sort (``torch.topk`` promises no order among ties on the card)."""
+    if not 0 <= n <= spec.capacity:
+        raise ValueError(f"latest: n={n} outside [0, {spec.capacity}]")
+    slots = torch.sort(state.version, descending=True,
+                       stable=True).indices[:n].to(torch.int32)
+    return (_gather(state.slab, slots), state.keys.index_select(0, slots),
+            state.version.index_select(0, slots) > 0)
+
+
+def poll(spec: TableSpec, state: TableState, key) -> torch.Tensor:
+    """Does ``key`` live in the table?  ``EMPTY_KEY`` never does."""
+    key = _as_keys(key, state.keys.device).reshape(())
+    return ((state.keys == key) & (state.version > 0)).any() \
+        & (key != EMPTY_KEY)
+
+
 def valid_count(spec: TableSpec, state: TableState) -> torch.Tensor:
     return (state.version > 0).sum(dtype=torch.int32)
 
@@ -573,8 +612,6 @@ def _not_ported(name: str, item: str) -> Callable:
 
 sample_and_step = _not_ported("sample_and_step",
                               "A8 (what the training slice left out)")
-latest = _not_ported("latest", "A3 (reproducer)")
-poll = _not_ported("poll", "A3 (reproducer)")
 delete = _not_ported("delete", "A4 (fault recovery)")
 capture_scan_collect = _not_ported("capture_scan_collect",
                                    "A5 (the Clustered deployment)")

@@ -105,3 +105,43 @@ def np_lm_params(jcfg, seed: int) -> dict:
         return [walk(t) for t in tree]
 
     return walk(lm.lm_specs(jcfg))
+
+
+def np_resnet50_params(seed: int, num_classes: int = 1000) -> dict:
+    """ResNet-50 params in the ``ml.resnet.init_resnet50`` layout (HWIO
+    conv weights, folded-BN ``scale``/``bias``, ``fc`` ``w [2048,
+    classes]``), drawn with numpy from ``seed``: the reference's fan-in
+    normal weights, and BN scales and biases and the fc bias offset from
+    its ones and zeros by 0.1·N(0, 1) so the parity tests exercise them."""
+    rng = np.random.default_rng(seed)
+
+    def conv(kh, kw, cin, cout):
+        return (rng.standard_normal((kh, kw, cin, cout))
+                * np.sqrt(2.0 / (kh * kw * cin))).astype(np.float32)
+
+    def bn(c):
+        return {"scale": (1 + 0.1 * rng.standard_normal(c))
+                .astype(np.float32),
+                "bias": (0.1 * rng.standard_normal(c)).astype(np.float32)}
+
+    params = {"stem": conv(7, 7, 3, 64), "bn_stem": bn(64), "stages": []}
+    cin = 64
+    for s, blocks in enumerate((3, 4, 6, 3)):
+        cmid = 64 * 2 ** s
+        stage = []
+        for b in range(blocks):
+            cout = cmid * 4
+            p = {"conv1": conv(1, 1, cin, cmid), "bn1": bn(cmid),
+                 "conv2": conv(3, 3, cmid, cmid), "bn2": bn(cmid),
+                 "conv3": conv(1, 1, cmid, cout), "bn3": bn(cout)}
+            if (b == 0 and s > 0) or cin != cout:
+                p["proj"] = conv(1, 1, cin, cout)
+                p["bn_proj"] = bn(cout)
+            stage.append(p)
+            cin = cout
+        params["stages"].append(stage)
+    params["fc"] = {"w": (rng.standard_normal((cin, num_classes))
+                          * np.sqrt(1.0 / cin)).astype(np.float32),
+                    "b": (0.1 * rng.standard_normal(num_classes))
+                    .astype(np.float32)}
+    return params

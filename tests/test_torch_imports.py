@@ -34,7 +34,8 @@ def test_scan_sees_the_whole_port():
     assert "src/repro_torch/core/store.py" in names
     assert "src/repro_torch/kernels/quadconv/ops.py" in names
     for module in ("kernels/attention/ops.py", "kernels/ssd/ops.py",
-                   "models/lm.py", "serve/decode.py", "launch/serve.py"):
+                   "models/lm.py", "serve/decode.py", "launch/serve.py",
+                   "sim/reproducer.py", "ml/resnet.py"):
         assert f"src/repro_torch/{module}" in names
     assert _imported_roots(REPO / "src" / "repro" / "core" / "store.py") \
         & {"jax"}
