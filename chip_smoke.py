@@ -33,6 +33,12 @@ Phases, each printing one line (or a few):
 5. three-step — the same requests through the ``three_step`` tier;
 6. threaded — the continuous-batching session once more with one host
    thread per component (the default ``run()``), responses checked;
+6a. chaos serve — the continuous-batching session under an empty armed
+   ``FaultPlan`` and under a serving crash at batch 1 and a duplicated
+   response chunk: every component's dispatches, retries and restarts
+   and the server's fault counters equal to the plan's, the request and
+   results tables and every response equal to the armed run's
+   (``torch.equal``), the probe, gather and QuadConv launches equal;
 7. grad — one training microstep of the autoencoder at the same widths
    and 2,048 points: the loss and every parameter gradient with the
    contraction kernel's forward against the plain einsum's (and, as a
@@ -45,6 +51,18 @@ Phases, each printing one line (or a few):
    Frobenius error, device ms), the plan's dispatches against
    ``stats()``, the launch counts, the peak memory, and every inference
    output against the plain encoder with the trained weights;
+8a. chaos train — phase 8's sequential session three ways: disarmed,
+   under an empty armed ``FaultPlan``, and under a plan of every fault
+   kind (an ``unavailable`` window on ``capture``, a dropped and a
+   duplicated chunk, a producer and a trainer crash, a ``snapshot`` then
+   a store ``restart``; a fast ``RetryPolicy``): the faulted run's table
+   (slab, keys, version, ptr, count) and trained state equal to the armed
+   run's (``torch.equal``), its predictions exact, its sample, gather and
+   QuadConv launches equal to the armed run's; each run's epoch ms (CUDA
+   events) and wall time; the restart (image copy + the log's tail) and a
+   snapshot timed on the faulted run's server, beside the snapshot's
+   bytes bound; and, as a control that must fail, a replay with the
+   log's last entry cut must leave a different table;
 9. launch — ``repro_torch.launch.insitu.run(points="medium", epochs=4,
    sim_steps=40)``, the launcher a user calls;
 10. lm phi4 — LM serving at Phi-4-mini's full width (32 layers, d_model
@@ -111,7 +129,13 @@ Phases, each printing one line (or a few):
    limit, the same session with rank 1's gradients and loss dropped
    (rank 0's counted for both ranks); each tier's CUDA-event time per
    epoch, idle share and peak memory.  Two ranks on one card measure the
-   mesh's overhead, not its scaling;
+   mesh's overhead, not its scaling; (c) ``[collectives]``:
+   ``plan(hlo=True)`` on the 2-rank mesh, each trainer tier's collective
+   calls over one epoch held to its prediction (``fused`` none,
+   ``sharded_fused`` an all-reduce on a whole table and an all-reduce and
+   an all-gather on a split one, ``slab_sharded`` an all-reduce and no
+   all-gather), and, as a control that must raise, ``slab_sharded``'s
+   prediction against ``sharded_fused``'s counts on the split table;
 15. reproducer — the paper's reproducer (``repro_torch.sim.reproducer``):
    ``run_transfer`` at the paper's default (24 ranks x 256 KB, 2 warm-up
    + 40 timed iterations), vectorized and per rank, every value read back
@@ -132,7 +156,15 @@ Phases, each printing one line (or a few):
    ``RESNET_CARD_RTOL``, a symmetric-padding stem failing it; and the
    model through ``InSituSession`` with ``InferenceConsumer`` tiers
    ``three_step`` and ``fused_registry`` (``examples/insitu_inference.py``'s
-   path), each ``ok``.
+   path), each ``ok``;
+16. checkpoint — a ``MemoryCheckpoint`` of a 4 MB state on the card,
+   unchanged by an in-place update of the live state; then
+   ``repro_torch.launch.train.run`` at the Phi-4-mini smoke config with
+   ``attn_impl="flash"`` (fp32: the FMA forward, dq and dk/dv kernels):
+   4 steps saving every 2 under a temporary directory, then resumed from
+   step 2 (the step-4 checkpoint removed), steps 3–4 bit for bit the
+   uninterrupted run's (losses, gradient norms, every state leaf), with
+   the save and restore times.
 
 Kernel, plain and library times in the kernels line are device times per
 call (``torch.profiler``: the summed device time of every kernel and copy
@@ -142,7 +174,8 @@ in host enqueue.
 
 Then one JSON line with every kernel's numbers (the probe's and the
 gather's rows carry the reproducer's shapes, with their launches there,
-under ``"reproducer"``), the ``nvidia-smi`` line,
+under ``"reproducer"``; the store and QuadConv rows' ``launches_by_path``
+add the faulted chaos runs), the ``nvidia-smi`` line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 raises and the script exits non-zero; without a CUDA device it exits 1
 before doing anything.
@@ -731,10 +764,12 @@ def microstep_breakdown(cfg, levels, params, batch) -> dict:
 
 def train_session(dev, cfg, fcfg, sequential: bool, counters,
                   label: str | None = None, mesh=None,
-                  slab_sharded: bool = False) -> dict:
+                  slab_sharded: bool = False, faults=None) -> dict:
     """The paper's workflow as one session: flat-plate producer → fused
     trainer (over ``mesh`` if given) → in-situ inference, checked end to
-    end."""
+    end; under ``faults`` (a ``FaultPlan``) every component's dispatches,
+    retries and restarts and the server's fault counters are held to the
+    plan's predictions."""
     from repro_torch.core import TableSpec
     from repro_torch.core import store as S
     from repro_torch.insitu import (InferenceConsumer, InSituSession,
@@ -788,7 +823,7 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
                             draws=tr.TrainDraws(draws.bootstrap,
                                                 timed_epochs())),
             InferenceConsumer("encoder", feed, steps=N_INF)],
-        device=dev)
+        faults=faults, device=dev)
     plan = sess.plan()
     for k in counters:
         k.launches = 0
@@ -819,6 +854,8 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
     if stats["op_count"] != plan.store_dispatches:
         raise AssertionError(f"{mode}: plan {plan.explain()} != stats "
                              f"{stats}")
+    if faults is not None:
+        check_fault_predictions(mode, plan, res)
     microsteps = EPOCHS * -(-(GATHER - 1) // BATCH)
     ranks = 1 if mesh is None else mesh.size
     need = {"sample_slots": EPOCHS + 1,
@@ -860,7 +897,258 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
             "spec": res.server.spec("field"), "levels": trainer.levels,
             "norm_stats": trainer.norm_stats,
             "trainer_ops": plan.component("trainer").store_dispatches,
-            "epoch_ms": [a.elapsed_time(b) for a, b in zip(starts, ends)]}
+            "epoch_ms": [a.elapsed_time(b) for a, b in zip(starts, ends)],
+            "plan": plan, "stats": stats, "server": res.server}
+
+
+def check_fault_predictions(mode: str, plan, res) -> None:
+    """Every component's store ops, retries and restarts, and the
+    server's op count and fault counters, equal to the plan's."""
+    stats = res.server.stats()
+    for entry in plan.components:
+        comp = res.run.components[entry.name]
+        got = (res.op_delta(entry.name), comp.retries, comp.restarts)
+        want = (entry.store_dispatches, entry.retries, entry.restarts)
+        if got != want:
+            raise AssertionError(f"{mode}: {entry.name} ran (ops, retries, "
+                                 f"restarts) {got}, planned {want}")
+    if stats["op_count"] != plan.store_dispatches or any(
+            stats[k] != v for k, v in plan.faults):
+        raise AssertionError(f"{mode}: stats {stats} != plan "
+                             f"{plan.store_dispatches} ops, {plan.faults}")
+
+
+def equal_tables(a, b) -> bool:
+    """Two ``TableState``s bit for bit (each shard of a sharded slab)."""
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(tuple(a)),
+                                                 tree_leaves(tuple(b))))
+
+
+def chaos_train_phase(dev, cfg, fcfg, counters) -> dict:
+    """Phase 8's session three ways: disarmed, under an empty armed
+    ``FaultPlan`` and under a plan of every fault kind (a capture window,
+    a dropped and a duplicated chunk, producer and trainer crashes, a
+    snapshot then a store restart).  The faulted run's table and trained
+    state must equal the armed run's bit for bit, its predictions hold
+    exactly (``train_session``), and its sample, gather and QuadConv
+    launches equal the armed run's.  Then the restart's replay and a
+    snapshot are timed on the faulted run's server, and, as a control
+    that must fail, a replay with the log's tail cut by one entry must
+    leave a different table."""
+    from repro_torch.core import store as S
+    from repro_torch.core.faults import FaultEvent, FaultPlan, RetryPolicy
+    from repro_torch.train.checkpoint import MemoryCheckpoint
+    from repro_torch.tree import tree_leaves
+    retry = RetryPolicy(interval=1e-4, max_interval=1e-3)
+    events = (FaultEvent("unavailable", verb="capture", at=1, count=2),
+              FaultEvent("drop_chunk", table="field", at=0),
+              FaultEvent("dup_chunk", table="field", at=2),
+              FaultEvent("crash", component="producer", at=2),
+              FaultEvent("crash", component="trainer", at=3),
+              FaultEvent("snapshot", table="field", at=1),
+              FaultEvent("restart", table="field", at=3))
+    runs = {}
+    for label, plan in (("disarmed", None),
+                        ("armed", FaultPlan(retry=retry)),
+                        ("faulted", FaultPlan(events=events, retry=retry))):
+        runs[label] = train_session(dev, cfg, fcfg, True, counters,
+                                    label=f"chaos {label}", faults=plan)
+    armed, faulted = runs["armed"], runs["faulted"]
+    if not equal_tables(armed["table"], faulted["table"]) \
+            or not equal_tables(armed["table"], runs["disarmed"]["table"]):
+        raise AssertionError("chaos: the faulted (or disarmed) table "
+                             "differs from the armed run's")
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(armed["state"]), tree_leaves(faulted["state"]))):
+        raise AssertionError("chaos: the faulted run's trained state "
+                             "differs from the armed run's")
+    watched = ("sample_slots", "gather_rows", "quadconv_contract")
+    if any(faulted["launches"][k] != armed["launches"][k] for k in watched):
+        raise AssertionError(f"chaos: launches {faulted['launches']} under "
+                             f"faults, {armed['launches']} armed")
+    plan, stats = faulted["plan"], faulted["stats"]
+    restarts = {c.name: c.restarts for c in plan.components}
+    replays = sum(dict(c.dispatches).get("replay", 0)
+                  for c in plan.components)
+    if restarts["producer"] != 1 or restarts["trainer"] != 1 \
+            or stats["recoveries"] != 1 or replays != 2:
+        raise AssertionError(f"chaos: restarts {restarts}, replays "
+                             f"{replays}, stats {stats}")
+    # the recovery path timed on the faulted run's server: a restart
+    # (copy of the image + the log's tail) and a snapshot of every table
+    srv = faulted["server"]
+    want = S.copy_state(srv.checkout("field"))
+    tail = len(srv._wal["field"]) - srv._wal_base["field"]
+    mem = MemoryCheckpoint(srv, key="timed")
+    restart_ms, snapshot_ms, image_ms, memckpt_ms = [], [], [], []
+    for _ in range(5):
+        for times, work in (
+                (restart_ms, srv._restart_and_recover),
+                (snapshot_ms, srv.snapshot),
+                (image_ms, lambda: S.copy_state(srv._recovery["field"])),
+                (memckpt_ms, lambda: mem.save(0, {"state": armed["state"]}))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            work()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    if not equal_tables(want, srv.checkout("field")):
+        raise AssertionError("chaos: a full replay changed the table")
+    srv._wal["field"].pop()                    # the control: cut by one
+    srv._restart_and_recover()
+    if equal_tables(want, srv.checkout("field")):
+        raise AssertionError("chaos control: a replay missing the log's "
+                             "last entry left the same table")
+    table_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(tuple(want)))
+    line = {
+        label: {"epoch_ms": run["epoch_ms"], "wall_s": run["wall_s"],
+                "launches": run["launches"], "op_count": run["op_count"]}
+        for label, run in runs.items()}
+    line["faulted"].update(
+        retries=stats["retries"], faults_injected=stats["faults_injected"],
+        recoveries=stats["recoveries"], restarts=restarts,
+        replayed_entries=replays)
+    line["recovery"] = {
+        "restart_ms": restart_ms, "replayed_entries": tail,
+        "image_copy_ms": image_ms, "snapshot_ms": snapshot_ms,
+        "memckpt_save_ms": memckpt_ms, "state_bytes": sum(
+            t.numel() * t.element_size()
+            for t in tree_leaves(armed["state"])),
+        "table_bytes": table_bytes,
+        "snapshot_bound_ms": 2 * table_bytes / PEAK_BYTES_PER_S * 1e3,
+        "wal_cut_control": "differs"}
+    return line
+
+
+def collectives_phase(dev, cfg, fcfg) -> dict:
+    """``plan(hlo=True)`` on a ``SHARDS``-rank mesh on this card: each
+    trainer tier's collective calls over one epoch on a throwaway table
+    placed like the live one, held to the plan's predictions
+    (``check_collectives``) — ``fused`` none, ``sharded_fused`` an
+    all-reduce on a whole table and an all-reduce and an all-gather on a
+    split one, ``slab_sharded`` an all-reduce and no all-gather; and, as a
+    control that must raise, ``slab_sharded``'s prediction against
+    ``sharded_fused``'s counts on the split table."""
+    import dataclasses
+    from repro_torch.core import TableSpec
+    from repro_torch.core import store as S
+    from repro_torch.insitu import InSituSession, Producer, TrainerConsumer
+    from repro_torch.ml import trainer as tr
+    from repro_torch.parallel.sharding import data_mesh
+    from repro_torch.sim import flatplate as fp
+    mesh = data_mesh(SHARDS, devices=[dev] * SHARDS)
+    coords = fp.grid_coords(fcfg, dev)
+    sessions = {"replicated": (("sharded_fused", True, False),
+                               ("fused", False, False)),
+                "sharded": (("slab_sharded", True, True),
+                            ("sharded_fused", True, False))}
+    out = {}
+    t0 = time.perf_counter()
+    for name, trainers in sessions.items():
+        comps = [Producer(lambda c, r, t: (c, S.make_key(r, t), torch.zeros(
+            (4, fcfg.n_points), device=dev)), table="field", steps=4,
+            carry=torch.zeros((), device=dev))]
+        for tier, on_mesh, slab in trainers:
+            comps.append(TrainerConsumer(tr.TrainerConfig(
+                ae=cfg, epochs=1, gather=GATHER, batch_size=BATCH,
+                mesh=mesh if on_mesh else None, slab_sharded=slab),
+                coords, tier=tier, name=tier))
+        plan = InSituSession(tables=[TableSpec(
+            "field", shape=(4, fcfg.n_points), capacity=RING)],
+            components=comps, device=dev).plan(hlo=True)
+        for c in plan.components:
+            if c.kind == "trainer":
+                c.check_collectives()
+                out[f"{name}/{c.tier}"] = {
+                    "measured": {k: v for k, v in c.collectives if v},
+                    "predicted": c.explain().get("predicted_collectives")}
+        if name == "sharded":
+            wrong = dataclasses.replace(
+                plan.component("slab_sharded"),
+                collectives=plan.component("sharded_fused").collectives)
+            try:
+                wrong.check_collectives()
+            except AssertionError:
+                pass
+            else:
+                raise AssertionError("collectives control: slab_sharded's "
+                                     "prediction passed sharded_fused's "
+                                     "counts")
+    torch.cuda.synchronize()
+    out["control"] = "raised"
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def checkpoint_phase(dev) -> dict:
+    """(a) ``MemoryCheckpoint`` on the card: a saved train state survives
+    an in-place update of the live one; (b) the training launcher at the
+    Phi-4-mini smoke config with ``attn_impl="flash"``: 4 steps saving
+    every 2 under a temporary directory, then, from step 2 (the step-4
+    checkpoint removed), ``resume`` must give steps 3–4 bit for bit, and
+    the flash kernels must have launched in the resumed run."""
+    import shutil
+    import tempfile
+    from repro_torch.core import StoreServer
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.tree import tree_leaves
+    srv = StoreServer(device=dev)
+    mem = ckpt.MemoryCheckpoint(srv, key="trainer")
+    live = {"w": torch.randn(1 << 20, device=dev,
+                             generator=torch.Generator(dev).manual_seed(SEED)),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    want = live["w"].clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mem.save(0, live)
+    torch.cuda.synchronize()
+    mem_ms = (time.perf_counter() - t0) * 1e3
+    live["w"].mul_(2.0)
+    step, got = mem.restore()
+    if step != 0 or not torch.equal(got["w"], want) \
+            or srv.stats()["op_count"]:
+        raise AssertionError("MemoryCheckpoint on the card")
+    kernels = (aops.FLASH, aops.FLASH_BWD_DQ, aops.FLASH_BWD_DKV)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        kw = dict(arch="phi4_mini_3_8b", steps=4, batch=2, seq_len=128,
+                  smoke=True, device=dev, attn_impl="flash", log_every=100,
+                  ckpt_every=2, ckpt_dir=str(root))
+        t0 = time.perf_counter()
+        full = launcher.run(**kw)
+        full_s = time.perf_counter() - t0
+        shutil.rmtree(root / "step_0000000004")
+        for k in kernels:
+            k.launches = 0
+        resumed = launcher.run(resume=True, **kw)
+        launches = {k.symbol: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        ckpt.save(root / "timed", 4, resumed.state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ckpt.restore(root / "timed", resumed.state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = resumed.start == 2 and resumed.losses == full.losses[2:] \
+        and resumed.grad_norms == full.grad_norms[2:] and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(full.state),
+                                              tree_leaves(resumed.state)))
+    if not same or min(launches.values()) < 1:
+        raise AssertionError(f"resume from step 2: losses {resumed.losses} "
+                             f"vs {full.losses[2:]}, launches {launches}")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(full.state))
+    return {"memckpt_save_ms": mem_ms, "memckpt_bytes": 4 << 20,
+            "resume_bit_identical": True, "losses": full.losses,
+            "resumed_losses": resumed.losses, "resumed_launches": launches,
+            "smoke_state_bytes": state_bytes, "save_ms": save_ms,
+            "restore_ms": restore_ms, "uninterrupted_run_s": full_s}
 
 
 def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
@@ -1517,6 +1805,9 @@ def sharded_phase(dev, cfg, fcfg, fused: dict) -> tuple[dict, dict]:
     if not control["max_abs_param_diff"] > DRIFT_PARAM_ATOL:
         raise AssertionError(f"the control with rank 1's gradients dropped "
                              f"passes the drift limit: {control}")
+    coll = collectives_phase(dev, cfg, fcfg)
+    print(f"[collectives] {json.dumps(coll)}", flush=True)
+    line["collectives"] = coll
     line["checks"] = {
         "gather_rows_sharded_launches": got,
         "slab_equals_sharded_fused": True,
@@ -2014,12 +2305,13 @@ def main() -> int:
     def preload(server):
         server.set_model("encoder", model, params)
 
-    def session(tier):
+    def session(tier, faults=None):
         tables = [TableSpec("sreq", shape=(4, fcfg.n_points),
                             capacity=CLIENTS * REQUESTS),
                   TableSpec("sres", shape=(cfg.latent,),
                             capacity=CLIENTS * REQUESTS)]
-        return InSituSession(tables=tables, device=dev, components=[
+        return InSituSession(tables=tables, device=dev, faults=faults,
+                             components=[
             ServingClients(lambda c, s: snaps[(c, s)], table="sreq",
                            clients=CLIENTS, requests=REQUESTS,
                            collect=False, name="writers"),
@@ -2127,6 +2419,56 @@ def main() -> int:
     # 6. threaded: one host thread per component, as run() defaults to
     drive("continuous_batch", sequential=False)
 
+    # 6a. chaos serve: the continuous-batching session armed, then with a
+    # serving crash at batch 1 and a duplicated response chunk
+    from repro_torch.core.faults import FaultEvent, FaultPlan, RetryPolicy
+    retry = RetryPolicy(interval=1e-4, max_interval=1e-3)
+    chaos_serve = {}
+    for label, fplan in (("armed", FaultPlan(retry=retry)), (
+            "faulted", FaultPlan(events=(
+                FaultEvent("crash", component="serving", at=1),
+                FaultEvent("dup_chunk", table="sres", at=0)), retry=retry))):
+        sess = session("continuous_batch", fplan)
+        plan = sess.plan()
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sess.run(plan=plan, sequential=True, preload=preload,
+                       max_wall_s=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not res.ok:
+            raise AssertionError({n: c.error
+                                  for n, c in res.run.components.items()})
+        check_fault_predictions(f"chaos serve {label}", plan, res)
+        if res.server.stats()["model_swaps"] != plan.model_swaps:
+            raise AssertionError(f"chaos serve {label}: model swaps")
+        chaos_serve[label] = {
+            "res": res, "wall_s": wall,
+            "launches": {k.symbol: k.launches for k in kernels},
+            "restarts": res.restarts,
+            "faults_injected": res.server.stats()["faults_injected"]}
+    armed, faulted = chaos_serve["armed"], chaos_serve["faulted"]
+    aresp = armed["res"].output("readers").responses
+    fresp = faulted["res"].output("readers").responses
+    if sorted(aresp) != sorted(fresp) or not all(
+            torch.equal(aresp[k], fresp[k]) for k in aresp) \
+            or not all(equal_tables(armed["res"].server.checkout(t),
+                                    faulted["res"].server.checkout(t))
+                       for t in ("sreq", "sres")) \
+            or faulted["launches"] != armed["launches"] \
+            or (faulted["restarts"], faulted["faults_injected"]) != (1, 2) \
+            or min(faulted["launches"].values()) < 1:
+        raise AssertionError(f"chaos serve: responses, tables or launches "
+                             f"differ from the armed run's: {faulted} vs "
+                             f"{armed}")
+    chaos_serve_line = {label: {k: v for k, v in run.items() if k != "res"}
+                        for label, run in chaos_serve.items()}
+    print(f"[chaos serve] {smi} {json.dumps(chaos_serve_line)} responses "
+          f"and tables equal to the armed run's (torch.equal)", flush=True)
+    del chaos_serve, armed, faulted
+
     # 7. grad: one training microstep at the paper's widths, 2,048 points
     tfcfg = fp.FlatPlateConfig(nx=16, ny=16, nz=8)
     tcfg = replace(cfg, n_points=tfcfg.n_points)
@@ -2156,6 +2498,10 @@ def main() -> int:
                               label="profiled"))
     print("[profile] training session (sequential): " + trained["profile"],
           flush=True)
+
+    # 8a. chaos train: the same session disarmed, armed and under faults
+    chaos = chaos_train_phase(dev, tcfg, tfcfg, counters)
+    print(f"[chaos train] {smi} {json.dumps(chaos)}", flush=True)
 
     # 9. launch: the launcher a user calls, at its own defaults
     from repro_torch.launch import insitu as launcher
@@ -2197,6 +2543,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     probe["reproducer"], gather["reproducer"] = reproducer_phase(dev)
 
+    # 16. checkpoints: in memory on the card, and the launcher's resume
+    torch.cuda.empty_cache()
+    print(f"[checkpoint] {smi} {json.dumps(checkpoint_phase(dev))}",
+          flush=True)
+
     serving_launches = launches
     rows = []
     for row, path in ((probe, "serving"), (sample, "training"),
@@ -2208,7 +2559,10 @@ def main() -> int:
                            else trained["launches"])[name]
         row["launches_by_path"] = {
             "serving": serving_launches.get(name, 0),
-            "training": trained["launches"][name]}
+            "training": trained["launches"][name],
+            "chaos serve (faulted)": chaos_serve_line["faulted"][
+                "launches"].get(name, 0),
+            "chaos train (faulted)": chaos["faulted"]["launches"][name]}
         if row["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
         row["kernel_ms"] = row["ms"]

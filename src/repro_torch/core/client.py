@@ -8,11 +8,18 @@ pre-made-key ``put_kv``/``get_kv``, the newest elements
 (``latest_batch``), the producer's fused ``capture_scan``, the trainer's
 ``sample_batch`` and ``capture_epoch``, watermarks and metadata, the
 model registry verbs (``set_model``, ``run_model``, the fused ``infer``),
-the serving drain ``serve_batch``, ``fault_point`` and the fault boundary
-every verb goes through.  Every verb is timed into the paper's component
-buckets (``client_init`` / ``metadata`` / ``send`` / ``retrieve`` /
-``model_eval`` / ``model_load``).  The reference's logged and staged
-capture paths belong to later slices (``ROADMAP.md`` A4, A5).
+the serving drain ``serve_batch``, ``delete_tensor``, ``fault_point``
+and the fault boundary every verb goes through.  Every verb is timed into
+the paper's component buckets (``client_init`` / ``metadata`` / ``send``
+/ ``retrieve`` / ``model_eval`` / ``model_load``).
+
+Once the server is armed with a ``FaultPlan``, ``capture_scan`` takes the
+reference's logged path: each chunk gets a stable ``(rank, seq)`` id, its
+steps run collect-only (``store.capture_scan_collect[_multi]``) and the
+server inserts it exactly once (``StoreServer.apply_chunk``), the whole
+attempt inside the retry boundary and against the original carry.  The
+staged (cross-mesh) capture paths of the ``Clustered`` deployment are
+``ROADMAP.md`` A5.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ class Client:
         self.retries = 0
         self.restarts = 0
         self.straggler_events = 0
+        self._seq = 0            # next logged chunk's sequence number
         S.name_key("__warmup__")
         self.timers.record("client_init", time.perf_counter() - t0)
 
@@ -54,8 +62,8 @@ class Client:
     def _call_verb(self, verb: str, table: str | None, call):
         """Route one store verb through the fault boundary: with an armed
         injector each attempt is announced and transient failures are
-        retried under its policy; without one (the only case this slice's
-        server allows) it is a plain call."""
+        retried under its policy, each retry counted on the client and
+        the server; without one it is a plain call."""
         inj = self.server.faults
         if inj is None:
             return call()
@@ -86,6 +94,9 @@ class Client:
             value, found = self.server.get(table, S.name_key(name))
             box[0] = value
         return value, found
+
+    def delete_tensor(self, name: str, table: str = "default") -> None:
+        self.server.delete(table, S.name_key(name))
 
     def poll_tensor(self, name: str, table: str = "default",
                     timeout: float = 10.0, interval: float = 0.001,
@@ -152,13 +163,20 @@ class Client:
     def serve_batch(self, req_table: str, res_table: str, keys, mask,
                     apply_fn, params):
         """One continuous-batching drain through the fault boundary (the
-        fused gather → model → scatter, ``StoreServer.serve_batch``).
-        Returns the per-slot served flags."""
+        fused gather → model → scatter, ``StoreServer.serve_batch``), under
+        a stable chunk id when the server logs, so a dropped response
+        transfer is retried under the SAME id and the insert stays
+        exactly-once.  Returns the per-slot served flags."""
+        chunk_id = None
+        if self.server.wal_enabled:
+            chunk_id = (self.rank, self._seq)
+            self._seq += 1
         with self.timers.time("model_eval") as box:
             ok = self._call_verb(
                 "serve", res_table,
                 lambda: self.server.serve_batch(req_table, res_table, keys,
-                                                mask, apply_fn, params))
+                                                mask, apply_fn, params,
+                                                chunk_id=chunk_id))
             box[0] = ok
         return ok
 
@@ -180,13 +198,43 @@ class Client:
         ``n_ranks=None``: ``step_fn(carry, t) -> (carry, key, value)``;
         with ``n_ranks=R``: ``step_fn(carry_r, rank, t)`` over the leading
         ``[R]`` axis of ``carry`` (``store.capture_scan_multi``; ``t0`` an
-        int or one start step per rank).  Each put commits as it lands,
-        with the cached watermark bumped by its count, so a step that
-        raises leaves the table consistent with the puts made before it.
-        Returns the new carry.
+        int or one start step per rank).  Returns the new carry.
+
+        Unarmed, each put commits as it lands, with the cached watermark
+        bumped by its count, so a step that raises leaves the table
+        consistent with the puts made before it.  With a ``FaultPlan``
+        armed the chunk commits whole, exactly once: the steps run
+        collect-only under the chunk's stable ``(rank, seq)`` id and
+        ``StoreServer.apply_chunk`` inserts them.  A dropped transfer
+        retries the whole attempt against the original carry (collecting
+        never changes it), a duplicate is deduplicated by the id, and the
+        applied chunk is logged for replay after a store restart.
         """
         spec = self.server.spec(table)
         clocks = S._rank_clocks(t0, n_ranks or 1)
+        if self.server.wal_enabled:
+            puts = S.capture_emit_count(length, emit_every, clocks[0]) \
+                * (n_ranks or 1)
+            chunk_id = (self.rank, self._seq)
+            self._seq += 1
+
+            def attempt():
+                with self.server.capture(table) as txn:
+                    if n_ranks is None:
+                        new_carry, keys, vals, mask = S.capture_scan_collect(
+                            spec, step_fn, carry, length, emit_every,
+                            t0=clocks[0])
+                    else:
+                        new_carry, keys, vals, mask = \
+                            S.capture_scan_collect_multi(
+                                spec, step_fn, carry, length, n_ranks,
+                                emit_every, t0=clocks)
+                    self.server.apply_chunk(table, chunk_id, txn, keys,
+                                            vals, mask, puts)
+                return new_carry
+
+            with self.timers.time("send"):
+                return self._call_verb("capture", table, attempt)
         with self.timers.time("send"):
             with self.capture(table) as txn:
                 def commit(state, n):

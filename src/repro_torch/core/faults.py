@@ -1,6 +1,6 @@
-"""Typed store failures, retry, and declared fault plans.
+"""Typed store failures, retry, declared fault plans and their cost.
 
-Port of ``src/repro/core/faults.py``, cut to what the serving slice runs:
+Port of ``src/repro/core/faults.py``:
 
 * a typed failure taxonomy (``StoreError`` and friends) replaces the
   silent-``False`` timeouts and bare ``RuntimeError``s of the early store;
@@ -8,17 +8,36 @@ Port of ``src/repro/core/faults.py``, cut to what the serving slice runs:
   bounded exponential backoff with deterministic jitter, deadline-clamped
   exactly like ``telemetry.poll_backoff``;
 * :class:`FaultPlan` / :class:`FaultEvent` declare *which* faults fire
-  *where*, keyed by deterministic attempt indices, never wall clock.
+  *where* (dropped or duplicated chunk transfers, transient
+  ``StoreUnavailable`` windows on client verbs, component crashes, store
+  snapshots and restarts), keyed by deterministic attempt indices, never
+  wall clock; :meth:`FaultPlan.random` draws one from
+  ``random.Random(seed)``, so a seed gives the same events in both
+  packages;
+* :class:`FaultInjector` is the runtime arbiter the ``Client`` consults at
+  every verb attempt and the ``StoreServer`` at every chunk staging
+  attempt and table commit;
+* :func:`simulate_overhead` re-runs the same injector against a session's
+  static component schedule, so the plan's predicted retries, replay ops
+  and restarts equal the measured ``StoreServer.stats()`` exactly.
 
-The injector that arms a plan, and the plan-time prediction of its
-retries, replays and restarts, are ``ROADMAP.md`` A4: a session or server
-given a plan raises ``NotImplementedError`` until then.
+Exactly-once: ``store.put_masked`` is not idempotent (``ptr``/``count``
+advance on every apply), so the server keys every chunk by a stable
+``(rank, seq)`` id: a dropped transfer is retried under the same id, a
+duplicated one hits the acknowledged-id set and is a no-op.  A store
+restart replays the write-ahead log's tail from the last snapshot: the
+same entries in the same order from the same state give the same bytes.
+
+The clustered deployment's two-slot overlap pipeline (``ROADMAP.md`` A5)
+is not in the port, so the simulator raises on a schedule entry that asks
+for it.
 """
 
 from __future__ import annotations
 
 import random as _random
 import time
+from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Iterator
 
@@ -26,7 +45,8 @@ __all__ = [
     "StoreError", "StoreTimeout", "WatermarkTimeout", "StoreUnavailable",
     "TransferDropped", "InjectedCrash",
     "RetryPolicy", "call_with_retry",
-    "FaultEvent", "FaultPlan",
+    "FaultEvent", "FaultPlan", "FaultInjector",
+    "Overhead", "simulate_overhead",
 ]
 
 
@@ -184,9 +204,315 @@ class FaultEvent:
 class FaultPlan:
     """A seeded, declarative set of faults plus the retry policy that
     absorbs the transient ones.  Declared on an ``InSituSession`` or a
-    ``StoreServer``; in this slice any plan, even an empty one, raises
-    there (``ROADMAP.md`` A4)."""
+    ``StoreServer``; an *empty* plan (no events) still arms the
+    exactly-once machinery (chunk ids, write-ahead log, checkpoints), so
+    a fault-free baseline takes the identical code path."""
 
     events: tuple[FaultEvent, ...] = ()
     retry: RetryPolicy = field(default_factory=RetryPolicy)
     seed: int = 0
+
+    @classmethod
+    def random(cls, seed: int, *, tables=("field",), verbs=("put", "sample",
+                                                            "capture"),
+               components=("producer", "trainer"), n_events: int = 3,
+               max_index: int = 8, retry: RetryPolicy | None = None
+               ) -> "FaultPlan":
+        """A seeded random plan over the given index bounds — the chaos
+        grid's generator.  Same seed, same plan, on every machine."""
+        rng = _random.Random(seed)
+        events = []
+        for _ in range(n_events):
+            kind = rng.choice(sorted(FAULT_KINDS))
+            at = rng.randrange(max(1, max_index))
+            if kind == "unavailable":
+                events.append(FaultEvent(kind, verb=rng.choice(list(verbs)),
+                                         at=at, count=rng.randint(1, 2)))
+            elif kind == "crash":
+                events.append(FaultEvent(
+                    kind, component=rng.choice(list(components)), at=at))
+            else:
+                events.append(FaultEvent(
+                    kind, table=rng.choice(list(tables)),
+                    at=at + (1 if kind in ("snapshot", "restart") else 0)))
+        return cls(events=tuple(events),
+                   retry=retry or RetryPolicy(seed=seed), seed=seed)
+
+
+class FaultInjector:
+    """The runtime (and plan-time) arbiter of a :class:`FaultPlan`.
+
+    Keeps the deterministic progress counters the events key on — per-verb
+    attempt counts, per-table staging-attempt counts, per-table commit
+    counts, per-component crash-point indices — and raises/returns the
+    declared fault when a counter crosses an event.  The server owns one
+    injector; every client of that server consults it, so the counters are
+    global and (in sequential runs) fully deterministic.  The plan-time
+    simulator (:func:`simulate_overhead`) drives a *fresh* injector with
+    the same call sequence, which is what makes predictions exact."""
+
+    def __init__(self, plan: FaultPlan):
+        self.plan = plan
+        self.retry = plan.retry
+        self.faults_injected = 0
+        self._verb_attempts: dict[str, int] = defaultdict(int)
+        self._stage_attempts: dict[str, int] = defaultdict(int)
+        self._commits: dict[str, int] = defaultdict(int)
+        self._consumed: set[int] = set()
+        self._verb_events = [e for e in plan.events
+                             if e.kind == "unavailable"]
+        self._chunk_events = {(e.table, e.at): e.kind for e in plan.events
+                              if e.kind in ("drop_chunk", "dup_chunk")}
+        self._commit_events: dict[tuple, list[str]] = defaultdict(list)
+        for e in plan.events:
+            if e.kind in ("snapshot", "restart"):
+                self._commit_events[(e.table, e.at)].append(e.kind)
+        for acts in self._commit_events.values():
+            acts.sort(reverse=True)      # snapshot before restart
+        self._crash_events = [(i, e) for i, e in enumerate(plan.events)
+                              if e.kind == "crash"]
+
+    # -- injection points ---------------------------------------------------
+
+    def on_verb(self, verb: str, table: str | None = None) -> None:
+        """One client verb attempt (retries included).  Raises
+        :class:`StoreUnavailable` when a declared window covers it."""
+        i = self._verb_attempts[verb]
+        self._verb_attempts[verb] = i + 1
+        for e in self._verb_events:
+            if e.verb == verb and (e.table is None or e.table == table) \
+                    and e.at <= i < e.at + e.count:
+                self.faults_injected += 1
+                raise StoreUnavailable(
+                    f"injected: store unavailable for {verb!r} attempt {i}")
+
+    def on_stage(self, table: str) -> bool:
+        """One chunk staging attempt on ``table`` (retries included).
+        Raises :class:`TransferDropped` on a declared drop; returns True
+        when a *duplicate* delivery of this chunk should follow (the
+        caller pays the extra hop; the ack set deduplicates it)."""
+        i = self._stage_attempts[table]
+        self._stage_attempts[table] = i + 1
+        kind = self._chunk_events.get((table, i))
+        if kind == "drop_chunk":
+            self.faults_injected += 1
+            raise TransferDropped(
+                f"injected: chunk transfer to {table!r} dropped "
+                f"(staging attempt {i})")
+        if kind == "dup_chunk":
+            self.faults_injected += 1
+            return True
+        return False
+
+    def on_commit(self, table: str) -> tuple[str, ...]:
+        """One committed mutation of ``table``.  Returns the declared
+        operator actions at this commit index: ``"snapshot"`` and/or
+        ``"restart"`` (snapshot always first)."""
+        self._commits[table] += 1
+        acts = tuple(self._commit_events.get((table, self._commits[table]),
+                                             ()))
+        self.faults_injected += sum(1 for a in acts if a == "restart")
+        return acts
+
+    def maybe_crash(self, component: str, at: int) -> None:
+        """One crash point (producer: before step/chunk ``at``; trainer:
+        top of epoch ``at``).  Each declared crash fires exactly once —
+        the restarted component passes the same index unharmed."""
+        for i, e in self._crash_events:
+            if i not in self._consumed and e.component == component \
+                    and e.at == at:
+                self._consumed.add(i)
+                self.faults_injected += 1
+                raise InjectedCrash(component, at)
+
+
+# ---------------------------------------------------------------------------
+# Plan-time cost prediction
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Overhead:
+    """Per-component fault overhead: extra store dispatches (WAL replay
+    after a store restart), extra staged transfers (dropped/duplicated
+    chunk deliveries across meshes; 0 on the port's local deployment),
+    verb retries, and component restarts."""
+
+    extra_ops: int = 0
+    extra_staged: int = 0
+    retries: int = 0
+    restarts: int = 0
+
+    @property
+    def empty(self) -> bool:
+        return not (self.extra_ops or self.extra_staged or self.retries
+                    or self.restarts)
+
+
+def simulate_overhead(plan: FaultPlan, schedule, crosses_mesh: bool
+                      ) -> tuple[dict[str, Overhead], dict[str, int]]:
+    """Walk a session's component ``schedule`` through a fresh
+    :class:`FaultInjector` and tally what the faults will cost.
+
+    ``schedule`` is a list of dicts (declaration order — the sequential
+    execution order the exactness claim covers), one per plan entry:
+
+    * producer per-verb: ``{kind, name, tier: "per_verb", table, steps,
+      emit_every, ranks}``
+    * producer fused: ``{kind, name, tier, table, n_chunks, overlap}``
+      (a true ``overlap``, the clustered two-slot staging pipeline,
+      raises: ``ROADMAP.md`` A5)
+    * trainer: ``{kind, name, tier, table, epochs, bootstrap}``
+    * inference: ``{kind, name, tier, steps}``
+    * serving clients: ``{kind, name, tier, table, results, requests,
+      submit, collect}``
+    * serving consumer: ``{kind, name, tier, table, results, requests,
+      n_batches}``
+
+    The walk mirrors the runtime control flow *exactly* — every
+    ``on_verb`` / ``on_stage`` / ``on_commit`` / ``maybe_crash`` call the
+    live components make, in the same order, driving the same injector
+    class — so predicted retries/replays/restages equal the measured
+    counters, not approximately but identically.  Returns
+    ``(per_component_overhead, totals)`` where totals carries the
+    ``faults_injected`` / ``retries`` / ``recoveries`` the server's
+    ``stats()`` will report."""
+    inj = FaultInjector(plan)
+    wal_len: dict[str, int] = defaultdict(int)
+    wal_base: dict[str, int] = defaultdict(int)
+    recoveries = [0]
+    per: dict[str, Overhead] = {}
+
+    def _verb(o: Overhead, verb: str, table: str | None) -> None:
+        while True:
+            try:
+                inj.on_verb(verb, table)
+                return
+            except StoreUnavailable:
+                o.retries += 1
+
+    def _commit(o: Overhead, table: str) -> None:
+        wal_len[table] += 1
+        for act in inj.on_commit(table):
+            if act == "snapshot":
+                for t in list(wal_len):
+                    wal_base[t] = wal_len[t]
+            else:  # restart: replay every table's WAL tail, one op each
+                o.extra_ops += sum(wal_len[t] - wal_base[t]
+                                   for t in wal_len)
+                recoveries[0] += 1
+
+    def _logged_capture(o: Overhead, table: str) -> None:
+        # mirrors Client.capture_scan's WAL path: verb attempt, staging
+        # attempt (hop paid before the drop check), dup pays one more hop
+        while True:
+            try:
+                inj.on_verb("capture", table)
+            except StoreUnavailable:
+                o.retries += 1
+                continue
+            try:
+                dup = inj.on_stage(table)
+            except TransferDropped:
+                o.retries += 1
+                if crosses_mesh:
+                    o.extra_staged += 1
+                continue
+            if dup and crosses_mesh:
+                o.extra_staged += 1
+            break
+        _commit(o, table)
+
+    def _serve_chunk(o: Overhead, table: str) -> None:
+        # mirrors Client.serve_batch: verb attempt, then the injector's
+        # stage hook on the results table (a drop retries the whole fused
+        # dispatch under the same chunk id; the serve dispatch never
+        # crosses the interconnect, so no hops are counted either way),
+        # then the commit boundary
+        while True:
+            try:
+                inj.on_verb("serve", table)
+            except StoreUnavailable:
+                o.retries += 1
+                continue
+            try:
+                inj.on_stage(table)
+            except TransferDropped:
+                o.retries += 1
+                continue
+            break
+        _commit(o, table)
+
+    def _crash_point(o: Overhead, name: str, at: int) -> None:
+        while True:
+            try:
+                inj.maybe_crash(name, at)
+                return
+            except InjectedCrash:
+                o.restarts += 1
+
+    for comp in schedule:
+        o = per.setdefault(comp["name"], Overhead())
+        kind, tier = comp["kind"], comp["tier"]
+        if kind == "producer" and tier == "per_verb":
+            for t in range(comp["steps"]):
+                _crash_point(o, comp["name"], t)
+                if t % comp["emit_every"] == 0:
+                    for _ in range(comp["ranks"]):
+                        _verb(o, "put", comp["table"])
+                        _commit(o, comp["table"])
+        elif kind == "producer":
+            if comp.get("overlap"):
+                raise NotImplementedError(
+                    "the overlapped staging pipeline of a Clustered "
+                    "deployment: ROADMAP.md A5")
+            for i in range(comp["n_chunks"]):
+                _crash_point(o, comp["name"], i)
+                _logged_capture(o, comp["table"])
+        elif kind == "trainer":
+            if comp["bootstrap"]:
+                _verb(o, "sample", comp["table"])
+            for e in range(comp["epochs"]):
+                _crash_point(o, comp["name"], e)
+                if tier == "per_verb":
+                    _verb(o, "sample", comp["table"])
+                elif tier == "slab_sharded_clustered":
+                    _verb(o, "sample_staged", comp["table"])
+                else:           # fused tiers: a read-only capture
+                    _verb(o, "capture", comp["table"])
+        elif kind == "inference" and tier == "three_step":
+            tin, tout = f"{comp['name']}_in", f"{comp['name']}_out"
+            for _ in range(comp["steps"]):
+                _verb(o, "put", tin)
+                _commit(o, tin)       # put_tensor of the input
+                _commit(o, tout)      # run_model's prediction put
+        elif kind == "clients":
+            if comp["submit"]:
+                for r in range(comp["requests"]):
+                    _crash_point(o, comp["name"], r)
+                    _verb(o, "put", comp["table"])
+                    _commit(o, comp["table"])
+            if comp["collect"]:
+                # response gets ride the fault boundary but never commit
+                for _ in range(comp["requests"]):
+                    _verb(o, "get", comp["results"])
+        elif kind == "serving" and tier == "three_step":
+            for r in range(comp["requests"]):
+                _crash_point(o, comp["name"], r)
+                _verb(o, "get", comp["table"])
+                _verb(o, "put", comp["results"])
+                _commit(o, comp["results"])
+        elif kind == "serving":
+            # continuous batching: crash index = batch index (recovery
+            # re-cursors from the results watermark and retries the SAME
+            # batch, so the drained-batch count is crash-invariant)
+            for i in range(comp["n_batches"]):
+                _crash_point(o, comp["name"], i)
+                _serve_chunk(o, comp["results"])
+        # fused_registry inference never touches the store: nothing to walk
+
+    totals = {
+        "faults_injected": inj.faults_injected,
+        "retries": sum(o.retries for o in per.values()),
+        "recoveries": recoveries[0],
+    }
+    return per, totals

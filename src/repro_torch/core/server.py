@@ -9,10 +9,24 @@ the random gather, the model registry and ``stats()``.
 Host threads call the server's verbs; each verb launches the store op on
 the device (asynchronously, on PyTorch's current stream) while holding the
 table's lock, so writes and reads of one table are ordered.  The server-
-wide lock guards only the registries.  The ``Colocated``/``Clustered``
-deployments (``ROADMAP.md`` A5, the element-sharded producer and the
-dedicated store mesh) and an armed ``FaultPlan`` with its write-ahead log
-(A4) are later slices and raise here.
+wide lock guards only the registries.
+
+**Faults.**  A declared ``FaultPlan`` (even an empty one) arms the
+recovery machinery: a ``FaultInjector`` every client consults, the
+acknowledged-chunk-id set that makes :meth:`apply_chunk` and
+:meth:`serve_batch` exactly-once, a per-table write-ahead log of every
+committed write, and the declared operator actions at commit boundaries
+(``snapshot`` parks a deep copy of every table and truncates the replay
+tail; ``restart`` rebuilds every table from that copy and replays the
+tail).  The write verbs update a table in place, so :meth:`snapshot`,
+:meth:`restore` and the recovery image copy every tensor of a table
+(``store.copy_state``), and the log holds copies of the payloads it is
+given.
+
+The ``Colocated``/``Clustered`` deployments (``ROADMAP.md`` A5, the
+element-sharded producer and the dedicated store mesh, with the overlap
+pipeline's ``stage_chunk_logged``/``insert_chunk``) are a later slice and
+raise here.
 """
 
 from __future__ import annotations
@@ -26,7 +40,8 @@ import torch
 
 from ..device import resolve_device
 from . import store as S
-from .faults import FaultPlan, StoreTimeout, WatermarkTimeout
+from .faults import (FaultInjector, FaultPlan, StoreTimeout,
+                     WatermarkTimeout)
 from .telemetry import poll_backoff
 
 __all__ = ["StoreServer", "CaptureTxn"]
@@ -61,8 +76,6 @@ class StoreServer:
                  device=None):
         if deployment is not None:
             raise NotImplementedError(_DEPLOYMENTS_OPEN)
-        if faults is not None:
-            raise NotImplementedError("armed FaultPlan: ROADMAP.md A4")
         self.deployment = None
         self.device = resolve_device(device)
         self._lock = threading.RLock()           # registries + metadata only
@@ -79,9 +92,16 @@ class StoreServer:
         self._ops_lock = threading.Lock()
         self.op_count = 0                        # dispatched store ops
         self.staged_transfers = 0                # always 0: local only
-        self.faults = None                       # no FaultPlan: A4
+        # the fault/recovery machinery, armed by a declared FaultPlan (an
+        # empty one too: a fault-free baseline takes this path as well)
+        self.faults = FaultInjector(faults) if faults is not None else None
+        self.wal_enabled = faults is not None
         self.retries = 0                         # verb retries (clients')
-        self.recoveries = 0
+        self.recoveries = 0                      # completed store restarts
+        self._wal: dict[str, list] = {}          # per-table write-ahead log
+        self._wal_base: dict[str, int] = {}      # replay floor (snapshot)
+        self._acked: set = set()                 # applied chunk ids
+        self._recovery: dict[str, S.TableState] | None = None
 
     def _bump_ops(self, n: int = 1) -> None:
         with self._ops_lock:
@@ -109,6 +129,8 @@ class StoreServer:
             self._placements[spec.name] = slab_sharding
             self._table_locks[spec.name] = threading.RLock()
             self._counts[spec.name] = 0
+            self._wal[spec.name] = []
+            self._wal_base[spec.name] = 0
         return spec
 
     def placement(self, table: str):
@@ -150,8 +172,10 @@ class StoreServer:
         the port's write verbs update the checked-out buffers in place
         (the reference's donation), so there is nothing to roll back to.
         A body that raises without assigning leaves the table untouched.
-        One capture is one store op, read-only captures included.
+        One capture is one store op, read-only captures included; a
+        committed one is a commit boundary of an armed ``FaultPlan``.
         """
+        committed = False
         with self._table_locks[table]:
             txn = CaptureTxn(self._specs[table], self._state[table])
             try:
@@ -160,35 +184,111 @@ class StoreServer:
                 if txn.state is not txn._orig:
                     self._state[table] = txn.state
                     self._counts[table] += txn.puts
+                    committed = True
         self._bump_ops()
+        if committed:
+            self._after_commit(table)
+
+    # lint: holds-lock — runs inside the caller's capture txn (table lock)
+    def apply_chunk(self, table: str, chunk_id: tuple, txn: CaptureTxn,
+                    keys, values, mask, puts: int) -> None:
+        """Exactly-once insert of one collected chunk
+        (``store.capture_scan_collect[_multi]``) into ``txn``'s table: the
+        write path of every fused capture once a ``FaultPlan`` is armed.
+
+        ``chunk_id`` is the client's stable ``(rank, seq)``: the SAME id
+        on every retry of one chunk, a new id per chunk.  The injector is
+        consulted first: a declared drop raises ``TransferDropped`` before
+        anything is applied (the client retries under the same id), a
+        declared duplicate delivers the chunk twice and the acknowledged
+        set makes the second delivery a no-op (``put_masked`` is not
+        idempotent: ``ptr`` and ``count`` advance on every apply).  The
+        applied chunk is logged for replay."""
+        spec = self._specs[table]
+        if self.faults is not None:
+            # a declared duplicate's second delivery finds its id acked
+            self.faults.on_stage(table)
+        if chunk_id not in self._acked:
+            txn.state = S.put_masked(spec, txn.state, keys, values, mask)
+            txn.puts = puts
+            self._acked.add(chunk_id)
+            if self.wal_enabled:
+                self._wal[table].append(("chunk", (keys, values, mask),
+                                         puts))
+
+    def _after_commit(self, table: str) -> None:
+        """The declared operator actions at a commit boundary: ``snapshot``
+        parks a recovery image (and truncates the replay tail),
+        ``restart`` rebuilds the store from it."""
+        if self.faults is None:
+            return
+        for act in self.faults.on_commit(table):
+            if act == "snapshot":
+                self._take_recovery_snapshot()
+            else:
+                self._restart_and_recover()
 
     # -- verbs ---------------------------------------------------------------
 
+    def _logged(self, spec: S.TableSpec, keys, values):
+        """A write's payload on the table's device; copied when the log
+        keeps it, since the caller may reuse its tensors."""
+        keys = S._as_keys(keys, self.device)
+        values = S._as_values(spec, values, self.device)
+        if self.wal_enabled:
+            keys, values = keys.clone(), values.clone()
+        return keys, values
+
     def put(self, table: str, key, value) -> None:
         spec = self._specs[table]
+        key, value = self._logged(spec, key, value)
         with self._table_locks[table]:
             self._state[table] = S.put(spec, self._state[table], key, value)
             self._counts[table] += 1
+            if self.wal_enabled:
+                self._wal[table].append(("put", (key, value), 1))
         self._bump_ops()
+        self._after_commit(table)
 
     def put_many(self, table: str, keys, values) -> None:
         """One op for ``len(keys)`` puts (``store.put_many``)."""
         spec = self._specs[table]
+        keys, values = self._logged(spec, keys, values)
+        n = int(keys.shape[0])
         with self._table_locks[table]:
             self._state[table] = S.put_many(spec, self._state[table], keys,
                                             values)
-            self._counts[table] += len(keys)
+            self._counts[table] += n
+            if self.wal_enabled:
+                self._wal[table].append(("put_many", (keys, values), n))
         self._bump_ops()
+        self._after_commit(table)
 
     def put_stream(self, table: str, keys, values) -> None:
         """One op for a whole trajectory of sends (``store.put_stream``)."""
         spec = self._specs[table]
-        n = int(np.prod(np.shape(keys)))
+        keys, values = self._logged(spec, keys, values)
+        n = keys.numel()
         with self._table_locks[table]:
             self._state[table] = S.put_stream(spec, self._state[table], keys,
                                               values)
             self._counts[table] += n
+            if self.wal_enabled:
+                self._wal[table].append(("put_stream", (keys, values), n))
         self._bump_ops()
+        self._after_commit(table)
+
+    def delete(self, table: str, key) -> None:
+        """Tombstone ``key`` (``store.delete``).  Logged like a write: a
+        replay that skipped deletes would resurrect dead keys."""
+        spec = self._specs[table]
+        key = S._as_keys(key, self.device)
+        with self._table_locks[table]:
+            self._state[table] = S.delete(spec, self._state[table], key)
+            if self.wal_enabled:
+                self._wal[table].append(("delete", (key.clone(),), 0))
+        self._bump_ops()
+        self._after_commit(table)
 
     def get(self, table: str, key):
         spec = self._specs[table]
@@ -207,23 +307,43 @@ class StoreServer:
         return out
 
     def serve_batch(self, req_table: str, res_table: str, keys, mask,
-                    apply_fn, params):
+                    apply_fn, params, chunk_id: tuple | None = None):
         """Drain one continuous-batching batch in ONE dispatch: gather the
         active requests from ``req_table``, apply the bound model to the
         whole batch, scatter the responses into ``res_table``
         (``store.serve_batch``).  ``mask`` is the host's active-slot
-        array.  Returns the per-slot found-and-served flags."""
+        array.  Returns the per-slot found-and-served flags.
+
+        Under an armed ``FaultPlan`` the injector's stage hook on
+        ``res_table`` is consulted (a drop retries the dispatch under the
+        same ``chunk_id``, a duplicate is deduplicated by the ack set, as
+        in :meth:`apply_chunk`) and the insert is logged as a
+        ``put_masked`` chunk, so a restart replays it byte for byte."""
         req_spec = self._specs[req_table]
         res_spec = self._specs[res_table]
         mask = np.asarray(mask, dtype=bool)
+        puts = int(mask.sum())
+        keys = S._as_keys(keys, self.device)
         first, second = sorted((req_table, res_table))
         with self._table_locks[first], self._table_locks[second]:
-            new_res, ok, _ys = S.serve_batch(
-                req_spec, res_spec, apply_fn, self._state[req_table],
-                self._state[res_table], params, keys, mask)
-            self._state[res_table] = new_res
-            self._counts[res_table] += int(mask.sum())
+            if self.faults is not None:
+                self.faults.on_stage(res_table)
+            if chunk_id is None or chunk_id not in self._acked:
+                new_res, ok, ys = S.serve_batch(
+                    req_spec, res_spec, apply_fn, self._state[req_table],
+                    self._state[res_table], params, keys, mask)
+                self._state[res_table] = new_res
+                self._counts[res_table] += puts
+                if chunk_id is not None:
+                    self._acked.add(chunk_id)
+                if self.wal_enabled:
+                    self._wal[res_table].append(
+                        ("chunk", (keys.clone(), ys, ok.new_tensor(mask)),
+                         puts))
+            else:
+                ok = torch.as_tensor(mask, device=self.device)
         self._bump_ops()
+        self._after_commit(res_table)
         return ok
 
     def sample(self, table: str, draw: torch.Tensor):
@@ -261,7 +381,8 @@ class StoreServer:
                      for name, st in self._state.items()}
         return {"op_count": self.op_count,
                 "staged_transfers": self.staged_transfers,
-                "faults_injected": 0,
+                "faults_injected": self.faults.faults_injected
+                if self.faults is not None else 0,
                 "retries": self.retries,
                 "recoveries": self.recoveries,
                 "model_swaps": self.model_swaps,
@@ -382,3 +503,81 @@ class StoreServer:
         with self._ops_lock:
             self.model_swaps += 1
         return fn, params, version
+
+    # -- snapshots ---------------------------------------------------------
+
+    def snapshot(self) -> dict[str, S.TableState]:
+        """A deep copy of every table's state (``store.copy_state``: the
+        slab, every shard of a sharded one, keys, version, ptr, count),
+        each table copied under its own lock.  The write verbs update the
+        live state in place, so a snapshot sharing it would follow them."""
+        snap = {}
+        with self._lock:
+            names = list(self._specs)
+        for name in names:
+            with self._table_locks[name]:
+                snap[name] = S.copy_state(self._state[name])
+        return snap
+
+    def restore(self, snap: dict[str, S.TableState]) -> None:
+        """Make each table of ``snap`` live again, as a copy (``snap``
+        stays restorable after later writes), with the cached watermark
+        read back from the state."""
+        for name, st in snap.items():
+            if name in self._specs:
+                with self._table_locks[name]:
+                    self._state[name] = S.copy_state(st)
+                    self._counts[name] = int(st.count)
+
+    # -- injected store restart + recovery -----------------------------------
+
+    def _take_recovery_snapshot(self) -> None:
+        """A declared ``snapshot``: park a deep copy of every table and
+        mark each log's current length as its replay floor (the commits
+        before it never replay again, which also bounds the log)."""
+        snap = self.snapshot()
+        # the image and the floor are published together, under the
+        # registry lock, so a restart never pairs one with the other's
+        # predecessor
+        with self._lock:
+            self._recovery = snap
+            for t in self._wal:
+                self._wal_base[t] = len(self._wal[t])
+
+    def _replay_entry(self, spec: S.TableSpec, state: S.TableState,
+                      kind: str, payload) -> S.TableState:
+        if kind == "put":
+            return S.put(spec, state, *payload)
+        if kind == "put_many":
+            return S.put_many(spec, state, *payload)
+        if kind == "put_stream":
+            return S.put_stream(spec, state, *payload)
+        if kind == "delete":
+            return S.delete(spec, state, *payload)
+        return S.put_masked(spec, state, *payload)       # "chunk"
+
+    def _restart_and_recover(self) -> None:
+        """A declared ``restart``: the store dies and comes back.  Each
+        table is rebuilt from a copy of the last recovery image (empty
+        where none was taken) and its log's tail since that image is
+        replayed in commit order: the same writes on the same state leave
+        the same bytes.  Each replayed entry is one store op, counted in
+        ``op_count`` as ``faults.simulate_overhead`` predicts."""
+        with self._lock:
+            names = list(self._specs)
+        for name in names:
+            spec = self._specs[name]
+            with self._table_locks[name]:
+                if self._recovery is not None and name in self._recovery:
+                    st = S.copy_state(self._recovery[name])
+                else:
+                    st = S.init_table(spec, self._placements[name],
+                                      device=self.device)
+                for kind, payload, _puts in \
+                        self._wal[name][self._wal_base[name]:]:
+                    st = self._replay_entry(spec, st, kind, payload)
+                    self._bump_ops()
+                self._state[name] = st
+                self._counts[name] = int(st.count)
+        with self._ops_lock:
+            self.recoveries += 1

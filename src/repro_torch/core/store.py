@@ -1,9 +1,11 @@
 """TensorStore: a device-resident in-memory key-value tensor store.
 
-Port of ``src/repro/core/store.py``: tables, the write verbs, the
-batched gets, ``latest`` and ``poll``, the serving dispatch, the
-trainer's random gather (``sample``), its slab-sharded form
-(``sample_sharded_impl``) and the producer's capture family.  Each table is a fixed-capacity slab
+Port of ``src/repro/core/store.py``: tables, the write verbs and
+``delete``, the batched gets, ``latest`` and ``poll``, the serving
+dispatch, the trainer's random gather (``sample``), its slab-sharded form
+(``sample_sharded_impl``) and the producer's capture family with its
+collect-only form (``capture_scan_collect[_multi]``: the chunk a server
+armed with a ``FaultPlan`` inserts exactly once).  Each table is a fixed-capacity slab
 ``[capacity, *elem_shape]`` on the device plus per-slot metadata
 (``keys``, ``version``) and scalar cursors (``ptr``, ``count``), with two
 engines: ``ring`` (slots from a monotone write pointer) and ``hash``
@@ -79,10 +81,10 @@ __all__ = [
     "TableSpec", "TableState", "ShardedSlab", "make_key", "name_key",
     "init_table", "put", "put_many", "put_masked", "put_stream", "get",
     "get_many", "serve_batch", "sample", "sample_sharded_impl",
-    "latest", "poll", "valid_count", "table_bytes", "slab_bytes",
-    "capture_scan",
-    "capture_scan_multi", "capture_emit_count", "capture_emit_count_multi",
-    "capture_rows", "bucket_length", "MIN_BUCKET", "EMPTY_KEY", "KEY_DTYPE",
+    "latest", "poll", "delete", "valid_count", "table_bytes", "slab_bytes",
+    "copy_state", "capture_scan", "capture_scan_multi",
+    "capture_scan_collect", "capture_scan_collect_multi",
+    "capture_emit_count", "capture_emit_count_multi", "capture_rows", "bucket_length", "MIN_BUCKET", "EMPTY_KEY", "KEY_DTYPE",
 ]
 
 
@@ -203,6 +205,19 @@ def slab_bytes(slab: torch.Tensor | ShardedSlab) -> dict[str, int]:
         key = str(t.device)
         out[key] = out.get(key, 0) + t.numel() * t.element_size()
     return out
+
+
+def copy_state(state: TableState) -> TableState:
+    """A deep copy of a table's state: every tensor cloned on its own
+    device, each shard of a :class:`ShardedSlab` too.  The write verbs
+    update the slab, keys and version in place, so a snapshot that shared
+    them would follow every later write."""
+    slab = state.slab
+    slab = ShardedSlab(tuple(t.clone() for t in slab.shards),
+                       slab.placement) if isinstance(slab, ShardedSlab) \
+        else slab.clone()
+    return TableState(slab, state.keys.clone(), state.version.clone(),
+                      state.ptr.clone(), state.count.clone())
 
 
 def _scatter_rows(slab: torch.Tensor | ShardedSlab, idx: torch.Tensor,
@@ -603,6 +618,92 @@ def capture_rows(length: int, emit_every: int = 1) -> int:
     return -(-length // emit_every)
 
 
+def _emitted(spec: TableSpec, value, lead: tuple = ()) -> torch.Tensor:
+    """A step's emitted value as the table's dtype, its shape checked."""
+    value = torch.as_tensor(value).to(spec.dtype)
+    if tuple(value.shape) != (*lead, *spec.shape):
+        raise ValueError(f"capture into table {spec.name!r}: value shape "
+                         f"{tuple(value.shape)} != {(*lead, *spec.shape)}")
+    return value
+
+
+def _pack(spec: TableSpec, keys: list, values: list, size: int):
+    """The collected emissions, in order, padded with zeros to ``size``
+    entries → ``(keys [size], values [size, *shape], mask [size])``;
+    ``mask`` marks the filled prefix."""
+    dev = values[0].device if values else torch.device("cpu")
+    k = torch.cat(keys).to(dev) if keys \
+        else torch.zeros((0,), dtype=KEY_DTYPE, device=dev)
+    v = torch.cat(values) if values \
+        else torch.zeros((0, *spec.shape), dtype=spec.dtype, device=dev)
+    n = k.shape[0]
+    k = torch.cat([k, torch.zeros((size - n,), dtype=KEY_DTYPE, device=dev)])
+    v = torch.cat([v, torch.zeros((size - n, *spec.shape), dtype=spec.dtype,
+                                  device=dev)])
+    return k, v, torch.arange(size, device=dev) < n
+
+
+def capture_scan_collect(spec: TableSpec, step_fn: Callable, carry,
+                         length: int, emit_every: int = 1, t0: int = 0):
+    """:func:`capture_scan`'s steps with the would-be puts **collected**
+    instead of applied: no table is touched.  The emitting steps fill a
+    compact ``rows = capture_rows(length, emit_every)`` buffer in step
+    order; replaying its masked prefix with :func:`put_masked` leaves the
+    bytes :func:`capture_scan` leaves.  The server's exactly-once insert
+    (``StoreServer.apply_chunk``) takes the chunk whole.
+
+    Returns ``(carry, keys [rows], values [rows, *shape], mask [rows])``.
+    """
+    keys, values = [], []
+    for t in range(t0, t0 + length):
+        carry, key, value = step_fn(carry, t)
+        value = _emitted(spec, value)
+        if t % emit_every == 0:
+            keys.append(_as_keys(key, value.device).reshape(1))
+            values.append(value.unsqueeze(0))
+    return (carry, *_pack(spec, keys, values,
+                          capture_rows(length, emit_every)))
+
+
+def capture_scan_collect_multi(spec: TableSpec, step_fn: Callable, carry,
+                               length: int, n_ranks: int,
+                               emit_every: int = 1, t0=0):
+    """:func:`capture_scan_multi`'s lockstep steps (per-rank ``t0``
+    clocks, emission gated on rank 0's), collected instead of put.
+
+    Returns ``(carry, keys [rows·R], values [rows·R, *shape], mask
+    [rows·R])``, rank-major within each emitting step, so the masked
+    replay leaves the bytes :func:`capture_scan_multi` leaves.
+    """
+    clocks = _rank_clocks(t0, n_ranks)
+    keys, values = [], []
+    for i in range(length):
+        carries, ks, vs = [], [], []
+        for r in range(n_ranks):
+            c_r, key, value = step_fn(tree_map(lambda x: x[r], carry), r,
+                                      clocks[r] + i)
+            carries.append(c_r)
+            vs.append(torch.as_tensor(value))
+            ks.append(_as_keys(key, vs[-1].device).reshape(()))
+        carry = tree_map(lambda *xs: torch.stack(xs), *carries)
+        step_values = _emitted(spec, torch.stack(vs), (n_ranks,))
+        if (clocks[0] + i) % emit_every == 0:
+            keys.append(torch.stack(ks))
+            values.append(step_values)
+    return (carry, *_pack(spec, keys, values,
+                          capture_rows(length, emit_every) * n_ranks))
+
+
+def delete(spec: TableSpec, state: TableState, key) -> TableState:
+    """Tombstone every slot holding ``key`` (in place; the slab's bytes
+    stay where they are, as in the reference)."""
+    key = _as_keys(key, state.keys.device).reshape(())
+    match = state.keys == key
+    state.version.masked_fill_(match, 0)
+    state.keys.masked_fill_(match, EMPTY_KEY)
+    return state
+
+
 def _not_ported(name: str, item: str) -> Callable:
     def fn(*_args, **_kwargs):
         raise NotImplementedError(f"store.{name}: ROADMAP.md {item}")
@@ -612,10 +713,5 @@ def _not_ported(name: str, item: str) -> Callable:
 
 sample_and_step = _not_ported("sample_and_step",
                               "A8 (what the training slice left out)")
-delete = _not_ported("delete", "A4 (fault recovery)")
-capture_scan_collect = _not_ported("capture_scan_collect",
-                                   "A5 (the Clustered deployment)")
-capture_scan_collect_multi = _not_ported("capture_scan_collect_multi",
-                                         "A5 (the Clustered deployment)")
 make_clustered_gather = _not_ported("make_clustered_gather",
                                     "A5 (the Clustered deployment)")

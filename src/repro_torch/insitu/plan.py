@@ -2,7 +2,11 @@
 
 Port of ``src/repro/insitu/plan.py`` — the local deployment: the
 producer, trainer, inference and serving tiers, the per-component
-dispatch and model-swap predictions, and the frozen :class:`Plan` whose
+dispatch and model-swap predictions, the fault overhead of a declared
+``FaultPlan`` (replay ops in ``dispatches``, ``retries``, ``restarts``,
+and the ``Plan.faults`` totals ``stats()`` must show), the trainers'
+collective structure (``predicted_collectives``, held against what
+``plan(hlo=True)`` measures), and the frozen :class:`Plan` whose
 predictions the tests hold against ``StoreServer.stats()``.
 
 =============  =====================================================
@@ -13,10 +17,16 @@ inference      ``fused_registry`` | ``three_step``
 serving        ``continuous_batch`` | ``three_step``
 =============  =====================================================
 
+The reference measures collectives in compiled HLO.  The port has no
+HLO: a mesh's collectives are explicit calls
+(``parallel.collectives``), so ``plan(hlo=True)`` counts the calls one
+epoch of a tier makes, under the reference's five op names
+(:data:`COLLECTIVE_OPS`).
+
 The reference's ``capture_scan_sharded`` and ``slab_sharded_clustered``
-tiers, its staged-transfer and fault predictions and the contention model
-are ``ROADMAP.md`` A4–A5; the collective predictions of
-``plan(hlo=True)`` are A6.
+tiers, their producer and serving collective predictions
+(``sharded_producer_prediction``), the staged-transfer predictions and
+the contention model are ``ROADMAP.md`` A5.
 """
 
 from __future__ import annotations
@@ -31,8 +41,16 @@ __all__ = [
     "producer_tier", "trainer_tier", "inference_tier", "serving_tier",
     "default_chunk", "ComponentPlan", "Plan", "producer_dispatches",
     "trainer_dispatches", "inference_dispatches", "clients_dispatches",
-    "serving_dispatches", "serving_swaps",
+    "serving_dispatches", "serving_swaps", "COLLECTIVE_OPS",
+    "COLLECTIVE_FREE", "TRAINER_COLLECTIVE_PREDICTIONS",
+    "trainer_collective_prediction",
 ]
+
+#: the collective op names of the reference's HLO accounting
+#: (``src/repro/analysis/hlo.py``); ``parallel.collectives.COUNTS`` keys
+#: map onto the first two
+COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                  "collective-permute")
 
 PRODUCER_TIERS = ("per_verb", "capture_scan", "capture_scan_multi")
 TRAINER_TIERS = ("per_verb", "fused", "sharded_fused", "slab_sharded")
@@ -122,6 +140,43 @@ def serving_tier(comp) -> str:
     return "continuous_batch"
 
 
+def _pred(**nonzero: bool) -> tuple[tuple[str, bool], ...]:
+    """Collective-structure prediction: op name -> must-be-nonzero flag
+    (keyword names use ``_`` for ``-``)."""
+    return tuple((op, bool(nonzero.get(op.replace("-", "_"), False)))
+                 for op in COLLECTIVE_OPS)
+
+
+#: a hot path that must make no collective (the single-device epochs)
+COLLECTIVE_FREE: tuple[tuple[str, bool], ...] = _pred()
+
+#: each trainer tier's collective structure on a table that is NOT split
+#: over a mesh: both mesh tiers all-reduce (the DDP gradients; the
+#: slab-sharded gather's ``psum`` is an all-reduce too) and neither
+#: all-gathers; :func:`trainer_collective_prediction` resolves a split
+#: table
+TRAINER_COLLECTIVE_PREDICTIONS: dict[str, tuple[tuple[str, bool], ...]] = {
+    "per_verb": COLLECTIVE_FREE,
+    "fused": COLLECTIVE_FREE,
+    "sharded_fused": _pred(all_reduce=True),
+    "slab_sharded": _pred(all_reduce=True),
+}
+
+
+def trainer_collective_prediction(tier: str, table_sharded: bool = False
+                                  ) -> tuple[tuple[str, bool], ...] | None:
+    """One trainer entry's collective structure.  ``table_sharded``: the
+    table it reads is split over more than one rank (a slab-sharded
+    trainer's placement).  Then ``sharded_fused`` all-gathers the slab on
+    entry, the anti-pattern ``slab_sharded`` removes; the single-device
+    ``fused`` tier gets no claim (``None``), as in the reference."""
+    if table_sharded and tier == "sharded_fused":
+        return _pred(all_reduce=True, all_gather=True)
+    if table_sharded and tier == "fused":
+        return None
+    return TRAINER_COLLECTIVE_PREDICTIONS[tier]
+
+
 @dataclass(frozen=True)
 class ComponentPlan:
     """One component's frozen execution decision."""
@@ -140,10 +195,36 @@ class ComponentPlan:
     dispatches: tuple[tuple[str, int], ...] = ()
     #: predicted model-generation adoptions (serving hot-swap).
     swaps: int = 0
+    #: the collective calls one epoch of the component's tier made
+    #: (``plan(hlo=True)``; ``None`` until measured), by op name
+    collectives: tuple[tuple[str, int], ...] | None = None
+    #: op -> must the hot path make it?  (``None``: no claim)
+    predicted_collectives: tuple[tuple[str, bool], ...] | None = None
+    #: predicted transient-fault verb retries under the session's
+    #: ``FaultPlan`` (``core.faults.simulate_overhead``); the replay ops a
+    #: restart costs land in ``dispatches`` as ``"replay"``
+    retries: int = 0
+    #: predicted crash restarts (producer: resume from the watermark;
+    #: trainer: from its ``MemoryCheckpoint``; serving: ``recover()``)
+    restarts: int = 0
 
     @property
     def store_dispatches(self) -> int:
         return sum(n for _, n in self.dispatches)
+
+    def check_collectives(self) -> None:
+        """Assert the measured collectives (``plan(hlo=True)``) have the
+        predicted structure; a no-op when either side is unresolved."""
+        if self.collectives is None or self.predicted_collectives is None:
+            return
+        measured = dict(self.collectives)
+        for op, nonzero in self.predicted_collectives:
+            got = measured.get(op, 0)
+            if bool(got) != nonzero:
+                raise AssertionError(
+                    f"{self.name} [{self.tier}]: predicted {op} "
+                    f"{'> 0' if nonzero else '== 0'}, measured {got} "
+                    f"(all: {measured})")
 
     def explain(self) -> dict:
         out: dict[str, Any] = {
@@ -172,6 +253,15 @@ class ComponentPlan:
                 # THE serving claim: one fused dispatch per drained batch
                 out["dispatches_per_batch"] = \
                     self.store_dispatches / max(1, d.get("serve", 0))
+        if self.retries or self.restarts:
+            out["fault_overhead"] = {"retries": self.retries,
+                                     "restarts": self.restarts}
+        if self.predicted_collectives is not None:
+            out["predicted_collectives"] = {
+                op: ("nonzero" if nz else "zero")
+                for op, nz in self.predicted_collectives}
+        if self.collectives is not None:
+            out["collectives"] = dict(self.collectives)
         return out
 
 
@@ -182,6 +272,10 @@ class Plan:
 
     deployment: str
     components: tuple[ComponentPlan, ...]
+    #: the declared faults' totals, ``simulate_overhead``'s prediction of
+    #: ``stats()``'s counters: sorted ``(("faults_injected", n),
+    #: ("recoveries", n), ("retries", n))``; ``()`` when no plan is armed
+    faults: tuple[tuple[str, int], ...] = ()
 
     def __post_init__(self):
         names = [c.name for c in self.components]
@@ -220,7 +314,14 @@ class Plan:
                 bits.append(f"mesh={c.mesh_devices}dev")
             if c.kind == "serving":
                 bits.append(f"requests={c.steps} swaps={c.swaps}")
+            if c.retries or c.restarts:
+                bits.append(f"retries={c.retries} restarts={c.restarts}")
             lines.append(f"  {c.name} [{c.kind}]: " + " ".join(bits))
+        if self.faults:
+            f = dict(self.faults)
+            lines.append(f"  faults: injected={f.get('faults_injected', 0)}"
+                         f" retries={f.get('retries', 0)}"
+                         f" recoveries={f.get('recoveries', 0)}")
         return "\n".join(lines)
 
     def explain(self) -> dict:
@@ -229,6 +330,8 @@ class Plan:
                "components": {c.name: c.explain() for c in self.components}}
         if self.model_swaps:
             out["model_swaps"] = self.model_swaps
+        if self.faults:
+            out["faults"] = dict(self.faults)
         return out
 
 

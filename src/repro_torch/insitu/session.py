@@ -19,9 +19,19 @@ vs mesh (``sharded_fused``, ``slab_sharded``) trainers, fused-registry vs
 three-step inference, continuous-batching vs three-step serving.  It
 predicts the store dispatches that ``result.server.stats()`` must show.
 A table that a slab-sharded trainer reads is created split over that
-trainer's mesh (``parallel.sharding.slab_sharding``).  Deployments other
-than ``None`` (``ROADMAP.md`` A5), an armed ``FaultPlan`` (A4) and
-``plan(hlo=True)`` (A6) raise.
+trainer's mesh (``parallel.sharding.slab_sharding``).
+
+``faults=`` arms a ``FaultPlan``: the producer survives crashes at
+declared steps or chunks (resuming from the table watermark), the
+trainer resumes from a ``MemoryCheckpoint`` parked after every epoch,
+the serving loop from its results watermark (``ServeLoop.recover``), and
+the store replays its write-ahead log after a declared restart.  The plan
+walks the same schedule through ``core.faults.simulate_overhead``, so its
+predicted retries, replay ops and restarts equal the run's counters.
+``plan(hlo=True)`` measures each trainer tier's collectives: the
+``parallel.collectives`` calls one epoch makes on a throwaway table
+placed like the live one.  Deployments other than ``None`` (``ROADMAP.md``
+A5) raise.
 """
 
 from __future__ import annotations
@@ -35,15 +45,18 @@ import torch
 
 from ..core import store as S
 from ..core.client import Client
-from ..core.faults import FaultPlan, InjectedCrash
+from ..core.faults import FaultPlan, InjectedCrash, simulate_overhead
 from ..core.orchestrator import InSituDriver, RunResult, StragglerPolicy
 from ..core.server import StoreServer
 from ..core.telemetry import block_until_ready
 from ..device import resolve_device
 from ..ml import autoencoder as ae
 from ..ml import trainer as tr
+from ..parallel import collectives as C
 from ..parallel.sharding import slab_sharding
 from ..serve.engine import ServeLoop, request_key, submitted_meta
+from ..train import optimizer as opt
+from ..train.checkpoint import MemoryCheckpoint
 from ..tree import tree_map
 from . import plan as P
 from .components import (InferenceConsumer, InferenceOutput, Producer,
@@ -79,6 +92,16 @@ class SessionResult:
         """Store dispatches attributed to one component (sequential runs)."""
         return self.run.components[name].op_delta
 
+    @property
+    def retries(self) -> int:
+        """Transient-fault verb retries absorbed across components."""
+        return sum(c.retries for c in self.run.components.values())
+
+    @property
+    def restarts(self) -> int:
+        """Crash restarts survived across components."""
+        return sum(c.restarts for c in self.run.components.values())
+
 
 class InSituSession:
     """Declarative in-situ coupling session (see module docstring)."""
@@ -94,11 +117,10 @@ class InSituSession:
             raise NotImplementedError(
                 "Colocated/Clustered deployments (the element-sharded "
                 "producer, the dedicated store mesh): ROADMAP.md A5")
-        if faults is not None:
-            raise NotImplementedError("armed FaultPlan: ROADMAP.md A4")
         self.tables = tuple(tables)
         self.deployment = None
         self.straggler = straggler
+        self.faults = faults
         self.device = resolve_device(device)
         self.components = self._normalize(components)
         table_names = {t.name for t in self.tables}
@@ -177,16 +199,32 @@ class InSituSession:
     # -- plan resolution ----------------------------------------------------
 
     def plan(self, hlo: bool = False) -> P.Plan:
-        """Resolve the frozen execution :class:`~.plan.Plan`."""
-        if hlo:
-            raise NotImplementedError(
-                "plan(hlo=True) collective accounting: ROADMAP.md A6")
+        """Resolve the frozen execution :class:`~.plan.Plan`.
+
+        With an armed ``FaultPlan`` the declared faults are walked through
+        ``simulate_overhead`` against the static schedule, and each
+        entry's replay ops, retries and restarts are merged in.
+        ``hlo=True`` also measures each trainer entry's collectives (one
+        epoch of its tier; see :meth:`_trainer_collectives`)."""
         entries: list[P.ComponentPlan] = []
+        #: the static component walk for the fault simulator, one dict per
+        #: entry in the sequential order the exactness claim covers
+        schedule: list[dict] = []
         first_trainer = True
         for comp in self.components:
             if isinstance(comp, Producer):
                 tier = P.producer_tier(comp)
                 chunk = comp.chunk or P.default_chunk(comp.emit_every)
+                if tier == "per_verb":
+                    schedule.append({
+                        "kind": "producer", "name": comp.name, "tier": tier,
+                        "table": comp.table, "steps": comp.steps,
+                        "emit_every": comp.emit_every, "ranks": comp.ranks})
+                else:
+                    schedule.append({
+                        "kind": "producer", "name": comp.name, "tier": tier,
+                        "table": comp.table, "overlap": False,
+                        "n_chunks": -(-comp.steps // chunk)})
                 entries.append(P.ComponentPlan(
                     name=comp.name, kind="producer", tier=tier,
                     table=comp.table, ranks=comp.ranks, steps=comp.steps,
@@ -198,21 +236,38 @@ class InSituSession:
             elif isinstance(comp, TrainerConsumer):
                 tier = P.trainer_tier(comp.cfg, comp.tier)
                 mesh = comp.cfg.mesh
+                schedule.append({
+                    "kind": "trainer", "name": comp.name, "tier": tier,
+                    "table": comp.cfg.table, "epochs": comp.cfg.epochs,
+                    "bootstrap": first_trainer})
                 entries.append(P.ComponentPlan(
                     name=comp.name, kind="trainer", tier=tier,
                     table=comp.cfg.table, steps=comp.cfg.epochs,
                     mesh_devices=1 if mesh is None else mesh.size,
                     dispatches=P.trainer_dispatches(
-                        tier, comp.cfg.epochs, bootstrap=first_trainer)))
+                        tier, comp.cfg.epochs, bootstrap=first_trainer),
+                    predicted_collectives=P.trainer_collective_prediction(
+                        tier, self._table_is_sharded(comp.cfg.table)),
+                    collectives=self._trainer_collectives(comp, tier)
+                    if hlo else None))
                 first_trainer = False
             elif isinstance(comp, InferenceConsumer):
                 tier = P.inference_tier(comp)
+                schedule.append({"kind": "inference", "name": comp.name,
+                                 "tier": tier, "steps": comp.steps})
                 entries.append(P.ComponentPlan(
                     name=comp.name, kind="inference", tier=tier,
                     steps=comp.steps,
                     dispatches=P.inference_dispatches(tier, comp.steps)))
             elif isinstance(comp, ServingClients):
                 total = comp.clients * comp.requests
+                schedule.append({
+                    "kind": "clients", "name": comp.name,
+                    "tier": "per_verb", "table": comp.table,
+                    "results": self._serving_results(comp.table)
+                    if comp.collect else None,
+                    "requests": total, "submit": comp.submit,
+                    "collect": comp.collect})
                 entries.append(P.ComponentPlan(
                     name=comp.name, kind="clients", tier="per_verb",
                     table=comp.table, steps=total,
@@ -221,13 +276,71 @@ class InSituSession:
             else:
                 total = comp.clients * comp.requests
                 tier = P.serving_tier(comp)
+                schedule.append({
+                    "kind": "serving", "name": comp.name, "tier": tier,
+                    "table": comp.table, "results": comp.results,
+                    "requests": total,
+                    "n_batches": -(-total // comp.max_batch)})
                 entries.append(P.ComponentPlan(
                     name=comp.name, kind="serving", tier=tier,
                     table=comp.table, steps=total,
                     dispatches=P.serving_dispatches(tier, total,
                                                     comp.max_batch),
                     swaps=P.serving_swaps(tier)))
-        return P.Plan(deployment="local", components=tuple(entries))
+        fault_totals: tuple[tuple[str, int], ...] = ()
+        if self.faults is not None:
+            # a FRESH injector driven through the runtime's call sequence:
+            # the predicted replays, retries and restarts are exact
+            per, totals = simulate_overhead(self.faults, schedule, False)
+            merged = []
+            for e in entries:
+                o = per.get(e.name)
+                if o is None or o.empty:
+                    merged.append(e)
+                    continue
+                merged.append(_dc_replace(
+                    e, dispatches=e.dispatches + (
+                        (("replay", o.extra_ops),) if o.extra_ops else ()),
+                    retries=o.retries, restarts=o.restarts))
+            entries = merged
+            fault_totals = tuple(sorted(totals.items()))
+        return P.Plan(deployment="local", components=tuple(entries),
+                      faults=fault_totals)
+
+    # -- collective accounting (plan(hlo=True)) -----------------------------
+
+    def _trainer_collectives(self, comp: TrainerConsumer, tier: str
+                             ) -> tuple[tuple[str, int], ...]:
+        """The collectives one epoch of ``tier`` makes, by the reference's
+        op names: ``parallel.collectives.COUNTS``' change over one epoch
+        from a fresh state on a throwaway table placed like the live one
+        (split over the slab-sharded trainer's mesh where the live one
+        is), with the off-clock warm-up's fixed draws.  The port's
+        counterpart of compiling the epoch and counting HLO ops."""
+        if tier == "per_verb":
+            return tuple((op, 0) for op in P.COLLECTIVE_OPS)
+        cfg = comp.cfg
+        spec = self._spec(cfg.table)
+        dev = self.device
+        levels = ae.coords_pyramid(cfg.ae,
+                                   torch.as_tensor(comp.coords).to(dev))
+        tx = opt.adam(cfg.scaled_lr)
+        state = tr.init_state(cfg, torch.Generator().manual_seed(cfg.seed),
+                              tx, dev)
+        epoch_fn = tr.EPOCH_BUILDERS[tier](cfg, levels, tx, spec)
+        table = S.init_table(spec, self._table_shardings().get(cfg.table),
+                             device=dev)
+        mu = torch.zeros(spec.shape[0], device=dev)
+        with C.counted() as calls:
+            block_until_ready(epoch_fn(table, state, tr._warm_draws(cfg, dev),
+                                       mu, mu + 1.0)[1])
+        return tuple((op, calls.get(op.replace("-", "_"), 0))
+                     for op in P.COLLECTIVE_OPS)
+
+    def _table_is_sharded(self, table: str) -> bool:
+        """Is ``table`` split over more than one rank?"""
+        placement = self._table_shardings().get(table)
+        return placement is not None and placement.mesh.size > 1
 
     def _spec(self, table: str) -> S.TableSpec:
         for t in self.tables:
@@ -275,7 +388,7 @@ class InSituSession:
         plan = plan or self.plan()
         driver = InSituDriver(tables=self.tables, straggler=self.straggler,
                               table_shardings=self._table_shardings(),
-                              device=self.device)
+                              faults=self.faults, device=self.device)
         if preload is not None:
             preload(driver.server)
         fns: dict[str, Callable] = {}
@@ -322,7 +435,7 @@ class InSituSession:
                 for t in range(comp.steps):
                     if stop.is_set():
                         break
-                    client.fault_point(entry.name, t)
+                    _survive_crash(client, entry.name, t, comp.table)
                     it0 = time.perf_counter()
                     emit = t % comp.emit_every == 0
                     with client.timers.time("equation_solution") as box:
@@ -359,7 +472,10 @@ class InSituSession:
             for base in range(0, comp.steps, chunk):
                 if stop.is_set():
                     break
-                client.fault_point(entry.name, base // chunk)
+                # crash point per chunk: the restarted producer resumes
+                # the t0 clock at the same chunk base
+                _survive_crash(client, entry.name, base // chunk,
+                               comp.table)
                 it0 = time.perf_counter()
                 k = min(chunk, comp.steps - base)
                 # the ring puts ride the solver steps (the fused tier):
@@ -408,10 +524,22 @@ class InSituSession:
                     if (epoch + 1) % comp.publish_every == 0:
                         client.set_model(comp.model_key, _encoder(
                             cfg.ae, pub_levels), st.params)
-            state, history, levels, stats = tr.insitu_train(
-                client, comp.coords, cfg, stop_event=stop,
-                on_epoch=on_epoch, tier=entry.tier, component=entry.name,
-                on_checkpoint=on_ckpt, draws=comp.draws)
+            # an armed FaultPlan parks the trainer's state, draws and
+            # history in the store after every epoch; a declared crash
+            # propagates out of insitu_train and the loop re-enters it
+            memckpt = MemoryCheckpoint(client.server, key=entry.name) \
+                if client.server.wal_enabled else None
+            while True:
+                last[0] = time.perf_counter()
+                try:
+                    state, history, levels, stats = tr.insitu_train(
+                        client, comp.coords, cfg, stop_event=stop,
+                        on_epoch=on_epoch, tier=entry.tier,
+                        memckpt=memckpt, component=entry.name,
+                        on_checkpoint=on_ckpt, draws=comp.draws)
+                    break
+                except InjectedCrash:
+                    client.restarts += 1
             if comp.model_key is not None:
                 client.set_model(comp.model_key, _encoder(cfg.ae, levels),
                                  state.params)
@@ -493,7 +621,7 @@ class InSituSession:
                     if stop.is_set():
                         break
                     s = next_seq[c]
-                    client.fault_point(entry.name, i)
+                    _survive_crash(client, entry.name, i, comp.table)
                     value = comp.feed(c, s)
                     client.put_kv(comp.table, request_key(c, s), value)
                     # make the request visible: a host metadata write
@@ -540,6 +668,21 @@ class InSituSession:
             return ServingOutput(steps=loop.served, batches=loop.batches,
                                  swaps=loop.swaps)
         return fn
+
+
+def _survive_crash(client: Client, name: str, idx: int, table: str) -> None:
+    """A producer's (or submitting client's) crash point: a declared crash
+    kills the attempt before anything is dispatched, the restarted
+    component reads the table watermark (its recovery cursor, a host
+    counter: no store op) and retries the same index, which the injector
+    now lets pass (each declared crash fires once)."""
+    while True:
+        try:
+            client.fault_point(name, idx)
+            return
+        except InjectedCrash:
+            client.restarts += 1
+            client.watermark(table)
 
 
 def _encoder(cfg: ae.AEConfig, levels) -> Callable:

@@ -17,15 +17,23 @@ and at the config's full width; ``--smoke`` takes the reduced
 same-family config (the reference's launcher defaults to it and takes
 ``--full`` for the other).  ``attn_impl`` overrides the config's
 attention plan (``"flash"``: the hand-written forward and backward
-kernels).  Durable checkpoints (``--ckpt-dir``, ``--ckpt-every``,
-``--resume``, ``train/checkpoint.py``) are ``ROADMAP.md`` A4: as in the
-reference, ``ckpt_every`` is read only with a ``ckpt_dir``; vision and
-encoder-decoder models are A7.
+kernels).  Vision and encoder-decoder models are ``ROADMAP.md`` A7.
+
+Durable checkpoints go through ``train.checkpoint.Checkpointer``, in the
+reference's on-disk layout: with ``--ckpt-dir`` the state is saved every
+``--ckpt-every`` steps and after the last one (the three newest kept);
+``ckpt_every`` is read only with a ``ckpt_dir``, as in the reference.
+``--resume`` restores the latest checkpoint there.  Unlike the
+reference, whose loop and token stream start again at 0 after a resume,
+a resumed run continues at the restored step up to ``--steps`` in all,
+past the token stream's consumed batches, so its steps are bit for bit
+the uninterrupted run's.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 from dataclasses import replace
 from typing import NamedTuple
@@ -37,6 +45,7 @@ from ..configs.registry import get_config, get_smoke_config
 from ..core import Client, StoreServer, TableSpec
 from ..data.pipeline import PrefetchIterator, TokenStream
 from ..device import resolve_device
+from ..train import checkpoint as ckpt
 from ..train.train_state import TrainState, init_train_state, make_tx
 from .steps import make_train_step, model_specs
 
@@ -50,6 +59,7 @@ class TrainRun(NamedTuple):
     step_s: list[float]            # wall time of each step (synchronised)
     tokens_per_s: float            # over the steps run, their wall time
     server: StoreServer | None     # the capture store, with --capture
+    start: int = 0                 # the first step run (> 0 on a resume)
 
 
 def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
@@ -57,10 +67,6 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
         log_every: int = 10, straggler_factor: float = 3.0, device=None,
         attn_impl: str | None = None, ckpt_dir: str | None = None,
         ckpt_every: int = 20, resume: bool = False) -> TrainRun:
-    if ckpt_dir or resume:
-        raise NotImplementedError(
-            f"durable checkpoints (--ckpt-dir, --ckpt-every {ckpt_every}, "
-            f"--resume; train/checkpoint.py) are ROADMAP.md A4")
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if attn_impl is not None:
@@ -73,6 +79,14 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
     state = init_train_state(torch.Generator(device=dev).manual_seed(seed),
                              cfg, specs, tx, device=dev)
 
+    checkpointer, start = None, 0
+    if ckpt_dir:
+        checkpointer = ckpt.Checkpointer(ckpt_dir, interval_steps=ckpt_every)
+        if resume and ckpt.latest_step(ckpt_dir) is not None:
+            state = ckpt.restore(ckpt_dir, state)
+            start = int(state.step)
+            print(f"resumed from step {start}")
+
     server = client = None
     if capture:
         server = StoreServer(device=dev)
@@ -82,14 +96,15 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
         client = Client(server)
 
     step_fn = make_train_step(cfg)
-    stream = PrefetchIterator(iter(TokenStream(cfg.vocab, batch, seq_len,
-                                               seed=seed)),
-                              buffer_size=2, device=dev)
+    # a resumed run skips the batches its restored steps consumed
+    stream = PrefetchIterator(itertools.islice(
+        iter(TokenStream(cfg.vocab, batch, seq_len, seed=seed)), start,
+        None), buffer_size=2, device=dev)
     times: list[float] = []
     losses: list[float] = []
     norms: list[float] = []
     try:
-        for i, batch_dev in zip(range(steps), stream):
+        for i, batch_dev in zip(range(start, steps), stream):
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch_dev)
             losses.append(float(metrics["loss"]))    # waits for the step
@@ -104,16 +119,26 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
             if capture and i % 4 == 0:
                 client.send_step("hidden", i, torch.zeros(
                     (batch, cfg.d_model), device=dev))
+            if checkpointer is not None:
+                checkpointer.maybe_save(i + 1, state)
             if i % log_every == 0:
                 print(f"step {i:5d} loss {losses[-1]:.4f} "
                       f"ce {float(metrics['ce']):.4f} {dt*1e3:.0f}ms")
     finally:
         stream.close()
+    if checkpointer is not None:
+        checkpointer.maybe_save(steps, state, force=True)
+        checkpointer.wait()
+        if checkpointer.errors:
+            raise RuntimeError(f"checkpoint writes failed: "
+                               f"{checkpointer.errors}")
     wall = sum(times)
-    print(f"done: {len(times)} steps in {wall:.1f}s; loss {losses[0]:.3f}"
-          f" -> {losses[-1]:.3f}")
+    if times:
+        print(f"done: {len(times)} steps in {wall:.1f}s; loss "
+              f"{losses[0]:.3f} -> {losses[-1]:.3f}")
     return TrainRun(state, losses, norms, times,
-                    len(times) * batch * seq_len / wall, server)
+                    len(times) * batch * seq_len / wall if times else 0.0,
+                    server, start)
 
 
 def main() -> None:
@@ -130,9 +155,15 @@ def main() -> None:
     ap.add_argument("--capture", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=20)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save durable checkpoints here (train/checkpoint.py;"
+                         " the three newest are kept)")
+    ap.add_argument("--ckpt-every", type=int, default=20,
+                    help="steps between saves (with --ckpt-dir; the last "
+                         "step is always saved)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --ckpt-dir,"
+                         " up to --steps in all")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
     args = ap.parse_args()

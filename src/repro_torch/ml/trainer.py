@@ -38,9 +38,13 @@ Differences from the reference, all deliberate:
   updates the one it was given, so the off-clock warm-up on an empty
   table (the reference's compile warm-up, here cuBLAS and allocator
   set-up, timed as ``warmup``) leaves the model untouched.
-* ``ddp="int8"``, the clustered tier (``db_mesh``) and crash recovery
-  (``memckpt``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
-  item.
+* **Crash recovery.**  The reference checkpoints its rng key; the port
+  checkpoints its draw stream's cursor: ``memckpt`` parks ``{"state",
+  "draws", "history"}``, where ``draws`` is the run's epoch-draw
+  iterator, positioned at the next epoch, so a resumed run takes the
+  same draws from the same epoch.
+* ``ddp="int8"`` and the clustered tier (``db_mesh``) raise
+  ``NotImplementedError`` naming ``ROADMAP.md`` A5.
 """
 
 from __future__ import annotations
@@ -468,11 +472,17 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
     ``on_checkpoint(epoch, state)`` fires at the end of every epoch (the
     hot-swap publication hook); ``component`` names the declared crash
     point each epoch opens with.
+
+    Fault tolerance: ``memckpt`` (a ``train.checkpoint.MemoryCheckpoint``)
+    parks ``{"state", "draws", "history"}`` in the server's
+    metadata after the norm-stats bootstrap and after every epoch.  A
+    crashed trainer re-entering this function resumes at the first
+    unfinished epoch with the same state and the draw iterator where it
+    stopped (the crash point opens an epoch, before its draws are taken),
+    so its final state is bit-identical to an uncrashed run's.  The
+    resumed run skips the wait, the bootstrap and the warm-up, and the
+    checkpoints are host metadata: no store op is added.
     """
-    if memckpt is not None:
-        raise NotImplementedError(
-            "insitu_train(memckpt=...): MemoryCheckpoint recovery is "
-            "ROADMAP.md A4")
     if tier is None:
         from ..insitu.plan import trainer_tier
         tier = trainer_tier(cfg)
@@ -482,45 +492,63 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
     dev = client.server.device
     levels = ae.coords_pyramid(cfg.ae, torch.as_tensor(coords).to(dev))
     tx = opt.adam(cfg.scaled_lr)
-    if state is None:
+    resumed = memckpt.restore() if memckpt is not None else None
+    if state is None and resumed is None:
         state = init_state(cfg, torch.Generator().manual_seed(cfg.seed), tx,
                            dev)
     spec = client.server.spec(cfg.table)
     epoch_fn = EPOCH_BUILDERS[tier](cfg, levels, tx, spec)
     fused = tier != "per_verb"
-    if draws is None:
-        draws = default_draws(cfg, dev)
-    epoch_draws = iter(draws.epochs)
     history: list[EpochResult] = []
+    start_epoch = 0
 
-    # Paper: "the ML workload must query the database multiple times while
-    # waiting for the first training snapshot".
-    client.wait_for_data(cfg.table, minimum=cfg.min_snapshots,
-                         timeout=cfg.wait_timeout_s)
-    mu_sd = client.get_metadata("norm_stats")
-    if mu_sd is None:
-        first, _, _ok = client.sample_batch(cfg.table, cfg.gather,
-                                            draws.bootstrap)
-        mu_sd = _standardize_stats(first.transpose(1, 2))
-        client.put_metadata("norm_stats", mu_sd)
-    mu, sd = (t.to(dev) for t in mu_sd)
+    if resumed is not None:
+        # crash recovery: the first unfinished epoch, the same draws;
+        # the norm stats were published before the first checkpoint
+        saved_epoch, payload = resumed
+        state, epoch_draws = payload["state"], payload["draws"]
+        history = list(payload["history"])
+        start_epoch = saved_epoch + 1
+        mu, sd = (t.to(dev) for t in client.get_metadata("norm_stats"))
+    else:
+        if draws is None:
+            draws = default_draws(cfg, dev)
+        epoch_draws = iter(draws.epochs)
+        # Paper: "the ML workload must query the database multiple times
+        # while waiting for the first training snapshot".
+        client.wait_for_data(cfg.table, minimum=cfg.min_snapshots,
+                             timeout=cfg.wait_timeout_s)
+        mu_sd = client.get_metadata("norm_stats")
+        if mu_sd is None:
+            first, _, _ok = client.sample_batch(cfg.table, cfg.gather,
+                                                draws.bootstrap)
+            mu_sd = _standardize_stats(first.transpose(1, 2))
+            client.put_metadata("norm_stats", mu_sd)
+        mu, sd = (t.to(dev) for t in mu_sd)
 
-    with client.timers.time("warmup"):
-        if fused:
-            # the slab-sharded tier warms up on a table placed like its own
-            placement = slab_sharding(spec, cfg.mesh) \
-                if tier == "slab_sharded" else None
-            table = S.init_table(spec, placement, device=dev)
-            block_until_ready(epoch_fn(table, state, _warm_draws(cfg, dev),
-                                       mu, sd)[1])
-        else:
-            epoch_fn.warmup(state, mu, sd)
+        with client.timers.time("warmup"):
+            if fused:
+                # the slab-sharded tier warms up on a table placed like
+                # its own
+                placement = slab_sharding(spec, cfg.mesh) \
+                    if tier == "slab_sharded" else None
+                table = S.init_table(spec, placement, device=dev)
+                block_until_ready(epoch_fn(table, state,
+                                           _warm_draws(cfg, dev), mu, sd)[1])
+            else:
+                epoch_fn.warmup(state, mu, sd)
+        if memckpt is not None:
+            # the anchor: a crash at epoch 0 resumes here, not at the
+            # bootstrap (which would cost another sample op)
+            memckpt.save(-1, {"state": state, "draws": epoch_draws,
+                              "history": []})
 
     epoch_timer_start = time.perf_counter()
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         if stop_event is not None and stop_event.is_set():
             break
         if component is not None:
+            # before the draws are taken: a restarted epoch takes them
             client.fault_point(component, epoch)
         ep_draws = next(epoch_draws)
         if fused:
@@ -541,6 +569,9 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
         history.append(res)
         if on_epoch is not None:
             on_epoch(res)
+        if memckpt is not None:
+            memckpt.save(epoch, {"state": state, "draws": epoch_draws,
+                                 "history": list(history)})
         if on_checkpoint is not None:
             on_checkpoint(epoch, state)
     client.timers.record("total_training",

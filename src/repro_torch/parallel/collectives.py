@@ -9,21 +9,24 @@ holds the same bits.  Where ranks sit on different devices the sum is
 taken on rank 0's device and then copied to the others.
 
 ``COUNTS`` counts the calls by kind (``all_reduce``, ``all_gather``), a
-tree reduced in one ``psum`` counting once — the hook for the
-collective accounting of ``plan(hlo=True)`` (``ROADMAP.md`` A6).
+tree reduced in one ``psum`` counting once; :func:`counted` gives the
+calls a block makes, which ``InSituSession.plan(hlo=True)`` reads for one
+epoch of each trainer tier (the port's counterpart of counting the
+collectives in compiled HLO).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import torch
 
 from ..tree import tree_map
 from .sharding import Mesh
 
-__all__ = ["psum", "all_gather", "COUNTS", "reset_counts"]
+__all__ = ["psum", "all_gather", "COUNTS", "reset_counts", "counted"]
 
 #: calls so far, by kind
 COUNTS = {"all_reduce": 0, "all_gather": 0}
@@ -34,6 +37,21 @@ def reset_counts() -> None:
     with _lock:
         for k in COUNTS:
             COUNTS[k] = 0
+
+
+@contextlib.contextmanager
+def counted() -> Iterator[dict]:
+    """Yield a dict that, once the block exits, holds the calls of each
+    kind made inside it (``COUNTS``' change; calls from other threads in
+    the meantime count too)."""
+    with _lock:
+        before = dict(COUNTS)
+    calls: dict = {}
+    try:
+        yield calls
+    finally:
+        with _lock:
+            calls.update({k: COUNTS[k] - before[k] for k in COUNTS})
 
 
 def _count(kind: str) -> None:

@@ -352,10 +352,12 @@ def test_prefetch_raises_what_its_thread_raised():
         pre.close()
 
 
-def test_launcher_runs_on_the_cpu(monkeypatch):
+def test_launcher_runs_on_the_cpu(monkeypatch, tmp_path):
     """``launch.train.run`` at the smoke config: three steps, capture on;
     the params stay in the reference's layout and dtype.  Without a card
-    and without a device it raises; checkpoints raise naming A4."""
+    and without a device it raises; with ``ckpt_dir`` it saves the last
+    step, ``ckpt_every`` apart (``tests/test_torch_checkpoint.py`` holds
+    the resume)."""
     res = ttrain.run(PHI4, steps=3, batch=2, seq_len=32, smoke=True,
                      capture=True, device="cpu", log_every=1)
     assert len(res.losses) == len(res.grad_norms) == len(res.step_s) == 3
@@ -371,11 +373,9 @@ def test_launcher_runs_on_the_cpu(monkeypatch):
     got = _flat(res.state.params)
     assert {k: v.shape for k, v in got.items()} == spec_shapes
     assert {p.dtype for p in tree_leaves(res.state.params)} == {cfg.dtype}
-    with pytest.raises(NotImplementedError, match="A4"):
-        ttrain.run(PHI4, steps=1, smoke=True, device="cpu", ckpt_dir="x")
-    with pytest.raises(NotImplementedError, match="A4"):
-        ttrain.run(PHI4, steps=1, smoke=True, device="cpu", ckpt_dir="x",
-                   ckpt_every=5)
+    ttrain.run(PHI4, steps=1, batch=2, seq_len=32, smoke=True,
+               device="cpu", ckpt_dir=str(tmp_path), ckpt_every=5)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_0000000001"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.run(PHI4, steps=1, smoke=True)
