@@ -65,6 +65,23 @@ Phases, each printing one line (or a few):
    log's last entry cut must leave a different table;
 9. launch — ``repro_torch.launch.insitu.run(points="medium", epochs=4,
    sim_steps=40)``, the launcher a user calls;
+9a. spectral — the pseudo-spectral Navier-Stokes solver
+   (``repro_torch.sim.spectral`` on cuFFT) alone at 512³, the grid a DNS
+   user runs on one 80 GB card (ν = 1e-3, dt = 1e-3, forcing on, from
+   ``random_turbulence``): ``step`` and ``snapshot`` by CUDA events
+   beside their bytes bound (``spectral_bytes``), the peak memory,
+   ``max_divergence`` and one profiled step; the 2-D Taylor-Green decay at 512³ within 1e-5 of
+   E₀·e^{-4νt} (a viscosity-free control must fail it); the 3-D
+   Taylor-Green vortex's divergence after 10 steps at 512³ under the
+   reference test's 1e-10 (steps without the final projection must fail
+   it), the reference's own 16³ case read beside it; one step and a
+   snapshot at 32³ on the card within 1e-5
+   of the CPU's (the card's step with the forcing off must fail it);
+9b. insitu spectral — ``launch.insitu.run(producer="spectral",
+   points="medium", epochs=8, sim_steps=40)``: plan == ``stats()``, the
+   sample, gather and QuadConv launches equal to phase 8's session's,
+   finite losses, the overhead table's ``equation_solution``, ``send``
+   and ``retrieve`` means;
 10. lm phi4 — LM serving at Phi-4-mini's full width (32 layers, d_model
    3072, GQA 24/8, vocab 200,064) in bf16 with random seeded weights:
    ``greedy_generate`` of 32 tokens after a 2,048-token prompt at B = 4
@@ -107,7 +124,16 @@ Phases, each printing one line (or a few):
    of the FMA forward, dq or dk/dv, finite losses and gradient norms, bf16
    params in the reference's layout; its step time, tokens/s, peak memory
    and, from one profiled step, each attention kernel's share of the
-   device time and the device's idle share;
+   device time and the device's idle share; (d) ``[checkpoint full]``:
+   that launcher's full-width train state through one
+   ``Checkpointer.maybe_save`` (staged leaf by leaf into a pinned host
+   arena, written in the background): the call, the copies and the write
+   timed, the staging alone again beside its PCIe bound, the card's peak
+   memory within the largest leaf of where it started and of the step's
+   own peak, the files equal to the live state on the host; one more
+   step, after which the state must differ from the files (the control);
+   an in-place ``restore`` with a level peak, every leaf then equal to
+   its file bit for bit;
 14. sharded — the slab-sharded data plane: (a) the sharded gather kernel
    against its plain version, exactly, on the training table [24, 4,
    2048] fp32 split into D = 2 and D = 4 shards with slots on every shard;
@@ -175,7 +201,8 @@ in host enqueue.
 Then one JSON line with every kernel's numbers (the probe's and the
 gather's rows carry the reproducer's shapes, with their launches there,
 under ``"reproducer"``; the store and QuadConv rows' ``launches_by_path``
-add the faulted chaos runs), the ``nvidia-smi`` line,
+add the faulted chaos runs and the spectral session), the ``nvidia-smi``
+line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 raises and the script exits non-zero; without a CUDA device it exits 1
 before doing anything.
@@ -197,6 +224,7 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32, outside the tensor cores
 PEAK_BF16_FLOPS = 989e12        # H100 SXM bf16 tensor cores, dense
+PCIE_BYTES_PER_S = 64e9         # PCIe 5.0 x16, one direction (host link)
 SEED = 0
 CLIENTS, REQUESTS, MAX_BATCH = 4, 8, 8
 # the training slice (paper §4, reference launcher's "medium" grid)
@@ -239,6 +267,20 @@ FIG4_SIZES = (16 << 10, 64 << 10, 256 << 10, 1 << 20, 4 << 20, 16 << 20)
 FIG7_BATCHES = (1, 4, 16)
 RESNET_CARD_RTOL = 1e-4
 INFER_BATCH, INFER_STEPS = 2, 5
+# the spectral solver alone on the card: the grid a DNS user runs on one
+# 80 GB card, with nu and dt inside explicit RK4's limit
+# (nu * k2max * dt = 0.197 < 2.78 at k2max = 3 * 256**2)
+SPECTRAL_N, SPECTRAL_NU, SPECTRAL_DT, SPECTRAL_STEPS = 512, 1e-3, 1e-3, 5
+# the 2-D Taylor-Green decay at 512^3 (nu * k2max * dt = 1.97) within the
+# reference test's 1e-5; the 3-D Taylor-Green vortex's divergence after 10
+# steps at 512^3 within the reference test's 1e-10 (its own 16^3 case is
+# read, not held: cuFFT leaves that float32 field at ~1.3e-10, PERF.md);
+# one step on the card against the CPU's at 32^3 (cuFFT against
+# pocketfft) within the port-vs-reference one-step limit
+# (tests/test_torch_spectral.py)
+TG_NU, TG_STEPS, TG_RTOL = 1e-2, 10, 1e-5
+DIV_LIMIT, DIV_REFERENCE_CASE = 1e-10, dict(n=16, nu=0.05, dt=0.01)
+CARD_CPU_N, CARD_CPU_RTOL = 32, 1e-5
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1151,6 +1193,363 @@ def checkpoint_phase(dev) -> dict:
             "restore_ms": restore_ms, "uninterrupted_run_s": full_s}
 
 
+def spectral_bytes(n: int) -> tuple[int, int]:
+    """Bytes one RK4 ``step`` and one ``snapshot`` of the spectral solver
+    must move at ``n³``: each FFT's input read once and output written
+    once, and each elementwise pass between them reading its inputs once
+    and writing its output once (R: one real fp32 field, C: one complex64
+    half-spectrum field).  One right-hand side: irfft û (3C → 3R), the
+    curl (3C → 3C), irfft ω̂ (3C → 3R), u × ω (6R → 3R), rfft (3R → 3C),
+    dealias + projection + viscous + forcing (6C → 3C): 24C + 18R.  A
+    step: four of them, three stage inputs (6C → 3C each), the RK4 sum
+    (15C → 3C) and the final projection (3C → 3C).  A snapshot: irfft û
+    (3C → 3R), nine products uᵢuⱼ (2R → R each), nine rffts (R → C each),
+    the sum of kᵢkⱼ ûᵢⱼ (9C → C), the Poisson solve (C → C), irfft p̂
+    (C → R) and the [4, n³] stack (4R → 4R)."""
+    r = 4 * n ** 3
+    c = 8 * n * n * (n // 2 + 1)
+    rhs = 24 * c + 18 * r
+    step = 4 * rhs + 3 * 9 * c + 18 * c + 6 * c
+    snap = (3 * c + 3 * r) + 27 * r + 9 * (r + c) + 10 * c + 2 * c \
+        + (c + r) + 8 * r
+    return step, snap
+
+
+def unprojected_step(sp, cfg, state):
+    """``spectral.step`` without its final Leray projection: the control
+    the divergence limit must catch."""
+    h = cfg.dt
+    u0 = state.uhat
+    k1 = sp._rhs(cfg, u0)
+    k2 = sp._rhs(cfg, u0 + 0.5 * h * k1)
+    k3 = sp._rhs(cfg, u0 + 0.5 * h * k2)
+    k4 = sp._rhs(cfg, u0 + h * k3)
+    return sp.NSState(u0 + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4),
+                      state.t + h, state.step + 1)
+
+
+def spectral_phase(dev) -> dict:
+    """The pseudo-spectral solver alone on the card: (a) a forced box at
+    ``SPECTRAL_N³`` from ``random_turbulence`` (noise from a seeded
+    generator on the card), ``step`` and ``snapshot`` timed by CUDA events
+    beside their bytes bound, the peak memory and ``max_divergence``; (b)
+    the 2-D Taylor-Green vortex at the same grid decaying as
+    E₀·e^{-4νt} within ``TG_RTOL``, and, as a control that must fail, the
+    same steps with the viscosity dropped; (c) the 3-D Taylor-Green
+    vortex's divergence after 10 steps at the same grid within the
+    reference test's ``DIV_LIMIT``, and, as a control that must fail, the
+    steps without their final projection (the reference test's own 16³
+    case is read beside it); (d) one step and a
+    snapshot on the card against the CPU's at ``CARD_CPU_N³`` within
+    ``CARD_CPU_RTOL``, and, as a control that must fail, the card's step
+    with the forcing off."""
+    from repro_torch.sim import spectral as sp
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    # (a) the DNS grid
+    cfg = sp.NSConfig(n=SPECTRAL_N, nu=SPECTRAL_NU, dt=SPECTRAL_DT,
+                      forcing=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = sp.random_turbulence(cfg, sp.draw_noise(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
+    e0 = float(sp.energy(cfg, state))
+    state = sp.step(cfg, state)                 # warm-up: cuFFT plans
+    snap = sp.snapshot(cfg, state)
+    del snap
+    start, end = events()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(SPECTRAL_STEPS):
+        state = sp.step(cfg, state)
+    end.record()
+    torch.cuda.synchronize()
+    step_wall_ms = (time.perf_counter() - t0) * 1e3 / SPECTRAL_STEPS
+    step_ms = start.elapsed_time(end) / SPECTRAL_STEPS
+    start, end = events()
+    start.record()
+    for _ in range(3):
+        snap = sp.snapshot(cfg, state)
+    end.record()
+    torch.cuda.synchronize()
+    snap_ms = start.elapsed_time(end) / 3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    e1 = float(sp.energy(cfg, state))
+    div = float(sp.max_divergence(cfg, state))
+    if snap.shape != (4, cfg.n_points) or not bool(
+            torch.isfinite(snap).all()) or not (math.isfinite(e1) and e1 > 0):
+        raise AssertionError(f"spectral {cfg.n}^3: snapshot {snap.shape}, "
+                             f"energy {e0} -> {e1}")
+    del snap
+    step_profile = profile(lambda: sp.step(cfg, state), top=8)
+    del state
+    torch.cuda.empty_cache()
+    step_bytes, snap_bytes = spectral_bytes(cfg.n)
+    step_bound, _ = bound(step_bytes)
+    snap_bound, _ = bound(snap_bytes)
+
+    # (b) the exact 2-D Taylor-Green decay, and a viscosity-free control
+    tg = replace(cfg, nu=TG_NU, forcing=False)
+
+    def tg_error(step_cfg) -> float:
+        st = sp.taylor_green_2d(tg, device=dev)
+        first = float(sp.energy(tg, st))
+        for _ in range(TG_STEPS):
+            st = sp.step(step_cfg, st)
+        want = first * math.exp(-4 * tg.nu * float(st.t))
+        return abs(float(sp.energy(tg, st)) - want) / want
+
+    tg_err, tg_control = tg_error(tg), tg_error(replace(tg, nu=0.0))
+    torch.cuda.empty_cache()
+
+    # (c) the reference test's divergence check at the DNS grid, and an
+    # unprojected control; the reference's own 16^3 case read beside it
+    def divergence(dcfg, step_fn) -> float:
+        st = sp.taylor_green(dcfg, device=dev)
+        for _ in range(10):
+            st = step_fn(dcfg, st)
+        return float(sp.max_divergence(dcfg, st))
+
+    dcfg = replace(cfg, forcing=False)
+    div_tg = divergence(dcfg, sp.step)
+    div_control = divergence(dcfg,
+                             lambda c, st: unprojected_step(sp, c, st))
+    div_16 = divergence(sp.NSConfig(**DIV_REFERENCE_CASE), sp.step)
+    torch.cuda.empty_cache()
+
+    # (d) the card's step against the CPU's, and a forcing-off control
+    ccfg = sp.NSConfig(n=CARD_CPU_N, nu=0.02, dt=0.01, forcing=True)
+    noise = sp.draw_noise(ccfg, torch.Generator().manual_seed(SEED), "cpu")
+    cpu0 = sp.random_turbulence(ccfg, noise)
+    card0 = sp.random_turbulence(ccfg, noise.to(dev))
+    cpu1, card1 = sp.step(ccfg, cpu0), sp.step(ccfg, card0)
+    scale = float(cpu1.uhat.abs().max())
+    card_err = float((card1.uhat.cpu() - cpu1.uhat).abs().max()) / scale
+    snap_cpu = sp.snapshot(ccfg, cpu1)
+    snap_err = float((sp.snapshot(ccfg, card1).cpu() - snap_cpu).abs().max()
+                     ) / float(snap_cpu.abs().max())
+    unforced = sp.step(replace(ccfg, forcing=False), card0)
+    card_control = float((unforced.uhat.cpu() - cpu1.uhat).abs().max()) \
+        / scale
+
+    line = {"n": cfg.n, "nu": cfg.nu, "dt": cfg.dt, "forcing": cfg.forcing,
+            "nu_k2max_dt": cfg.nu * 3 * (cfg.n // 2) ** 2 * cfg.dt,
+            "step_ms": step_ms, "step_wall_ms": step_wall_ms,
+            "step_bound_ms": step_bound, "step_bytes": step_bytes,
+            "step_share_of_bound": step_bound / step_ms,
+            "snapshot_ms": snap_ms, "snapshot_bound_ms": snap_bound,
+            "snapshot_bytes": snap_bytes,
+            "snapshot_share_of_bound": snap_bound / snap_ms,
+            "bound_by": "bytes", "peak_mem_gb": peak_gb,
+            "energy_start": e0, "energy_after": e1,
+            "steps_run": SPECTRAL_STEPS + 1, "max_divergence": div,
+            "step_profile": step_profile,
+            "tg2d": {"nu": tg.nu, "steps": TG_STEPS, "rel_err": tg_err,
+                     "limit": TG_RTOL, "control_nu0_rel_err": tg_control},
+            "divergence": {"start": "taylor_green", "n": dcfg.n,
+                           "steps": 10, "max_divergence": div_tg,
+                           "limit": DIV_LIMIT,
+                           "control_unprojected": div_control,
+                           "reference_case": DIV_REFERENCE_CASE,
+                           "reference_case_max_divergence": div_16},
+            "card_vs_cpu": {"n": ccfg.n, "step_rel_err": card_err,
+                            "snapshot_rel_err": snap_err,
+                            "limit": CARD_CPU_RTOL,
+                            "control_unforced_rel_err": card_control}}
+    if not (tg_err <= TG_RTOL < tg_control):
+        raise AssertionError(f"Taylor-Green decay: {line['tg2d']}")
+    if not (div_tg < DIV_LIMIT <= div_control):
+        raise AssertionError(f"divergence: {line['divergence']}")
+    if not (max(card_err, snap_err) <= CARD_CPU_RTOL < card_control):
+        raise AssertionError(f"card vs CPU: {line['card_vs_cpu']}")
+    return line
+
+
+def insitu_spectral_phase(dev, counters, want: dict) -> dict:
+    """``launch.insitu.run(producer="spectral", points="medium",
+    epochs=EPOCHS, sim_steps=SIM_STEPS)`` on the card: the plan's
+    dispatches equal ``stats()``, the sample, gather and QuadConv launches
+    equal phase 8's session's (``want``: the same trainer and inference
+    schedule), the losses are finite; the overhead table's means."""
+    from repro_torch.launch import insitu as launcher
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = launcher.run(producer="spectral", points="medium", epochs=EPOCHS,
+                       sim_steps=SIM_STEPS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in counters}
+    stats = res.server.stats()
+    history = res.output("trainer").history
+    losses = [x for r in history
+              for x in (r.train_loss, r.val_loss, r.val_rel_error)]
+    paths = ("sample_slots", "gather_rows", "quadconv_contract")
+    if stats["op_count"] != res.plan.store_dispatches:
+        raise AssertionError(f"spectral session: plan {res.plan.explain()}"
+                             f" != stats {stats}")
+    if any(launches[s] != want[s] for s in paths):
+        raise AssertionError(f"spectral session launches {launches}, "
+                             f"phase 8's {want}")
+    if len(history) != EPOCHS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"spectral session losses {history}")
+    timers = res.timers
+    return {"producer": "spectral", "points": "medium", "epochs": EPOCHS,
+            "sim_steps": SIM_STEPS, "wall_s": wall,
+            "predicted_dispatches": res.plan.store_dispatches,
+            "op_count": stats["op_count"], "launches": launches,
+            "train_loss": [r.train_loss for r in history],
+            "val_loss": [r.val_loss for r in history],
+            "mean_ms": {k: (timers.mean(k) or 0.0) * 1e3 for k in
+                        ("equation_solution", "send", "retrieve")},
+            "count": {k: timers.summary()[k]["count"] for k in
+                      ("equation_solution", "send", "retrieve")}}
+
+
+_INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers of its width (floats compared bit for
+    bit: -0.0 and NaN payloads included)."""
+    return t.view(_INT_OF_WIDTH[t.element_size()]) \
+        if t.dtype.is_floating_point else t
+
+
+def file_bits(path: Path) -> torch.Tensor:
+    import numpy as np
+    arr = np.load(path)
+    if arr.dtype.kind not in "iub":
+        arr = arr.view(f"<i{arr.dtype.itemsize}")
+    return torch.from_numpy(arr)
+
+
+def checkpoint_full(dev, state, one_step, step_peak: int) -> dict:
+    """A durable checkpoint of the full-width Phi-4-mini train state the
+    training phase holds (no second state is built): one
+    ``Checkpointer.maybe_save(force=True)`` into a temporary directory,
+    timed (the call, which pins the host arena on a first save; the
+    copies' landing; the write), then the staging alone once more on the
+    pinned arena (CUDA events, beside its PCIe bound); the card's peak
+    memory through both, within the largest leaf of where it started and
+    of the training step's own peak; the files equal to the live state
+    leaf by leaf, compared on the host; one more training step, after
+    which (the control) the state must differ from the files; an in-place
+    ``restore``, whose peak must stay level, and the restored leaves
+    equal to the files bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.train import checkpoint as ckpt
+    leaves = [(k, t) for k, t in ckpt._flatten_with_paths(state)
+              if isinstance(t, torch.Tensor)]
+    sizes = [t.numel() * t.element_size() for _, t in leaves]
+    state_bytes, largest = sum(sizes), max(sizes)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_full_"))
+    with open("/proc/meminfo") as f:
+        mem_avail = int(next(x for x in f if x.startswith("MemAvailable"))
+                        .split()[1]) * 1024
+    free_disk = shutil.disk_usage(root).free
+    if free_disk < 1.05 * state_bytes or mem_avail < 1.2 * state_bytes:
+        shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError(f"checkpoint full: {state_bytes} B of state, "
+                             f"{free_disk} B of disk, {mem_avail} B of host "
+                             f"memory free")
+    try:
+        ck = ckpt.Checkpointer(root, interval_steps=0, keep=1)
+        step = int(state.step)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        ck.maybe_save(step, state, force=True)
+        call_s = time.perf_counter() - t0
+        ck._stage.wait()
+        landed_s = time.perf_counter() - t0
+        ck.wait()
+        write_s = time.perf_counter() - t0 - call_s
+        if ck.errors or ck.saves != 1:
+            raise AssertionError(f"checkpoint full: {ck.errors}")
+        # the staging alone, steady state: the arena pinned already
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        ck._stage.stage(state)
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        copy_ms = start.elapsed_time(end)
+        save_peak = torch.cuda.max_memory_allocated()
+        arena_bytes = ck._stage.nbytes
+        ck.close()
+        if not (save_peak - base <= largest
+                and save_peak <= step_peak + largest):
+            raise AssertionError(f"checkpoint full: peak {save_peak} from "
+                                 f"{base} (step peak {step_peak}, largest "
+                                 f"leaf {largest})")
+        # the files against the live state, on the host
+        path = root / f"step_{step:010d}"
+        manifest = json.loads((path / "manifest.json").read_text())
+        files = {m["key"]: path / m["file"] for m in manifest["leaves"]}
+        t0 = time.perf_counter()
+        for key, t in leaves:
+            if not torch.equal(file_bits(files[key]), bits(t).cpu()):
+                raise AssertionError(f"checkpoint full: leaf {key} differs "
+                                     f"from the live state")
+        verify_s = time.perf_counter() - t0
+        # one more step: the state must now differ from the files
+        one_step()
+        torch.cuda.synchronize()
+        probe = [next(k for k, _ in leaves if m in k.split("/"))
+                 for m in ("mu", "nu")]
+        live = dict(leaves)
+        differ = [k for k in probe if not torch.equal(
+            file_bits(files[k]).to(dev), bits(live[k]))]
+        if differ != probe:
+            raise AssertionError(f"checkpoint full control: {probe} should "
+                                 f"differ from the files, {differ} do")
+        # an in-place restore, then every leaf against its file
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        ckpt.restore(root, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restore_peak = torch.cuda.max_memory_allocated() - base
+        for key, t in leaves:
+            if not torch.equal(file_bits(files[key]).to(dev), bits(t)):
+                raise AssertionError(f"checkpoint full: restored leaf {key} "
+                                     f"differs from its file")
+        if restore_peak > largest:
+            raise AssertionError(f"restore raised the card's peak by "
+                                 f"{restore_peak} B")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"state_bytes": state_bytes, "leaves": len(leaves),
+            "largest_leaf_bytes": largest, "arena_bytes": arena_bytes,
+            "first_save_call_s": call_s, "first_copies_landed_s": landed_s,
+            "write_s": write_s, "write_gb_per_s": state_bytes / write_s / 1e9,
+            "stage_enqueue_ms": enqueue_ms, "stage_copy_ms": copy_ms,
+            "stage_bound_ms": state_bytes / PCIE_BYTES_PER_S * 1e3,
+            "stage_gb_per_s": state_bytes / copy_ms / 1e6,
+            "save_peak_gb": save_peak / 1e9,
+            "save_peak_rise_bytes": save_peak - base,
+            "step_peak_gb": step_peak / 1e9, "verify_host_s": verify_s,
+            "control_differing_leaves": differ, "restore_s": restore_s,
+            "restore_peak_rise_bytes": restore_peak,
+            "restored_bit_identical": True, "free_disk_bytes": free_disk,
+            "host_mem_available_bytes": mem_avail}
+
+
 def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
                 causal: bool = True, iters: int = 10) -> dict:
     """The flash-attention forward against its plain version (output and
@@ -1687,7 +2086,8 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         train_launcher.make_train_step = make_step
     torch.cuda.synchronize()
     launches = {kern.symbol: kern.launches for kern in kernels + fma_only}
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 1e9
     want = [2 * base.grad_accum * base.n_periods,
             base.grad_accum * base.n_periods,
             base.grad_accum * base.n_periods]
@@ -1711,6 +2111,12 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
                                 seed=SEED + 1)))
     prof_batch = {k: torch.from_numpy(a).to(dev) for k, a in raw.items()}
     step_profile = profile(lambda: step_fn(res.state, prof_batch), top=12)
+    # (d) a durable checkpoint of this full-width state, staged through
+    # host memory, and an in-place restore
+    torch.cuda.empty_cache()
+    full_ckpt = checkpoint_full(dev, res.state,
+                                lambda: step_fn(res.state, prof_batch),
+                                peak_bytes)
     steady = res.step_s[1:]
     line = {"arch": arch, "impl": {"attn_impl": "flash"},
             "layer_grad_rel_frobenius_max": worst,
@@ -1737,7 +2143,7 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
             "steady_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * len(steady)
             / sum(steady),
             "peak_mem_gb": peak, "params": base.param_count(),
-            "step_profile": step_profile}
+            "step_profile": step_profile, "checkpoint_full": full_ckpt}
     del res, step_fn
     torch.cuda.empty_cache()
     return dq, dkv, line
@@ -2196,6 +2602,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import quadconv_ae
     from repro_torch.core import TableSpec
     from repro_torch.insitu import (InSituSession, ServingClients,
                                     ServingConsumer)
@@ -2288,9 +2695,7 @@ def main() -> int:
 
     # 4. serving: continuous batching through the kernels
     fcfg = fp.FlatPlateConfig(nx=16, ny=16, nz=16)
-    cfg = ae.AEConfig(n_points=fcfg.n_points, channels=4, internal=16,
-                      latent=100, blocks=2, pool=4, mlp_width=64,
-                      mlp_depth=5)
+    cfg = replace(quadconv_ae.config(), n_points=fcfg.n_points)
     gen = torch.Generator().manual_seed(SEED)
     params = ae.init_autoencoder(cfg, gen, dev)
     modes = fp.draw_modes(fcfg, gen, dev)
@@ -2516,6 +2921,17 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
 
+    # 9a. spectral: the pseudo-spectral solver alone at 512^3
+    print(f"[spectral] {smi} {json.dumps(spectral_phase(dev))}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 9b. insitu spectral: the launcher with the spectral producer
+    insitu_spectral = insitu_spectral_phase(dev, counters,
+                                            trained["launches"])
+    print(f"[insitu spectral] {smi} {json.dumps(insitu_spectral)}",
+          flush=True)
+    torch.cuda.empty_cache()
+
     # 10-12. LM serving at full width
     phi4 = lm_phase(dev, "phi4_mini_3_8b", {"attn_impl": "flash"},
                     {"attn_impl": "xla"}, aops.FLASH_TC, 32, control=True,
@@ -2532,6 +2948,8 @@ def main() -> int:
     bwd_dq, bwd_dkv, trained_lm = train_phase(dev)
     for row in (bwd_dq, bwd_dkv):
         print(f"[kernels] {json.dumps(row)}", flush=True)
+    print(f"[checkpoint full] {smi} "
+          f"{json.dumps(trained_lm.pop('checkpoint_full'))}", flush=True)
     print(f"[lm train] {json.dumps(trained_lm)}", flush=True)
 
     # 14. the slab-sharded data plane on a 2-rank mesh on this card
@@ -2562,7 +2980,8 @@ def main() -> int:
             "training": trained["launches"][name],
             "chaos serve (faulted)": chaos_serve_line["faulted"][
                 "launches"].get(name, 0),
-            "chaos train (faulted)": chaos["faulted"]["launches"][name]}
+            "chaos train (faulted)": chaos["faulted"]["launches"][name],
+            "insitu spectral": insitu_spectral["launches"][name]}
         if row["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
         row["kernel_ms"] = row["ms"]

@@ -3,9 +3,12 @@
 Port of ``src/repro/configs/registry.py``.  Each ported
 ``repro_torch/configs/<id>.py`` exports ``config()`` (the assigned
 configuration) and ``smoke_config()`` (a reduced same-family config for
-the CPU tests).  The port carries the dense Phi-4-mini and the Mamba-2
-configs; every other id of ``ARCH_IDS`` (MoE, hybrid, encoder-decoder,
-vision) raises ``NotImplementedError`` naming ``ROADMAP.md`` A7.  The
+the CPU tests).  As in the reference, any id resolves to the module
+``repro_torch.configs.<id>``, a module a caller registered under that
+name in ``sys.modules`` included.  The port carries the dense Phi-4-mini
+and the Mamba-2 configs; every other id of ``ARCH_IDS`` (MoE, hybrid,
+encoder-decoder, vision) raises ``NotImplementedError`` naming
+``ROADMAP.md`` A7, and an unknown id ``ModuleNotFoundError``.  The
 reference's input-shape table and cell rules serve its mesh dry-run
 (A5, A7) and are not carried.
 """
@@ -49,13 +52,15 @@ _ALIASES = {
 
 def _module(name: str):
     mod = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if mod not in _PORTED:
-        if mod in ARCH_IDS:
-            raise NotImplementedError(
-                f"{name}: the port carries {', '.join(_PORTED)}; "
-                f"the other architectures of the LM zoo are ROADMAP.md A7")
-        raise KeyError(f"unknown architecture {name!r}")
-    return importlib.import_module(f"{__package__}.{mod}")
+    path = f"{__package__}.{mod}"
+    try:
+        return importlib.import_module(path)
+    except ModuleNotFoundError as e:
+        if e.name != path or mod not in ARCH_IDS:
+            raise
+        raise NotImplementedError(
+            f"{name}: the port carries {', '.join(_PORTED)}; the other "
+            f"architectures of the LM zoo are ROADMAP.md A7") from None
 
 
 def get_config(name: str) -> ModelConfig:

@@ -42,7 +42,7 @@ from ..device import resolve_device
 from . import store as S
 from .faults import (FaultInjector, FaultPlan, StoreTimeout,
                      WatermarkTimeout)
-from .telemetry import poll_backoff
+from .telemetry import Timers, poll_backoff
 
 __all__ = ["StoreServer", "CaptureTxn"]
 
@@ -72,11 +72,12 @@ class CaptureTxn:
 class StoreServer:
     """Thread-safe owner of a set of store tables plus the model registry."""
 
-    def __init__(self, deployment=None, faults: FaultPlan | None = None,
-                 device=None):
+    def __init__(self, deployment=None, timers: Timers | None = None,
+                 faults: FaultPlan | None = None, *, device=None):
         if deployment is not None:
             raise NotImplementedError(_DEPLOYMENTS_OPEN)
         self.deployment = None
+        self.timers = timers or Timers()
         self.device = resolve_device(device)
         self._lock = threading.RLock()           # registries + metadata only
         self._table_locks: dict[str, threading.RLock] = {}
@@ -147,6 +148,10 @@ class StoreServer:
     def hbm_bytes(self) -> int:
         """Every table's footprint (``store.table_bytes``), summed."""
         return sum(S.table_bytes(sp) for sp in self._specs.values())
+
+    def table_lock(self, table: str) -> threading.RLock:
+        """The per-table lock (dispatch ordering for fused captures)."""
+        return self._table_locks[table]
 
     # -- capture transactions ------------------------------------------------
 
@@ -450,7 +455,8 @@ class StoreServer:
 
     # -- model registry (RedisAI analogue) ------------------------------------
 
-    def set_model(self, key: str, apply_fn: Callable, params) -> None:
+    def set_model(self, key: str, apply_fn: Callable, params,
+                  jit_compile: bool = True) -> None:
         """Store a model "in the database" under ``key``.
 
         Registry contract of the port: ``apply_fn(params, xs)`` takes a
@@ -460,7 +466,9 @@ class StoreServer:
         reference vmaps a per-element function inside its jitted dispatch;
         a hand-written kernel cannot be vmapped, so the batch axis is
         explicit here.)  Each call bumps the key's version — the serving
-        loop's hot-swap watermark."""
+        loop's hot-swap watermark.  ``jit_compile`` is the reference's
+        signature: eager PyTorch has no compile step, so it changes
+        nothing here."""
         with self._lock:
             self._models[key] = (apply_fn, params)
             self._model_versions[key] = \

@@ -80,7 +80,8 @@ from ..tree import tree_map
 __all__ = [
     "TableSpec", "TableState", "ShardedSlab", "make_key", "name_key",
     "init_table", "put", "put_many", "put_masked", "put_stream", "get",
-    "get_many", "serve_batch", "sample", "sample_sharded_impl",
+    "get_many", "serve_batch", "sample", "sample_and_step",
+    "sample_sharded_impl",
     "latest", "poll", "delete", "valid_count", "table_bytes", "slab_bytes",
     "copy_state", "capture_scan", "capture_scan_multi",
     "capture_scan_collect", "capture_scan_collect_multi",
@@ -466,6 +467,20 @@ def sample(spec: TableSpec, state: TableState, draw: torch.Tensor):
     return values, state.keys.index_select(0, slots), ok
 
 
+def sample_and_step(spec: TableSpec, state: TableState, draw: torch.Tensor,
+                    n: int, step_fn: Callable, carry):
+    """Fused consumer step: :func:`sample` ``n`` live elements, then the
+    training microstep ``step_fn(carry, values) -> (carry, aux)``.
+    Returns ``(carry, aux, ok)``.  ``draw`` is the sample's ``[n]``
+    uniforms, as for :func:`sample`.  The table is only read: call under
+    the table's capture or lock, so the read is ordered against puts."""
+    if draw.shape != (n,):
+        raise ValueError(f"draw of shape {tuple(draw.shape)} for n={n}")
+    values, _, ok = sample(spec, state, draw)
+    carry, aux = step_fn(carry, values)
+    return carry, aux, ok
+
+
 def sample_sharded_impl(spec: TableSpec, state: TableState,
                         draw: torch.Tensor):
     """:func:`sample` on a sharded slab, with the batch on every device of
@@ -711,7 +726,5 @@ def _not_ported(name: str, item: str) -> Callable:
     return fn
 
 
-sample_and_step = _not_ported("sample_and_step",
-                              "A8 (what the training slice left out)")
 make_clustered_gather = _not_ported("make_clustered_gather",
                                     "A5 (the Clustered deployment)")

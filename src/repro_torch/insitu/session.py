@@ -82,6 +82,12 @@ class SessionResult:
         return self.run.ok
 
     @property
+    def timers(self):
+        """Merged component timers (the paper-table reports read them
+        here)."""
+        return self.run.timers
+
+    @property
     def outputs(self) -> dict[str, Any]:
         return self.run.outputs
 
@@ -93,6 +99,12 @@ class SessionResult:
         return self.run.components[name].op_delta
 
     @property
+    def straggler_events(self) -> int:
+        """Component iterations past the ``StragglerPolicy.max_step_s``
+        deadline, summed over components."""
+        return sum(c.straggler_events for c in self.run.components.values())
+
+    @property
     def retries(self) -> int:
         """Transient-fault verb retries absorbed across components."""
         return sum(c.retries for c in self.run.components.values())
@@ -101,6 +113,10 @@ class SessionResult:
     def restarts(self) -> int:
         """Crash restarts survived across components."""
         return sum(c.restarts for c in self.run.components.values())
+
+    def client(self, rank: int = 99) -> Client:
+        """A fresh client of the session's live server."""
+        return self.driver.client(rank=rank)
 
 
 class InSituSession:
@@ -376,15 +392,15 @@ class InSituSession:
     # -- runtime ------------------------------------------------------------
 
     def run(self, plan: P.Plan | None = None, max_wall_s: float = 300.0,
-            sequential: bool = False,
-            preload: Callable[[StoreServer], None] | None = None,
-            verbose: bool = False) -> SessionResult:
+            sequential: bool = False, verbose: bool = False,
+            preload: Callable[[StoreServer], None] | None = None
+            ) -> SessionResult:
         """Execute the session: build the store on the session's device,
         run one thread per component per ``plan``.  ``sequential=True``
         runs components in declaration order (exact per-component dispatch
-        attribution); ``preload`` is called with the fresh server before
-        any component starts (register a served model there); ``verbose``
-        prints one line per trainer epoch."""
+        attribution); ``verbose`` prints one line per trainer epoch;
+        ``preload`` is called with the fresh server before any component
+        starts (register a served model there)."""
         plan = plan or self.plan()
         driver = InSituDriver(tables=self.tables, straggler=self.straggler,
                               table_shardings=self._table_shardings(),

@@ -3,20 +3,23 @@
 Port of ``src/repro/launch/insitu.py``.  ``python -m
 repro_torch.launch.insitu`` wires the paper's workflow as ONE
 :class:`~repro_torch.insitu.InSituSession` on one device (the card by
-default, ``--device cpu`` for the plain PyTorch path): the synthetic
-flat-plate generator puts solution snapshots into the ring table
-``"field"``, the QuadConv-autoencoder trainer consumes them, and an
-in-situ inference component encodes later snapshots with the freshly
-trained encoder.  Prints the resolved plan, one line per epoch and the
-paper-Tables-1/2-style overhead report.
+default, ``--device cpu`` for the plain PyTorch path): a simulation puts
+solution snapshots into the ring table ``"field"`` — the synthetic
+flat-plate generator, or with ``--producer spectral`` the pseudo-spectral
+Navier-Stokes solver (``sim/spectral.py`` on ``torch.fft``, a 16³ forced
+box from random turbulence, each snapshot sliced or tiled to the grid's
+point count) — the QuadConv-autoencoder trainer consumes them, and an
+in-situ inference component encodes later flat-plate snapshots with the
+freshly trained encoder.  Prints the resolved plan, one line per epoch
+and the paper-Tables-1/2-style overhead report.
 
 Where it differs from the reference: the reference pins the QuadConv
 oracle (``mode="ref"``); here the contraction runs the hand-written
 kernel on the card.  The inference ``feed`` returns one element
 ``[N, C]`` (the registry adds the batch axis).  The producer ranks'
-random modes and the inference snapshots' modes are drawn from a
-``torch.Generator`` seeded with ``seed``.  ``--producer spectral``
-(``sim/spectral.py`` on ``torch.fft``) is ``ROADMAP.md`` A8 and raises.
+random draws (flat-plate modes, the spectral solver's start) and the
+inference snapshots' modes come from a ``torch.Generator`` seeded with
+``seed``, where the reference folds the rank into a JAX key.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from ..insitu import (InferenceConsumer, InSituSession, Producer,
 from ..ml import autoencoder as ae
 from ..ml import trainer as tr
 from ..sim import flatplate as fp
+from ..sim import spectral as sp
+from ..tree import tree_map
 
 __all__ = ["make_producer", "run", "main"]
 
@@ -48,25 +53,49 @@ def make_producer(*, sim_steps: int, producer: str, fcfg, ncfg=None,
     the declaration carries ``traceable=False`` so the plan pins the
     per-verb tier, as in the reference.  Otherwise the plan captures whole
     chunks of steps and their ring puts per store op.  ``ncfg`` is the
-    spectral solver's config, which only the spectral producer reads.
+    spectral solver's config, which only the spectral producer reads: one
+    ``random_turbulence`` start per rank (stacked on a leading axis for
+    ``producers > 1``), one RK4 step a simulation step, its snapshot
+    sliced or tiled to ``fcfg.n_points``.
     """
-    if producer != "flatplate" or ncfg is not None:
-        raise NotImplementedError(
-            f"--producer {producer} (ncfg {ncfg!r}): the spectral producer "
-            f"(sim/spectral.py on torch.fft) is ROADMAP.md A8")
+    if producer not in ("flatplate", "spectral"):
+        raise ValueError(f"unknown producer {producer!r}")
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    modes = [fp.draw_modes(fcfg, gen, dev) for _ in range(producers)]
-    coords = fp.grid_coords(fcfg, dev)
+    n_points = fcfg.n_points
 
-    def step_fn(carry, rank, t):
-        if compute_s:
-            time.sleep(compute_s)          # per-verb tier only
-        return carry, S.make_key(rank, t), fp.snapshot(fcfg, modes[rank], t,
-                                                       coords)
+    def _fit_points(snap3):
+        # the spectral grid's n³ points, re-tiled to n_points
+        if snap3.shape[1] >= n_points:
+            return snap3[:, :n_points]
+        return snap3.repeat(1, n_points // snap3.shape[1] + 1)[:, :n_points]
 
-    carry = torch.zeros((), device=dev) if producers == 1 \
-        else torch.zeros((producers,), device=dev)
+    if producer == "spectral":
+        if ncfg is None:
+            raise ValueError("the spectral producer needs its NSConfig")
+        starts = [sp.random_turbulence(ncfg, sp.draw_noise(ncfg, gen, dev))
+                  for _ in range(producers)]
+        carry = starts[0] if producers == 1 \
+            else tree_map(lambda *xs: torch.stack(xs), *starts)
+
+        def step_fn(carry, rank, t):
+            if compute_s:
+                time.sleep(compute_s)          # per-verb tier only
+            carry = sp.step(ncfg, carry)
+            return carry, S.make_key(rank, t), \
+                _fit_points(sp.snapshot(ncfg, carry))
+    else:
+        modes = [fp.draw_modes(fcfg, gen, dev) for _ in range(producers)]
+        coords = fp.grid_coords(fcfg, dev)
+        carry = torch.zeros((), device=dev) if producers == 1 \
+            else torch.zeros((producers,), device=dev)
+
+        def step_fn(carry, rank, t):
+            if compute_s:
+                time.sleep(compute_s)          # per-verb tier only
+            return carry, S.make_key(rank, t), \
+                fp.snapshot(fcfg, modes[rank], t, coords)
+
     return Producer(step_fn, table="field", steps=sim_steps,
                     ranks=producers, carry=carry, emit_every=send_every,
                     traceable=(compute_s == 0))
@@ -103,9 +132,7 @@ def run(epochs: int = 40, sim_steps: int = 200, points: str = "small",
         # paper-comparison runs (emulated solver cost) measure the
         # per-verb consumer so "retrieve" means what Table 2 means
         fused=(compute_s == 0))
-    # the reference builds the spectral solver's NSConfig here and passes
-    # it whatever the producer; its port is ROADMAP.md A8
-    ncfg = None
+    ncfg = sp.NSConfig(n=16, nu=0.02, dt=0.01, forcing=True)
     prod = make_producer(sim_steps=sim_steps, producer=producer, fcfg=fcfg,
                          ncfg=ncfg, send_every=send_every,
                          compute_s=compute_s, seed=seed, producers=producers,

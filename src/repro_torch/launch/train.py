@@ -13,9 +13,9 @@ the default 100,000-step schedule: its first learning rate is
 3e-4 / 2000 = 1.5e-7 (``ROADMAP.md`` §C).
 
 Runs on the card by default (``--device cpu`` for the plain PyTorch path)
-and at the config's full width; ``--smoke`` takes the reduced
-same-family config (the reference's launcher defaults to it and takes
-``--full`` for the other).  ``attn_impl`` overrides the config's
+and at the config's full width (``--full`` spells that default out);
+``--smoke`` takes the reduced same-family config (the reference's
+launcher defaults to it and takes ``--full`` for the other).  ``attn_impl`` overrides the config's
 attention plan (``"flash"``: the hand-written forward and backward
 kernels).  Vision and encoder-decoder models are ``ROADMAP.md`` A7.
 
@@ -23,7 +23,8 @@ Durable checkpoints go through ``train.checkpoint.Checkpointer``, in the
 reference's on-disk layout: with ``--ckpt-dir`` the state is saved every
 ``--ckpt-every`` steps and after the last one (the three newest kept);
 ``ckpt_every`` is read only with a ``ckpt_dir``, as in the reference.
-``--resume`` restores the latest checkpoint there.  Unlike the
+``--resume`` restores the latest checkpoint there, into the freshly
+initialised state in place.  Unlike the
 reference, whose loop and token stream start again at 0 after a resume,
 a resumed run continues at the restored step up to ``--steps`` in all,
 past the token stream's consumed batches, so its steps are bit for bit
@@ -49,7 +50,7 @@ from ..train import checkpoint as ckpt
 from ..train.train_state import TrainState, init_train_state, make_tx
 from .steps import make_train_step, model_specs
 
-__all__ = ["TrainRun", "run", "main"]
+__all__ = ["TrainRun", "run", "parser", "main"]
 
 
 class TrainRun(NamedTuple):
@@ -63,10 +64,10 @@ class TrainRun(NamedTuple):
 
 
 def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
-        smoke: bool = False, capture: bool = False, seed: int = 0,
-        log_every: int = 10, straggler_factor: float = 3.0, device=None,
-        attn_impl: str | None = None, ckpt_dir: str | None = None,
-        ckpt_every: int = 20, resume: bool = False) -> TrainRun:
+        smoke: bool = False, ckpt_dir: str | None = None,
+        ckpt_every: int = 20, resume: bool = False, capture: bool = False,
+        seed: int = 0, log_every: int = 10, straggler_factor: float = 3.0,
+        *, device=None, attn_impl: str | None = None) -> TrainRun:
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if attn_impl is not None:
@@ -128,7 +129,7 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
         stream.close()
     if checkpointer is not None:
         checkpointer.maybe_save(steps, state, force=True)
-        checkpointer.wait()
+        checkpointer.close()
         if checkpointer.errors:
             raise RuntimeError(f"checkpoint writes failed: "
                                f"{checkpointer.errors}")
@@ -141,14 +142,17 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
                     server, start)
 
 
-def main() -> None:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=64)
-    ap.add_argument("--smoke", action="store_true",
-                    help="the reduced same-family config (CPU-sized)")
+    width = ap.add_mutually_exclusive_group()
+    width.add_argument("--smoke", action="store_true",
+                       help="the reduced same-family config (CPU-sized)")
+    width.add_argument("--full", action="store_true",
+                       help="the full-width config (the default)")
     ap.add_argument("--attn-impl", default=None,
                     help="override the config's attention plan "
                          "('flash': the hand-written kernels)")
@@ -166,12 +170,17 @@ def main() -> None:
                          " up to --steps in all")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
-    args = ap.parse_args()
-    run(args.arch, steps=args.steps, batch=args.batch, seq_len=args.seq_len,
-        smoke=args.smoke, capture=args.capture, seed=args.seed,
-        log_every=args.log_every, device=args.device,
-        attn_impl=args.attn_impl, ckpt_dir=args.ckpt_dir,
-        ckpt_every=args.ckpt_every, resume=args.resume)
+    return ap
+
+
+def main(argv: list[str] | None = None) -> TrainRun:
+    args = parser().parse_args(argv)
+    return run(args.arch, steps=args.steps, batch=args.batch,
+               seq_len=args.seq_len, smoke=args.smoke,
+               ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+               resume=args.resume, capture=args.capture, seed=args.seed,
+               log_every=args.log_every, device=args.device,
+               attn_impl=args.attn_impl)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@ The reference draws its modes inside ``snapshot`` with ``jax.random``.
 The port splits that in two: :func:`draw_modes` draws ``(kvec, phase0,
 raw)`` with a ``torch.Generator``, and :func:`snapshot` evaluates a
 snapshot from given modes — so a test can feed the reference's own draws
-and compare the snapshots.
+and compare the snapshots.  :func:`snapshot_batch` evaluates consecutive
+steps in one batched pass, as the reference's ``vmap`` does.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["FlatPlateConfig", "Modes", "grid_coords", "draw_modes",
-           "snapshot"]
+           "snapshot", "snapshot_batch"]
 
 KAPPA = 0.41
 B_LOG = 5.2
@@ -108,6 +109,20 @@ def snapshot(cfg: FlatPlateConfig, modes: Modes, step,
              coords: torch.Tensor | None = None) -> torch.Tensor:
     """One (p,u,v,w) snapshot, shape [4, n_points], on the device of the
     modes (``coords`` defaults to :func:`grid_coords` there)."""
+    return _evaluate(cfg, modes, [step], coords)[0]
+
+
+def snapshot_batch(cfg: FlatPlateConfig, modes: Modes, step0, n: int,
+                   coords: torch.Tensor | None = None) -> torch.Tensor:
+    """``n`` consecutive steps from ``step0``, shape [n, 4, n_points], in
+    one batched evaluation: each row is :func:`snapshot` of its step, by
+    the same arithmetic (bit for bit on the CPU)."""
+    return _evaluate(cfg, modes, [step0 + i for i in range(n)], coords)
+
+
+def _evaluate(cfg: FlatPlateConfig, modes: Modes, steps: list,
+              coords: torch.Tensor | None) -> torch.Tensor:
+    """The snapshots of ``steps`` → [len(steps), 4, n_points]."""
     dev = modes.kvec.device
     if coords is None:
         coords = grid_coords(cfg, dev)
@@ -123,18 +138,19 @@ def snapshot(cfg: FlatPlateConfig, modes: Modes, step,
         / (kmag[:, None] ** 2)
     pol = pol / (torch.linalg.norm(pol, dim=-1, keepdim=True) + 1e-8)
 
-    t = float(step)
     # frozen turbulence: phases convect downstream with u_conv
-    phases = (coords @ kvec.T) + modes.phase0[None, :] \
-        - cfg.u_conv * t * kvec[None, :, 0]
-    waves = torch.sin(phases)                        # [N, M]
-    fluct = (waves * amp[None, :]) @ pol             # [N, 3]
-    fluct = fluct * _intensity(y, cfg.re_tau)[:, None]
+    shift = torch.tensor([cfg.u_conv * float(t) for t in steps],
+                         dtype=torch.float32, device=dev)
+    phases = ((coords @ kvec.T) + modes.phase0[None, :])[None] \
+        - shift[:, None, None] * kvec[None, None, :, 0]     # [S, N, M]
+    waves = torch.sin(phases)
+    fluct = (waves * amp).reshape(-1, amp.shape[0]) @ pol
+    fluct = fluct.reshape(len(steps), -1, 3) \
+        * _intensity(y, cfg.re_tau)[None, :, None]           # [S, N, 3]
 
-    u = _mean_profile(cfg, y) + fluct[:, 0] * 2.0
-    v = fluct[:, 1]
-    w = fluct[:, 2]
+    u = _mean_profile(cfg, y) + fluct[..., 0] * 2.0
+    v = fluct[..., 1]
+    w = fluct[..., 2]
     p_amp = amp * (kmag ** (-1.0 / 3.0))
-    p = (torch.cos(phases) * p_amp[None, :]).sum(-1) \
-        * _intensity(y, cfg.re_tau)
-    return torch.stack([p, u, v, w]).to(torch.float32)
+    p = (torch.cos(phases) * p_amp).sum(-1) * _intensity(y, cfg.re_tau)
+    return torch.stack([p, u, v, w], dim=1).to(torch.float32)

@@ -10,12 +10,16 @@ a checkpoint one package writes restores in the other:
    field name or a sequence index, as JAX names its pytree paths.  bf16
    leaves are written as the reference's numpy writes them (two-byte void
    records, manifest dtype ``bfloat16``), since numpy has no bf16.
-   :func:`restore` matches leaves by path and puts each on the device and
-   in the dtype of the ``like`` tree's leaf.  :class:`Checkpointer`
-   copies the state on the device and writes it on a background thread,
-   so the train loop blocks only for that copy (the port's train step
-   updates its state in place, where the reference's arrays are
-   immutable).
+   :func:`restore` matches leaves by path and writes each into the
+   ``like`` tree's tensor in place (its device and dtype), so a restore
+   at full width never holds two states on the card; the reference builds
+   new arrays.  :class:`Checkpointer` copies the state leaf by leaf into
+   host buffers it allocates once (one arena, page-locked when the state
+   is on a card) and writes them on a background thread, so the card
+   holds no second copy and the train loop waits only for the copies,
+   which run on its own stream ahead of its next in-place update (the
+   port's train step updates its state in place, where the reference's
+   arrays are immutable).
 
 2. **In-memory checkpoints** (:class:`MemoryCheckpoint`): the train state
    parked in the server's host metadata between epochs, every tensor leaf
@@ -30,6 +34,7 @@ from __future__ import annotations
 import json
 import shutil
 import threading
+import weakref
 from pathlib import Path
 from typing import Any
 
@@ -84,7 +89,7 @@ def _save_leaf(path: Path, leaf) -> tuple[list, str]:
                 np.lib.format.write_array_header_1_0(
                     f, {"descr": "<V2", "fortran_order": False,
                         "shape": bits.shape})
-                f.write(bits.tobytes())
+                bits.tofile(f)
             return list(bits.shape), "bfloat16"
         arr = t.numpy()
     else:
@@ -93,14 +98,19 @@ def _save_leaf(path: Path, leaf) -> tuple[list, str]:
     return list(arr.shape), str(arr.dtype)
 
 
-def _from_numpy(arr: np.ndarray, dtype: str, like):
-    """A saved array as ``like``'s leaf: a tensor in ``like``'s dtype on
-    ``like``'s device (a Python scalar stays one)."""
-    t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16) \
-        if dtype == "bfloat16" else torch.from_numpy(np.array(arr))
-    if isinstance(like, torch.Tensor):
-        return t.to(device=like.device, dtype=like.dtype)
-    return type(like)(t.item())
+def _into(arr: np.ndarray, dtype: str, key: str, like):
+    """A saved array as ``like``'s leaf: written into ``like``'s tensor in
+    place (converted to its dtype, moved to its device), or a Python
+    scalar of ``like``'s type."""
+    t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) \
+        if dtype == "bfloat16" else torch.from_numpy(arr)
+    if not isinstance(like, torch.Tensor):
+        return type(like)(t.item())
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"leaf {key!r}: saved shape {tuple(t.shape)}, "
+                         f"like's {tuple(like.shape)}")
+    with torch.no_grad():
+        return like.copy_(t)
 
 
 def _write(path: Path, step: int, state: Any) -> dict:
@@ -133,12 +143,21 @@ def save(ckpt_dir: str | Path, step: int, state: Any, keep: int = 3) -> Path:
 
 def save_async(ckpt_dir: str | Path, step: int, state: Any,
                keep: int = 3) -> threading.Thread:
-    """:func:`save` on a background thread, of a device copy of ``state``
-    taken now (the caller may go on updating ``state`` in place).
-    Returns the started thread."""
-    snapshot = _clone_tensor_leaves(state)
-    thread = threading.Thread(target=save, args=(ckpt_dir, step, snapshot),
-                              kwargs={"keep": keep}, daemon=True)
+    """:func:`save` on a background thread, of a host copy of ``state``
+    staged now (the caller may go on updating ``state`` in place, on the
+    same stream).  The host buffers are this call's own; a
+    :class:`Checkpointer` reuses its.  Returns the started thread."""
+    stage = _HostStage(_tensor_leaves(state))
+    snapshot = stage.stage(state)
+
+    def _run():
+        try:
+            stage.wait()
+            save(ckpt_dir, step, snapshot, keep=keep)
+        finally:
+            stage.close()
+
+    thread = threading.Thread(target=_run, daemon=True)
     thread.start()
     return thread
 
@@ -157,7 +176,10 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
 
 def restore(ckpt_dir: str | Path, like: Any, step: int | None = None) -> Any:
     """The checkpoint of ``step`` (default: the latest) in ``like``'s
-    structure, each leaf matched by path and placed like ``like``'s."""
+    structure, each leaf matched by path.  ``like`` is overwritten: each
+    tensor leaf receives the saved values in place (``copy_``, to its own
+    dtype and device, one leaf at a time), and the returned tree holds
+    those same tensors; a non-tensor leaf comes back as a new value."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -171,16 +193,111 @@ def restore(ckpt_dir: str | Path, like: Any, step: int | None = None) -> Any:
         m = by_key.get(key)
         if m is None:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        leaves.append(_from_numpy(np.load(path / m["file"]), m["dtype"],
-                                  leaf))
+        leaves.append(_into(np.load(path / m["file"]), m["dtype"], key,
+                            leaf))
     return _unflatten(like, iter(leaves))
 
 
+def _map_tensor_leaves(fn, tree: Any) -> Any:
+    """``tree`` with ``fn`` applied to every tensor leaf, in dict insertion
+    order; other leaves (and containers other than dicts, lists and
+    tuples) pass through."""
+    if isinstance(tree, dict):
+        return {k: _map_tensor_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_map_tensor_leaves(fn, v) for v in tree]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _tensor_leaves(tree: Any) -> list[torch.Tensor]:
+    out: list[torch.Tensor] = []
+    _map_tensor_leaves(out.append, tree)
+    return out
+
+
+def _clone_tensor_leaves(tree: Any) -> Any:
+    return _map_tensor_leaves(torch.Tensor.clone, tree)
+
+
+_ALIGN = 256            # bytes: each leaf's offset in the arena
+
+
+def _unregister(arena: torch.Tensor) -> None:
+    torch.cuda.cudart().cudaHostUnregister(arena.data_ptr())
+
+
+class _HostStage:
+    """Host copies of one state's tensor leaves, in one arena of host
+    memory allocated once and reused save after save.
+
+    When a leaf lives on a card the arena is page-locked
+    (``cudaHostRegister``, exactly its size: ``pin_memory`` rounds each
+    block up to a power of two), the copies are non-blocking on the
+    current stream, so they run before any update the caller queues after
+    them, and one event marks their end; :meth:`wait` waits for it.  On
+    the CPU the copies are plain and done on return.
+    """
+
+    def __init__(self, tensors: list[torch.Tensor]):
+        self.layout = [(t.shape, t.dtype) for t in tensors]
+        offsets, total = [], 0
+        for t in tensors:
+            total = -(-total // _ALIGN) * _ALIGN
+            offsets.append(total)
+            total += t.numel() * t.element_size()
+        self.nbytes = total
+        self.arena = torch.empty(max(total, 1), dtype=torch.uint8)
+        cuda = [t.device for t in tensors if t.is_cuda]
+        self.device = cuda[0] if cuda else None
+        self._release = None
+        if self.device is not None:
+            err = int(torch.cuda.cudart().cudaHostRegister(
+                self.arena.data_ptr(), self.arena.numel(), 0))
+            if err:
+                raise RuntimeError(f"cudaHostRegister of the {total}-byte "
+                                   f"checkpoint arena failed ({err})")
+            self._release = weakref.finalize(self, _unregister, self.arena)
+        self.views = [
+            self.arena[o:o + t.numel() * t.element_size()]
+            .view(t.dtype).view(t.shape) for o, t in zip(offsets, tensors)]
+        self._done = None
+
+    def fits(self, tensors: list[torch.Tensor]) -> bool:
+        return self.layout == [(t.shape, t.dtype) for t in tensors]
+
+    def stage(self, state: Any) -> Any:
+        """Copy ``state``'s tensor leaves into the arena → ``state``'s
+        structure over the arena's views."""
+        views = iter(self.views)
+        if self.device is None:
+            return _map_tensor_leaves(lambda t: next(views).copy_(t), state)
+        with torch.cuda.device(self.device):
+            out = _map_tensor_leaves(
+                lambda t: next(views).copy_(t, non_blocking=True), state)
+            self._done = torch.cuda.Event()
+            self._done.record()
+        return out
+
+    def wait(self) -> None:
+        """Until the last :meth:`stage`'s copies have landed."""
+        if self._done is not None:
+            self._done.synchronize()
+
+    def close(self) -> None:
+        """Unpin the arena (its views must no longer be read)."""
+        if self._release is not None:
+            self._release()
+
+
 class Checkpointer:
-    """Async checkpoint manager: ``maybe_save`` copies the state on the
-    device at once and writes it in the background, overlapping the file
-    I/O with the next train steps.  One save in flight at a time (a newer
-    save waits for it)."""
+    """Async checkpoint manager: ``maybe_save`` stages the state into host
+    buffers (:class:`_HostStage`, allocated at the first save and reused)
+    and writes them in the background, overlapping the file I/O with the
+    next train steps.  One save in flight at a time: a newer save first
+    waits for it, since it reuses its buffers.  :meth:`close` releases
+    the buffers."""
 
     def __init__(self, ckpt_dir: str | Path, interval_steps: int = 100,
                  keep: int = 3):
@@ -188,6 +305,7 @@ class Checkpointer:
         self.interval = interval_steps
         self.keep = keep
         self._thread: threading.Thread | None = None
+        self._stage: _HostStage | None = None
         self.saves = 0
         self.errors: list[str] = []
 
@@ -195,10 +313,16 @@ class Checkpointer:
         if not force and (self.interval <= 0 or step % self.interval):
             return False
         self.wait()
-        snapshot = _clone_tensor_leaves(state)
+        tensors = _tensor_leaves(state)
+        if self._stage is None or not self._stage.fits(tensors):
+            self.close()
+            self._stage = _HostStage(tensors)
+        stage = self._stage
+        snapshot = stage.stage(state)
 
         def _run():
             try:
+                stage.wait()
                 save(self.dir, step, snapshot, keep=self.keep)
                 self.saves += 1
             except Exception as e:  # noqa: BLE001
@@ -213,17 +337,12 @@ class Checkpointer:
             self._thread.join()
             self._thread = None
 
-
-def _clone_tensor_leaves(tree: Any) -> Any:
-    """``tree`` with every tensor leaf cloned on its device; other leaves
-    (and containers other than dicts, lists and tuples) pass through."""
-    if isinstance(tree, dict):
-        return {k: _clone_tensor_leaves(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [_clone_tensor_leaves(v) for v in tree]
-        return type(tree)(*out) if hasattr(tree, "_fields") \
-            else type(tree)(out)
-    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+    def close(self) -> None:
+        """Wait for the save in flight, then release the host buffers."""
+        self.wait()
+        if self._stage is not None:
+            self._stage.close()
+            self._stage = None
 
 
 class MemoryCheckpoint:

@@ -30,6 +30,9 @@ Checks, each exact unless a tolerance is named:
   reference's (``tests/test_torch_insitu.py``'s tolerance; the largest
   difference is recorded as junit property ``max_rel_epoch_deviation``).
 
+Every test runs under the port's ``LockTracker`` witness: the lock-order
+graph its servers realise must be acyclic.
+
 Then, in the port alone, the training grid's random plans for seeds 0–8
 (the reference grid's shapes and ``FaultPlan.random`` draws): each run
 completes with exact predictions and the baseline's bytes, and its plan
@@ -75,6 +78,19 @@ def setup_module():
     from repro_torch.ml import trainer as ttr
     from repro_torch.tree import tree_leaves
     torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _port_lock_order_witness():
+    """Every test here runs under the port's ``LockTracker``: each
+    ``repro_torch`` server built in it has its locks wrapped, and the
+    test fails if the realised lock-order graph has a cycle (the
+    reference's chaos witness, ``tests/conftest.py``, wraps only the
+    reference's servers)."""
+    from repro_torch.core.locktrack import LockTracker
+    with LockTracker.instrument() as tracker:
+        yield
+    tracker.assert_acyclic()
 
 
 FAST = dict(interval=1e-4, max_interval=1e-3)

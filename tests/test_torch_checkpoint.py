@@ -113,9 +113,10 @@ def test_reference_save_restores_in_the_port(states, tmp_path):
     assert set(have) == set(want)
     for k, v in want.items():
         np.testing.assert_array_equal(have[k], v, err_msg=k)
-    # restored leaves keep the like tree's dtypes and are fresh tensors
+    # restored leaves keep the like tree's dtypes: they are the like
+    # tree's own tensors, written in place
     for a, b in zip(tree_leaves(got), tree_leaves(tlike)):
-        assert a.dtype == b.dtype and a.data_ptr() != b.data_ptr()
+        assert a.dtype == b.dtype and a is b
 
 
 @pytest.mark.parametrize("states", ["lm", "autoencoder"])
@@ -231,6 +232,40 @@ def test_launcher_resumes_bit_identically(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(
         tree_leaves(full.state), tree_leaves(resumed.state)))
     # the resumed run saved its own step 4: it restores to its state
-    got = tckpt.restore(tmp_path, resumed.state)
+    # (into zeroed tensors, since a restore writes its like tree in place)
+    got = tckpt.restore(tmp_path, tree_map(torch.zeros_like, resumed.state))
     assert all(torch.equal(a, b) for a, b in zip(
         tree_leaves(got), tree_leaves(resumed.state)))
+
+
+def test_checkpointer_stages_into_reused_host_buffers(tmp_path):
+    """A save taken before an in-place update writes the pre-update
+    values, from host buffers allocated at the first save and reused by
+    the next (a new layout gets new ones); ``restore`` writes into its
+    ``like`` tree in place and refuses a leaf of another shape."""
+    ck = tckpt.Checkpointer(tmp_path, interval_steps=1, keep=5)
+    state = {"w": torch.arange(6.0).reshape(2, 3),
+             "m": {"b": torch.ones(4, dtype=torch.bfloat16)},
+             "step": torch.zeros((), dtype=torch.int32)}
+    ck.maybe_save(1, state)
+    stage, arena = ck._stage, ck._stage.arena.data_ptr()
+    for leaf in tree_leaves(state):
+        leaf.add_(1)                          # the next step, in place
+    ck.maybe_save(2, state)
+    assert ck._stage is stage and ck._stage.arena.data_ptr() == arena
+    state["w"].mul_(10)
+    ck.wait()
+    like = tree_map(torch.zeros_like, state)
+    got = tckpt.restore(tmp_path, like, step=1)
+    assert got["w"] is like["w"] and got["m"]["b"] is like["m"]["b"]
+    assert torch.equal(like["w"], torch.arange(6.0).reshape(2, 3))
+    assert torch.equal(like["m"]["b"], torch.ones(4, dtype=torch.bfloat16))
+    tckpt.restore(tmp_path, like, step=2)
+    assert torch.equal(like["w"], torch.arange(1.0, 7.0).reshape(2, 3))
+    assert int(like["step"]) == 1
+    ck.maybe_save(3, {"w": torch.zeros(5)})    # another layout
+    assert ck._stage is not stage
+    ck.close()
+    assert ck._stage is None and ck.saves == 3 and not ck.errors
+    with pytest.raises(ValueError, match="shape"):
+        tckpt.restore(tmp_path, {"w": torch.zeros(6)}, step=3)

@@ -1,6 +1,7 @@
-"""Import hygiene of the port: nothing under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (an AST
-scan, so a lazy import inside a function is caught too)."""
+"""Import hygiene of the port: nothing under ``src/repro_torch/``, not
+``chip_smoke.py`` and not the examples' twins (``examples/torch_*.py``)
+imports ``jax`` or the JAX package ``repro`` (an AST scan, so a lazy
+import inside a function is caught too)."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py"]
+    + [REPO / "chip_smoke.py"] + sorted((REPO / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -35,7 +36,9 @@ def test_scan_sees_the_whole_port():
     assert "src/repro_torch/kernels/quadconv/ops.py" in names
     for module in ("kernels/attention/ops.py", "kernels/ssd/ops.py",
                    "models/lm.py", "serve/decode.py", "launch/serve.py",
-                   "sim/reproducer.py", "ml/resnet.py"):
+                   "sim/reproducer.py", "ml/resnet.py", "sim/spectral.py",
+                   "core/locktrack.py", "configs/quadconv_ae.py"):
         assert f"src/repro_torch/{module}" in names
+    assert len([n for n in names if n.startswith("examples/torch_")]) == 5
     assert _imported_roots(REPO / "src" / "repro" / "core" / "store.py") \
         & {"jax"}

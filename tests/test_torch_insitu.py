@@ -17,7 +17,10 @@ port through ``TrainerConsumer(draws=...)``.  Then:
 * each inference output equals the reference's encoder, with the port's
   trained weights, on the same snapshot within 1e-4;
 
-and ``launch.insitu.run(device="cpu")`` runs the small grid end to end.
+and ``launch.insitu.run(device="cpu")`` runs the small grid end to end;
+with ``producer="spectral"`` (one and two producer ranks) its session
+tracks the reference launcher's, fed the reference's solver starts, to
+the same limits.
 """
 
 import jax
@@ -239,18 +242,87 @@ def test_launcher_runs_on_the_cpu():
     assert bool(torch.isfinite(inf.last).all())
 
 
-def test_make_producer_takes_ncfg():
-    """``make_producer`` takes the reference's ``ncfg``: ``None`` (the
-    flat-plate producer never reads it) declares the producer; a spectral
-    config or ``producer="spectral"`` raises naming ROADMAP.md A8."""
-    kw = dict(sim_steps=4, fcfg=tlaunch.fp.FlatPlateConfig(nx=4, ny=4, nz=2),
-              send_every=2, compute_s=0.0, seed=0, producers=1,
-              device="cpu")
-    prod = tlaunch.make_producer(producer="flatplate", ncfg=None, **kw)
-    assert isinstance(prod, TProducer) and prod.steps == 4
-    for producer, ncfg in (("flatplate", object()), ("spectral", None)):
-        with pytest.raises(NotImplementedError, match="A8"):
-            tlaunch.make_producer(producer=producer, ncfg=ncfg, **kw)
+def _turbulence_noise(key) -> "torch.Tensor":
+    """The reference's draw inside ``spectral.random_turbulence(ncfg,
+    key)`` at the launcher's 16³ grid."""
+    kr, ki = jax.random.split(key)
+    shape = (3, 16, 16, 9)
+    return torch.from_numpy(np.asarray(
+        jax.random.normal(kr, shape)
+        + 1j * jax.random.normal(ki, shape)).astype(np.complex64))
+
+
+@pytest.mark.parametrize("producers", [1, 2])
+def test_make_producer_takes_ncfg(producers):
+    """``make_producer(producer="spectral", ncfg=...)`` declares the
+    spectral producer (one ``random_turbulence`` start a rank, stacked for
+    several); then the launchers' spectral sessions at the smoke grid, in
+    both packages from the same weights, solver starts and trainer
+    draws: plan == ``stats()`` in each, the predictions equal across
+    them, every epoch's losses within 1e-3 relative."""
+    from repro.launch import insitu as jlaunch
+    ncfg = tlaunch.sp.NSConfig(n=16, nu=0.02, dt=0.01, forcing=True)
+    fcfg = tlaunch.fp.FlatPlateConfig(nx=8, ny=8, nz=4)
+    prod = tlaunch.make_producer(
+        sim_steps=4, producer="spectral", fcfg=fcfg, ncfg=ncfg,
+        send_every=2, compute_s=0.0, seed=0, producers=producers,
+        device="cpu")
+    assert isinstance(prod, TProducer) and prod.ranks == producers
+    assert isinstance(prod.carry, tlaunch.sp.NSState)
+    assert prod.carry.uhat.shape == ((producers,) if producers > 1
+                                     else ()) + (3, 16, 16, 9)
+    _, key, snap = prod.step_fn(
+        tlaunch.tree_map(lambda x: x[0], prod.carry) if producers > 1
+        else prod.carry, 0, 0)
+    assert snap.shape == (4, fcfg.n_points)
+
+    epochs, steps, seed = 2, 8, 0
+    # the launcher's autoencoder at the small grid
+    lcfg = jae.AEConfig(n_points=fcfg.n_points, latent=16, mlp_width=16,
+                        mode="ref")
+    params = np_autoencoder_params(lcfg, seed=3)
+    key = jax.random.key(seed)
+    noise = iter([_turbulence_noise(key)] if producers == 1 else
+                 [_turbulence_noise(jax.random.fold_in(key, r))
+                  for r in range(producers)])
+    nvalid = producers * JS.capture_emit_count(steps, 2)
+    jcfg = jtr.TrainerConfig(ae=lcfg, epochs=epochs, gather=6)
+
+    def jinit(cfg, _key, tx):
+        p = jax.tree.map(jnp.asarray, params)
+        return jtr.TrainState(p, tx.init(p), jnp.zeros((), jnp.int32))
+
+    def tinit(cfg, _gen, tx, device=None):
+        return ttr.train_state_from_numpy(params, device=device)
+
+    kw = dict(epochs=epochs, sim_steps=steps, points="small",
+              producer="spectral", producers=producers, latent=16,
+              verbose=False, seed=seed)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtr, "init_state", jinit)
+        mp.setattr(ttr, "init_state", tinit)
+        mp.setattr(ttr, "default_draws",
+                   lambda cfg, device: _reference_draws(jcfg, nvalid))
+        mp.setattr(tlaunch.sp, "draw_noise",
+                   lambda cfg, gen, device=None: next(noise).to(device))
+        jres = jlaunch.run(**kw)
+        tres = tlaunch.run(device="cpu", **kw)
+    assert jres.ok and tres.ok
+    assert jres.server.stats()["op_count"] == jres.plan.store_dispatches
+    assert tres.server.stats()["op_count"] == tres.plan.store_dispatches
+    for jc, tc in zip(jres.plan.components, tres.plan.components,
+                      strict=True):
+        assert (tc.name, tc.tier, tc.ranks, tc.dispatches) \
+            == (jc.name, jc.tier, jc.ranks, jc.dispatches)
+    jhist = jres.output("trainer").history
+    thist = tres.output("trainer").history
+    assert len(thist) == len(jhist) == epochs
+    for j, t in zip(jhist, thist):
+        assert t.watermark == j.watermark == nvalid
+        for field in ("train_loss", "val_loss", "val_rel_error"):
+            want, got = getattr(j, field), getattr(t, field)
+            assert abs(got - want) <= LOSS_RTOL * abs(want), \
+                (j.epoch, field, got, want)
 
 
 # ---------------------------------------------------------------------------

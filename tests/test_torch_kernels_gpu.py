@@ -43,6 +43,12 @@ ones run on the tensor cores, each bit-identical on a rerun and missing
 its limit with the causal mask off; ``mha``
 differentiated through the kernels agrees with autograd through
 ``mha_ref`` within the reference's 1e-4.
+
+``train.checkpoint.Checkpointer`` stages a state on the card into pinned
+host memory: a save raises ``max_memory_allocated`` by no more than the
+largest leaf, an in-place update queued right after it never reaches
+the files, and an in-place ``restore`` leaves the peak level and brings
+every leaf back bit for bit.
 """
 
 import pytest
@@ -578,3 +584,40 @@ def test_ssd_intra_head_swap_control_fails(cuda):
     y = dops.ssd_intra(xdt, swapped, b, c)[0]
     want = dref.ssd_intra_ref(xdt, a, b, c)[0]
     assert float((y - want).abs().max()) > 1e-4 * float(want.abs().max())
+
+
+def test_checkpointer_stages_through_host_memory(cuda, tmp_path):
+    """``Checkpointer.maybe_save`` of a state on the card raises
+    ``max_memory_allocated`` by no more than its largest leaf (it stages
+    into pinned host buffers, no second copy on the card); an in-place
+    update queued right after the save never reaches the files; an
+    in-place ``restore`` keeps the card's peak level and brings the saved
+    leaves back bit for bit."""
+    from repro_torch.train import checkpoint as ckpt
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = {"w": torch.randn(32 << 20, generator=gen, device=cuda),
+             "m": torch.randn(8 << 20, generator=gen, device=cuda)
+             .to(torch.bfloat16),
+             "v": torch.randn((1024, 4096), generator=gen, device=cuda),
+             "step": torch.tensor(7, dtype=torch.int32, device=cuda)}
+    want = {k: v.clone().cpu() for k, v in state.items()}
+    largest = max(t.numel() * t.element_size() for t in state.values())
+    ck = ckpt.Checkpointer(tmp_path, interval_steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ck.maybe_save(1, state)
+    for t in state.values():
+        t.add_(1)                          # the next step, in place
+    ck.close()
+    torch.cuda.synchronize()
+    assert not ck.errors and ck.saves == 1
+    assert torch.cuda.max_memory_allocated() - base <= largest
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = ckpt.restore(tmp_path, state)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() == base
+    for k, v in want.items():
+        assert got[k] is state[k] and got[k].device.type == "cuda"
+        assert torch.equal(got[k].cpu(), v), k
