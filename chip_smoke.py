@@ -196,7 +196,9 @@ Kernel, plain and library times in the kernels line are device times per
 call (``torch.profiler``: the summed device time of every kernel and copy
 the call launched); ``wall_ms`` beside them is the CUDA-event time per
 call over back-to-back calls, which a launch-bound kernel spends mostly
-in host enqueue.
+in host enqueue.  The profiler loses some records late in the script,
+so a kernel's device time is its mean per record kept times its
+launches a call (``timed_by`` counts the records lost).
 
 Then one JSON line with every kernel's numbers (the probe's and the
 gather's rows carry the reproducer's shapes, with their launches there,
@@ -213,6 +215,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -281,6 +284,15 @@ SPECTRAL_N, SPECTRAL_NU, SPECTRAL_DT, SPECTRAL_STEPS = 512, 1e-3, 1e-3, 5
 TG_NU, TG_STEPS, TG_RTOL = 1e-2, 10, 1e-5
 DIV_LIMIT, DIV_REFERENCE_CASE = 1e-10, dict(n=16, nu=0.05, dt=0.01)
 CARD_CPU_N, CARD_CPU_RTOL = 32, 1e-5
+# the co-located deployment: the distributed FD producer on a 4,096^2
+# periodic box (16.8M points) cut over SHARDS space ranks on this card,
+# nu and dt inside the explicit scheme's nu * dt / h^2 <= 1/4 (dt <= 2.9e-4
+# here), the reference's 64 Jacobi sweeps; 48 steps in chunks of 16 into a
+# co-located ring of 16 [2, 4096, 4096] fp32 snapshots (2.15 GB); the 2-rank
+# step against the unsharded one, bit for bit where every op is elementwise
+# or a copy, else within the reference test's 1e-5
+FD_N, FD_NU, FD_DT, FD_ITERS = 4096, 2e-3, 1e-4, 64
+FD_STEPS, FD_CHUNK, FD_CAP, FD_ATOL = 48, 16, 16, 1e-5
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -298,12 +310,19 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, patterns: dict | None = None):
+def device_ms(fn, iters: int, patterns: dict | None = None,
+              info: dict | None = None):
     """Device time of one call of ``fn``: the device time of every kernel
     and copy its ``iters`` calls launched, under ``torch.profiler``, over
     ``iters``; with ``patterns`` (name → CUDA symbol, see ``kernel_hits``)
     instead a dict of each named kernel's device time per launch.  None
-    when the profiler sees no device activity (or not every kernel)."""
+    when the profiler sees no device activity (or not every kernel).
+    The profiler can lose records late in a long process (a sum over
+    ``iters`` then reads low), so each kernel's mean per record counts as
+    often as it ran a call (its records over ``iters``, rounded; one
+    that ran on fewer calls than half counts its total over ``iters``);
+    ``info`` receives the records kept and the records that a whole
+    number a call implies."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -317,8 +336,18 @@ def device_ms(fn, iters: int, patterns: dict | None = None):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     if patterns is None:
-        total = sum(e.self_device_time_total for e in events)
-        return total / iters / 1e3 if total else None
+        per_call, kept, implied = 0.0, 0, 0
+        for e in events:
+            if not e.count:
+                continue
+            runs = round(e.count / iters)
+            per_call += (e.self_device_time_total / e.count * runs if runs
+                         else e.self_device_time_total / iters)
+            kept += e.count
+            implied += max(runs * iters, e.count)
+        if info is not None:
+            info.update(profiler_records=kept, records_implied=implied)
+        return per_call / 1e3 if per_call else None
     out = {}
     for name, pattern in patterns.items():
         hits = kernel_hits(events, pattern)
@@ -330,12 +359,18 @@ def device_ms(fn, iters: int, patterns: dict | None = None):
 
 
 def timed(fn, iters: int) -> dict:
-    """``ms`` (device time per call; the CUDA-event time where the
-    profiler saw nothing), ``wall_ms`` (CUDA events) and which was used."""
+    """``ms`` (device time per call, ``device_ms``; the CUDA-event time
+    where the profiler saw nothing), ``wall_ms`` (CUDA events) and which
+    was used, with the records the profiler lost."""
     wall = time_ms(fn, iters)
-    dev = device_ms(fn, iters)
-    return {"ms": wall if dev is None else dev, "wall_ms": wall,
-            "timed_by": "cuda_events" if dev is None else "torch.profiler"}
+    info: dict = {}
+    dev = device_ms(fn, iters, info=info)
+    if dev is None:
+        return {"ms": wall, "wall_ms": wall, "timed_by": "cuda_events"}
+    lost = info["records_implied"] - info["profiler_records"]
+    return {"ms": dev, "wall_ms": wall, "timed_by": "torch.profiler"
+            if not lost else f"torch.profiler (mean a record; {lost} of "
+            f"{info['records_implied']} records lost)"}
 
 
 def bound(nbytes: float, flops: float = 0.0,
@@ -2304,21 +2339,25 @@ def mesh_epoch_check(dev, fused: dict, sf: dict, sl: dict) -> dict:
     return got
 
 
-def transfer_run(dev, cfg, vectorized: bool, counters) -> dict:
-    """One ``run_transfer`` on a fresh server with a seeded payload: every
-    value read back must equal its payload row bit for bit with every
-    ``found`` true; ``op_count`` must be 2 a step (vectorized) or
-    ``2 · n_ranks`` (per rank), warm-up included; the probe and gather
-    kernels must launch exactly once a step on the vectorized path and
-    never on the per-rank one (``get`` is plain, as in the reference).
-    Returns each component's mean and std per op, its MB/s and the bytes
-    bound of one op (payload read once, written once)."""
+def transfer_run(dev, cfg, vectorized: bool, counters,
+                 deployment=None) -> dict:
+    """One ``run_transfer`` on a fresh server (on ``deployment``, default
+    local) with a seeded payload: every value read back must equal its
+    payload row bit for bit with every ``found`` true; ``op_count`` must be
+    2 a step (vectorized) or ``2 · n_ranks`` (per rank), warm-up included;
+    the probe kernel must launch exactly once a step on the vectorized path
+    and never on the per-rank one, the gather kernel once a step per shard
+    of the table on the vectorized path (a local table: one) and never on
+    the per-rank one of a local table (``get`` is plain there, as in the
+    reference).  Returns each component's mean and std per op, its MB/s
+    and the bytes bound of one op (payload read once, written once)."""
     from repro_torch.core import StoreServer
     from repro_torch.sim import reproducer as rp
     gen = torch.Generator(device=dev).manual_seed(SEED)
     data = torch.randn((cfg.n_ranks, cfg.elems_per_rank), generator=gen,
                        device=dev)
-    server = StoreServer(device=dev)
+    server = StoreServer(deployment=deployment, device=dev)
+    shards = 1 if deployment is None else deployment.mesh.size
     bad = []
 
     def on_read(step, values, founds):
@@ -2340,10 +2379,12 @@ def transfer_run(dev, cfg, vectorized: bool, counters) -> dict:
                              f"B: steps {bad} read back other values")
     if ops != (2 if vectorized else 2 * cfg.n_ranks) * steps:
         raise AssertionError(f"run_transfer {mode}: op_count {ops}")
-    if any(n != (steps if vectorized else 0) for n in launches.values()):
+    if launches != {"probe_slots": steps if vectorized else 0,
+                    "gather_rows": shards * steps if vectorized else 0}:
         raise AssertionError(f"run_transfer {mode}: launches {launches}")
     op_bytes = cfg.bytes_per_rank * (cfg.n_ranks if vectorized else 1)
-    out = {"mode": mode, "n_ranks": cfg.n_ranks,
+    out = {"mode": mode, "deployment": server.deployment.describe()
+           if deployment is not None else "local", "n_ranks": cfg.n_ranks,
            "bytes_per_rank": cfg.bytes_per_rank,
            "iterations": cfg.iterations, "warmup": cfg.warmup,
            "op_count": ops, "launches": launches, "reads_bit_identical": True,
@@ -2538,10 +2579,11 @@ def inference_sessions(dev, params) -> dict:
     return out
 
 
-def reproducer_phase(dev) -> tuple[list, list]:
+def reproducer_phase(dev) -> tuple[list, list, dict]:
     """Phase 15: the paper's reproducer.  Returns the probe's and the
     gather's rows at the reproducer's shapes, with their launches on its
-    vectorized path (extra shapes of the kernels line's rows 1 and 3)."""
+    vectorized path (extra shapes of the kernels line's rows 1 and 3), and
+    the default vectorized run's line."""
     from repro_torch.core import StoreServer
     from repro_torch.kernels.store import ops as sops
     from repro_torch.ml.resnet import apply_resnet50, init_resnet50
@@ -2594,7 +2636,320 @@ def reproducer_phase(dev) -> tuple[list, list]:
               flush=True)
     del params
     torch.cuda.empty_cache()
-    return probes, gathers
+    return probes, gathers, runs["default"]
+
+
+def fd_step_bytes(n: int, iters: int) -> int:
+    """The fp32 bytes one FD step must move at the least: u and v read,
+    the provisional fields written, read back for the divergence and
+    again for the correction, the right-hand side written; each Jacobi
+    sweep reads phi and the right-hand side and writes phi; the last phi
+    read, u and v written — (12 + 3 · iters) fields of n^2 floats."""
+    return (12 + 3 * iters) * n * n * 4
+
+
+def face_reversed_exchange(mesh):
+    """The control's halo exchange: each rank's low face sent to its upper
+    neighbour and its high face to its lower one (the faces' directions
+    reversed), so every halo holds the wrong rows."""
+    from repro_torch.parallel import collectives as C
+    from repro_torch.sim import halo as H
+
+    def exchange(blocks, width):
+        lo = [b.narrow(0, 0, width) for b in blocks]
+        hi = [b.narrow(0, b.shape[0] - width, width) for b in blocks]
+        recv_lo = C.ppermute(lo, mesh, H._shift_perm(mesh.size, +1, True))
+        recv_hi = C.ppermute(hi, mesh, H._shift_perm(mesh.size, -1, True))
+        return [torch.cat([a, b, c]) for a, b, c in zip(recv_lo, blocks,
+                                                         recv_hi)]
+    return exchange
+
+
+def colocated_fd_phase(dev, counters) -> tuple[dict, dict]:
+    """15b. ``[colocated fd]``: the distributed FD producer
+    (``sim.distributed``, decaying turbulence from a seeded numpy-free
+    draw) at ``FD_N``^2 on ``SHARDS`` space ranks of this card, its
+    ``capture_scan_sharded`` puts into a ``Colocated`` ring cut like its
+    emission (element dim 1 over ``space``).  Checks, each hard: the
+    chunk's counted collectives (``plan(hlo=True)``) equal
+    ``sharded_producer_prediction`` (``collective_permute`` > 0, no
+    all-gather or all-reduce); op_count == the plan's 3 dispatches, no
+    staged transfer, and the run itself (profiled) makes no all-gather or
+    all-reduce; a consumer's read of the whole ring (``get_many``, the
+    probe once and the gather once per shard, exactly) returns every
+    stored snapshot equal to an independent 2-rank re-run of the solver
+    bit for bit; that re-run equal to the unsharded step (else within
+    ``FD_ATOL``); and, as a control that must fail that limit, one step
+    with the halo faces' directions reversed.  Also the gather kernel on a
+    shard's rows against its plain version.  Returns the phase's line and
+    the gather's row at the shard-local shape."""
+    from repro_torch.core import Colocated, TableSpec
+    from repro_torch.core import store as S
+    from repro_torch.insitu import InSituSession, Producer
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import space_mesh
+    from repro_torch.sim import distributed as fd
+    mesh = space_mesh(SHARDS, devices=[dev] * SHARDS)
+    cfg = fd.FDConfig(n=FD_N, nu=FD_NU, dt=FD_DT, jacobi_iters=FD_ITERS)
+    noise = fd.draw_noise(cfg, torch.Generator().manual_seed(SEED), dev)
+    step_fn, s0, es = fd.make_producer(cfg, mesh,
+                                       init="decaying_turbulence",
+                                       noise=noise)
+    sess = InSituSession(
+        tables=[TableSpec("field", shape=(2, FD_N, FD_N), capacity=FD_CAP)],
+        components=[Producer(step_fn, table="field", steps=FD_STEPS,
+                             chunk=FD_CHUNK, carry=s0, elem_sharding=es)],
+        deployment=Colocated(mesh=mesh, elem_spec=(None, "space", None)),
+        device=dev)
+    t0 = time.perf_counter()
+    plan = sess.plan(hlo=True)
+    plan_s = time.perf_counter() - t0
+    entry = plan.component("producer")
+    entry.check_collectives()
+    chunk = dict(entry.collectives)
+    if entry.tier != "capture_scan_sharded" \
+            or not chunk["collective-permute"] > 0 \
+            or chunk["all-gather"] or chunk["all-reduce"]:
+        raise AssertionError(f"colocated fd: {entry.tier} {chunk}")
+    torch.cuda.empty_cache()
+    keys = torch.stack([S.make_key(0, t)
+                        for t in range(FD_STEPS - FD_CAP, FD_STEPS)])
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the producer's run, then a consumer's read of the whole ring
+    with C.counted() as calls:
+        res = sess.run(plan=plan, sequential=True, max_wall_s=600)
+        stats = res.server.stats()
+        values, found = res.server.get_many("field", keys)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in counters}
+    peak = torch.cuda.max_memory_allocated()
+    if not res.ok:
+        raise AssertionError({n: c.error
+                              for n, c in res.run.components.items()})
+    if not (stats["op_count"] == plan.store_dispatches == 3
+            and stats["staged_transfers"] == 0):
+        raise AssertionError(f"colocated fd: plan {plan.explain()} vs "
+                             f"{stats}")
+    # the run's puts and halos make no all-gather; the read makes one
+    if calls["all_gather"] != 1 or calls["all_reduce"] != 0 \
+            or not calls["collective_permute"] > 0:
+        raise AssertionError(f"colocated fd: the run's collectives {calls}")
+    if launches != {"probe_slots": 1, "gather_rows": SHARDS,
+                    "sample_slots": 0, "quadconv_contract": 0}:
+        raise AssertionError(f"colocated fd: launches {launches}")
+    if not bool(found.all()):
+        raise AssertionError("colocated fd: a stored snapshot is missing")
+    # an independent re-run, 2 ranks and unsharded side by side
+    sharded, whole = fd.make_step(cfg, mesh), fd.make_step(cfg)
+    a, w = s0, fd.decaying_turbulence(cfg, noise)
+    bad = []
+    for t in range(FD_STEPS):
+        a, w = sharded(a), whole(w)
+        if t >= FD_STEPS - FD_CAP and not torch.equal(
+                values[t - (FD_STEPS - FD_CAP)], fd.snapshot(a)):
+            bad.append(t)
+    if bad:
+        raise AssertionError(f"colocated fd: stored snapshots {bad} differ "
+                             f"from the solver's state")
+    del values
+    got = fd.unshard_state(a)
+    gap = max(float((got.u - w.u).abs().max()),
+              float((got.v - w.v).abs().max()))
+    identical = torch.equal(got.u, w.u) and torch.equal(got.v, w.v)
+    if not gap <= FD_ATOL:
+        raise AssertionError(f"colocated fd: 2-rank vs unsharded {gap}")
+    one = fd.unshard_state(sharded(s0))
+    wrong_u, _ = fd._advance(cfg, list(s0.u), list(s0.v),
+                             face_reversed_exchange(mesh))
+    control = float((torch.cat(wrong_u) - one.u).abs().max())
+    if not control > FD_ATOL:
+        raise AssertionError(f"colocated fd: the reversed-face control "
+                             f"passed ({control})")
+    if not bool(torch.isfinite(got.u).all() & torch.isfinite(got.v).all()):
+        raise AssertionError("colocated fd: the field is not finite")
+    del got, w, one, wrong_u
+    step_ms = time_ms(lambda: sharded(a), 5, warmup=1)
+    wa = fd.unshard_state(a)
+    whole_ms = time_ms(lambda: whole(wa), 5, warmup=1)
+    del wa
+    torch.cuda.synchronize()
+    summary = res.run.timers.summary()
+    del res
+    torch.cuda.empty_cache()
+    # the device's idle share over one chunk of the same session (its own
+    # server; the profiler's host cost per op is in the window, so this
+    # is an upper bound on the unprofiled run's idle share)
+    one_chunk = InSituSession(
+        tables=[TableSpec("field", shape=(2, FD_N, FD_N), capacity=FD_CAP)],
+        components=[Producer(step_fn, table="field", steps=FD_CHUNK,
+                             chunk=FD_CHUNK, carry=s0, elem_sharding=es,
+                             warmup=False)],
+        deployment=Colocated(mesh=mesh, elem_spec=(None, "space", None)),
+        device=dev)
+    prof = profile(lambda: one_chunk.run(sequential=True, max_wall_s=600))
+    del one_chunk
+    b, by = bound(fd_step_bytes(FD_N, FD_ITERS))
+    row = check_gather(dev, FD_CAP, FD_CAP, (2, FD_N // SHARDS, FD_N))
+    row["launches"] = launches["gather_rows"]
+    line = {
+        "grid": f"{FD_N}^2", "ranks": SHARDS, "nu": FD_NU, "dt": FD_DT,
+        "jacobi_iters": FD_ITERS, "steps": FD_STEPS, "chunk": FD_CHUNK,
+        "tier": entry.tier, "deployment": plan.deployment,
+        "slab_bytes": stats["slab_bytes"]["field"],
+        "op_count": stats["op_count"],
+        "plan_store_dispatches": plan.store_dispatches,
+        "staged_transfers": stats["staged_transfers"],
+        "chunk_collectives": chunk,
+        "predicted": entry.explain()["predicted_collectives"],
+        "run_and_read_collectives": calls, "launches": launches,
+        "snapshots_bit_identical": FD_CAP,
+        "two_rank_vs_unsharded_max_abs": gap,
+        "two_rank_equals_unsharded": identical,
+        "reversed_face_control_max_abs": control,
+        "step_ms": step_ms, "unsharded_step_ms": whole_ms,
+        "step_bound_ms": b, "bound_by": by,
+        "step_share_of_bound": b / step_ms,
+        "equation_solution_ms_per_step":
+            summary["equation_solution"]["total_s"] * 1e3 / FD_STEPS
+            if "equation_solution" in summary else None,
+        "plan_hlo_s": plan_s, "run_and_read_wall_s": wall,
+        "peak_mem_gb": peak / 1e9, "one_chunk_profile": prof}
+    del sess, plan, a, s0
+    torch.cuda.empty_cache()
+    return line, row
+
+
+def colocated_serve_phase(dev, session, preload, local: dict,
+                          kernels) -> dict:
+    """15a. ``[colocated serve]``: phase 4's serving session (both tiers)
+    on ``make_colocated_1d`` over ``SHARDS`` ranks of this card, the
+    request [4, 4096] and response [100] elements cut on dim 0, run in
+    turns with the local session (local, co-located, co-located, local).
+    Every co-located response ``torch.equal`` to phase 4's local run at
+    the same tier; plan == ``stats()``; the probe and QuadConv launches
+    equal to phase 4's and the gather exactly once per shard per read
+    (each drain's and each reader's); the drain's counted collectives
+    (``plan(hlo=True)``) held to the port's prediction and printed beside
+    the reference's claim; requests/s of every run."""
+    from repro_torch.core import make_colocated_1d
+    from repro_torch.parallel.sharding import data_mesh
+    mesh = data_mesh(SHARDS, devices=[dev] * SHARDS)
+    reads = CLIENTS * REQUESTS
+    out = {}
+    for tier, (want, local_launches) in local.items():
+        rates = {"local": [], "colocated": []}
+        for colocated in (False, True, True, False):
+            sess = session(tier, deployment=make_colocated_1d(mesh=mesh)
+                           if colocated else None)
+            plan = sess.plan(hlo=colocated)
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sess.run(plan=plan, sequential=True, preload=preload,
+                           max_wall_s=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.symbol: k.launches for k in kernels}
+            if not res.ok:
+                raise AssertionError({n: c.error
+                                      for n, c in res.run.components.items()})
+            resp = res.output("readers").responses
+            rates["colocated" if colocated else "local"].append(
+                len(resp) / wall)
+            if not colocated:
+                continue
+            entry = plan.component("serving")
+            entry.check_collectives()
+            stats = res.server.stats()
+            if (stats["op_count"], stats["model_swaps"],
+                    stats["staged_transfers"]) != (plan.store_dispatches,
+                                                   plan.model_swaps, 0):
+                raise AssertionError(f"colocated serve {tier}: plan "
+                                     f"{plan.explain()} != stats {stats}")
+            if sorted(resp) != sorted(want) \
+                    or not all(torch.equal(resp[k], want[k]) for k in want):
+                raise AssertionError(f"colocated serve {tier}: responses "
+                                     f"differ from the local run's")
+            drains = res.output("serving").batches \
+                if tier == "continuous_batch" else reads
+            expect = {"probe_slots": local_launches["probe_slots"],
+                      "gather_rows": SHARDS * (drains + reads),
+                      "quadconv_contract":
+                          local_launches["quadconv_contract"]}
+            if launches != expect:
+                raise AssertionError(f"colocated serve {tier}: launches "
+                                     f"{launches}, expected {expect}")
+            out[tier] = {
+                "deployment": plan.deployment, "requests": len(resp),
+                "responses_equal_local": True,
+                "op_count": stats["op_count"],
+                "predicted": plan.store_dispatches, "launches": launches,
+                "local_launches": local_launches,
+                "drain_collectives": {k: v for k, v in entry.collectives
+                                      if v},
+                "port_prediction": entry.explain()["predicted_collectives"],
+                "reference_claim": "collective-free on every deployment",
+                "slab_bytes": stats["slab_bytes"]}
+            del res, sess
+        out[tier]["requests_per_s"] = rates
+    return out
+
+
+def colocated_transfer_phase(dev, local_default: dict) -> dict:
+    """15c. ``[colocated transfer]``: ``run_transfer`` at
+    ``ReproducerConfig``'s defaults on ``make_colocated_1d`` over
+    ``SHARDS`` ranks of this card (each rank's [32768] half of every
+    256 KB row), in turns with the local server (local, co-located,
+    co-located, local, three times over): every read bit for bit its
+    payload row, as the local server's; the probe once and the gather
+    once per shard a step, exactly; ``send`` / ``retrieve`` ms an op of
+    every run, the ratio of the co-located runs' median to the local
+    runs', and phase ``[reproducer]``'s local numbers beside them."""
+    from repro_torch.core import make_colocated_1d
+    from repro_torch.kernels.store import ops as sops
+    from repro_torch.parallel.sharding import data_mesh
+    from repro_torch.sim.reproducer import ReproducerConfig
+    counters = [sops.PROBE, sops.GATHER]
+    cfg = ReproducerConfig()
+    mesh = data_mesh(SHARDS, devices=[dev] * SHARDS)
+    runs = {False: [], True: []}
+    for colocated in (False, True, True, False) * 3:
+        runs[colocated].append(transfer_run(
+            dev, cfg, True, counters,
+            make_colocated_1d(mesh=mesh) if colocated else None))
+    keys = ("send_ms", "retrieve_ms", "op_count", "launches")
+    ratio = {f"{k}_median_ratio": statistics.median(r[k] for r in runs[True])
+             / statistics.median(r[k] for r in runs[False])
+             for k in ("send_ms", "retrieve_ms")}
+    return {"colocated": [{k: r[k] for k in keys} for r in runs[True]],
+            "local_in_turn": [{k: r[k] for k in keys} for r in runs[False]],
+            **ratio,
+            "reproducer_phase_local": {k: local_default[k] for k in keys},
+            "reads_bit_identical": True,
+            "deployment": runs[True][0]["deployment"]}
+
+
+def launch_floor(lib) -> dict:
+    """``[launch floor]``: one empty kernel's device time per launch
+    (``torch.profiler``) and its CUDA-event time over back-to-back
+    launches — what the store kernels' 1.5–3 µs rows are read against."""
+    import ctypes
+    from repro_torch.kernels import _build
+    kernel = _build.Kernel(lib, "launch_empty", [ctypes.c_void_p])
+
+    def launch():
+        kernel.launch(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+    dev = device_ms(launch, 1000, {"empty_kernel": "empty_kernel"})
+    return {"device_ms_per_launch": None if dev is None
+            else dev["empty_kernel"], "wall_ms": time_ms(launch, 1000),
+            "source": "tools/launch_floor.cu", "launches": kernel.launches}
 
 
 def main() -> int:
@@ -2628,7 +2983,10 @@ def main() -> int:
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}",
           flush=True)
 
-    # 2. build
+    # 2. build (with the empty kernel of the launch floor, tools/)
+    floor_lib = _build.Library(
+        "launch_floor",
+        Path(__file__).resolve().parent / "tools" / "launch_floor.cu")
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"[build] {len(libs)} libraries in "
@@ -2672,6 +3030,8 @@ def main() -> int:
                 enc0, mid, dec1, *mesh_blocks, flash, flash32, flash_edge,
                 flash_micro, ssd):
         print(f"[kernels] {json.dumps(row)}", flush=True)
+    print(f"[launch floor] {smi} {json.dumps(launch_floor(floor_lib))}",
+          flush=True)
     timing_keys = ("ms", "wall_ms", "plain_ms", "plain_wall_ms",
                    "library_ms", "bound_ms")
     quad = {"name": "quadconv_contract", "route": "cuda",
@@ -2710,13 +3070,13 @@ def main() -> int:
     def preload(server):
         server.set_model("encoder", model, params)
 
-    def session(tier, faults=None):
+    def session(tier, faults=None, deployment=None):
         tables = [TableSpec("sreq", shape=(4, fcfg.n_points),
                             capacity=CLIENTS * REQUESTS),
                   TableSpec("sres", shape=(cfg.latent,),
                             capacity=CLIENTS * REQUESTS)]
         return InSituSession(tables=tables, device=dev, faults=faults,
-                             components=[
+                             deployment=deployment, components=[
             ServingClients(lambda c, s: snaps[(c, s)], table="sreq",
                            clients=CLIENTS, requests=REQUESTS,
                            collect=False, name="writers"),
@@ -2815,7 +3175,7 @@ def main() -> int:
             sequential=True, preload=preload, max_wall_s=600)), flush=True)
 
     # 5. three-step: the same requests one at a time
-    single, _ = drive("three_step")
+    single, single_launches = drive("three_step")
     diff = max(float((batched[k] - single[k]).abs().max()) for k in batched)
     if not diff <= tol:
         raise AssertionError(f"three-step differs from batched by {diff}")
@@ -2959,7 +3319,22 @@ def main() -> int:
 
     # 15. the paper's reproducer: transfer and ResNet-50 inference loops
     torch.cuda.empty_cache()
-    probe["reproducer"], gather["reproducer"] = reproducer_phase(dev)
+    probe["reproducer"], gather["reproducer"], repro_default = \
+        reproducer_phase(dev)
+
+    # 15a-c. the co-located deployment: SHARDS ranks on this card
+    torch.cuda.empty_cache()
+    colo_serve = colocated_serve_phase(
+        dev, session, preload,
+        {"continuous_batch": (batched, launches),
+         "three_step": (single, single_launches)}, kernels)
+    print(f"[colocated serve] {smi} {json.dumps(colo_serve)}", flush=True)
+    colo_fd, gather["colocated"] = colocated_fd_phase(dev, counters)
+    print(f"[colocated fd] {smi} {json.dumps(colo_fd)}", flush=True)
+    print(f"[kernels] {json.dumps(gather['colocated'])}", flush=True)
+    colo_transfer = colocated_transfer_phase(dev, repro_default)
+    print(f"[colocated transfer] {smi} {json.dumps(colo_transfer)}",
+          flush=True)
 
     # 16. checkpoints: in memory on the card, and the launcher's resume
     torch.cuda.empty_cache()
@@ -2981,7 +3356,12 @@ def main() -> int:
             "chaos serve (faulted)": chaos_serve_line["faulted"][
                 "launches"].get(name, 0),
             "chaos train (faulted)": chaos["faulted"]["launches"][name],
-            "insitu spectral": insitu_spectral["launches"][name]}
+            "insitu spectral": insitu_spectral["launches"][name],
+            "colocated serve": colo_serve["continuous_batch"][
+                "launches"].get(name, 0),
+            "colocated fd": colo_fd["launches"][name],
+            "colocated transfer": colo_transfer["colocated"][0][
+                "launches"].get(name, 0)}
         if row["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
         row["kernel_ms"] = row["ms"]

@@ -1,9 +1,13 @@
-"""Core in-situ coupling layer — port of ``src/repro/core``: the local
-store, server, client, driver, telemetry and fault taxonomy, with the
-reference's names except its deployments (``ROADMAP.md`` A5)."""
+"""Core in-situ coupling layer — port of ``src/repro/core``: the store,
+server, client, driver, telemetry and fault taxonomy, and the deployments
+(``deployment``: the co-located one; ``Clustered`` is ``ROADMAP.md``
+A5.2 and raises), with the reference's names."""
 
 from . import store
 from .client import Client
+from .deployment import (Clustered, Colocated, Deployment,
+                         make_clustered_1d, make_clustered_2d,
+                         make_colocated_1d, split_devices)
 from .faults import (FaultEvent, FaultPlan, InjectedCrash, RetryPolicy,
                      StoreError, StoreTimeout, StoreUnavailable,
                      TransferDropped, WatermarkTimeout)
@@ -13,7 +17,9 @@ from .store import TableSpec, TableState, make_key, name_key
 from .telemetry import Timers
 
 __all__ = [
-    "store", "Client", "FaultEvent", "FaultPlan", "InjectedCrash",
+    "store", "Client", "Clustered", "Colocated", "Deployment",
+    "make_clustered_1d", "make_clustered_2d", "make_colocated_1d",
+    "split_devices", "FaultEvent", "FaultPlan", "InjectedCrash",
     "RetryPolicy", "StoreError", "StoreTimeout", "StoreUnavailable",
     "TransferDropped", "WatermarkTimeout", "InSituDriver", "RunResult",
     "StragglerPolicy", "StoreServer", "TableSpec", "TableState", "make_key",

@@ -17,9 +17,11 @@ Once the server is armed with a ``FaultPlan``, ``capture_scan`` takes the
 reference's logged path: each chunk gets a stable ``(rank, seq)`` id, its
 steps run collect-only (``store.capture_scan_collect[_multi]``) and the
 server inserts it exactly once (``StoreServer.apply_chunk``), the whole
-attempt inside the retry boundary and against the original carry.  The
-staged (cross-mesh) capture paths of the ``Clustered`` deployment are
-``ROADMAP.md`` A5.
+attempt inside the retry boundary and against the original carry.
+``capture_scan(elem_sharding=...)`` is the domain-decomposed producer's
+capture (the ``capture_scan_sharded`` tier): on a co-located table each
+rank's block is written into its own shard.  The staged (cross-mesh)
+capture paths of the ``Clustered`` deployment are ``ROADMAP.md`` A5.2.
 """
 
 from __future__ import annotations
@@ -191,7 +193,8 @@ class Client:
             yield txn
 
     def capture_scan(self, table: str, step_fn, carry, length: int,
-                     emit_every: int = 1, t0=0, n_ranks: int | None = None):
+                     emit_every: int = 1, t0=0, n_ranks: int | None = None,
+                     elem_sharding=None):
         """``length`` producer steps and their ring puts as ONE store op
         under one table-lock round-trip (the fused producer tier).
 
@@ -209,7 +212,14 @@ class Client:
         retries the whole attempt against the original carry (collecting
         never changes it), a duplicate is deduplicated by the id, and the
         applied chunk is logged for replay after a store restart.
+
+        ``elem_sharding`` (single-rank only) holds every emission in the
+        producer's element layout (``store.capture_scan``).
         """
+        if elem_sharding is not None and n_ranks is not None:
+            raise ValueError("elem_sharding is single-rank (n_ranks=None): "
+                             "a domain-decomposed producer is ONE rank "
+                             "spread over the mesh")
         spec = self.server.spec(table)
         clocks = S._rank_clocks(t0, n_ranks or 1)
         if self.server.wal_enabled:
@@ -223,7 +233,7 @@ class Client:
                     if n_ranks is None:
                         new_carry, keys, vals, mask = S.capture_scan_collect(
                             spec, step_fn, carry, length, emit_every,
-                            t0=clocks[0])
+                            t0=clocks[0], elem_sharding=elem_sharding)
                     else:
                         new_carry, keys, vals, mask = \
                             S.capture_scan_collect_multi(
@@ -244,7 +254,8 @@ class Client:
                 if n_ranks is None:
                     _, carry = S.capture_scan(
                         spec, txn.state, step_fn, carry, length, emit_every,
-                        t0=clocks[0], on_put=commit)
+                        t0=clocks[0], on_put=commit,
+                        elem_sharding=elem_sharding)
                 else:
                     _, carry = S.capture_scan_multi(
                         spec, txn.state, step_fn, carry, length, n_ranks,

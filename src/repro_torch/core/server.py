@@ -23,10 +23,14 @@ tail).  The write verbs update a table in place, so :meth:`snapshot`,
 (``store.copy_state``), and the log holds copies of the payloads it is
 given.
 
-The ``Colocated``/``Clustered`` deployments (``ROADMAP.md`` A5, the
-element-sharded producer and the dedicated store mesh, with the overlap
-pipeline's ``stage_chunk_logged``/``insert_chunk``) are a later slice and
-raise here.
+**Deployments.**  ``deployment=Colocated(...)`` (``core.deployment``)
+places every table by the deployment's rule (``slab_sharding(spec)``: an
+element cut over the producer's mesh, so a domain-decomposed emission is
+written rank-local); its ``faults`` arm the server when ``faults`` is not
+given.  Nothing crosses a mesh, so ``staged_transfers`` stays 0.  The
+``Clustered`` deployment (the dedicated store mesh, with the overlap
+pipeline's ``stage_chunk_logged``/``insert_chunk``) is ``ROADMAP.md`` A5.2
+and raises here.
 """
 
 from __future__ import annotations
@@ -40,15 +44,12 @@ import torch
 
 from ..device import resolve_device
 from . import store as S
+from .deployment import check_deployment
 from .faults import (FaultInjector, FaultPlan, StoreTimeout,
                      WatermarkTimeout)
 from .telemetry import Timers, poll_backoff
 
 __all__ = ["StoreServer", "CaptureTxn"]
-
-_DEPLOYMENTS_OPEN = ("Colocated/Clustered deployments (the element-sharded "
-                     "producer, the dedicated store mesh): ROADMAP.md A5")
-
 
 class CaptureTxn:
     """One capture transaction on a single table.
@@ -74,9 +75,9 @@ class StoreServer:
 
     def __init__(self, deployment=None, timers: Timers | None = None,
                  faults: FaultPlan | None = None, *, device=None):
-        if deployment is not None:
-            raise NotImplementedError(_DEPLOYMENTS_OPEN)
-        self.deployment = None
+        self.deployment = check_deployment(deployment)
+        if faults is None:
+            faults = getattr(deployment, "faults", None)
         self.timers = timers or Timers()
         self.device = resolve_device(device)
         self._lock = threading.RLock()           # registries + metadata only
@@ -92,7 +93,7 @@ class StoreServer:
         self._meta_event = threading.Condition(self._lock)
         self._ops_lock = threading.Lock()
         self.op_count = 0                        # dispatched store ops
-        self.staged_transfers = 0                # always 0: local only
+        self.staged_transfers = 0                # 0: no deployment crosses
         # the fault/recovery machinery, armed by a declared FaultPlan (an
         # empty one too: a fault-free baseline takes this path as well)
         self.faults = FaultInjector(faults) if faults is not None else None
@@ -116,11 +117,14 @@ class StoreServer:
 
     def create_table(self, spec: S.TableSpec, deployment=None,
                      slab_sharding=None) -> S.TableSpec:
-        """Register + allocate a table on the server's device;
-        ``slab_sharding`` (``parallel.sharding.slab_sharding``) splits its
-        slab over a mesh that holds that device."""
-        if deployment is not None:
-            raise NotImplementedError(_DEPLOYMENTS_OPEN)
+        """Register + allocate a table on the server's device.
+        ``slab_sharding`` (``parallel.sharding.slab_sharding``, or an
+        ``ElemSharding``) splits its slab over a mesh that holds that
+        device; when it is ``None`` the deployment's placement rule
+        applies (``deployment``, else the server's)."""
+        dep = check_deployment(deployment or self.deployment)
+        if slab_sharding is None and dep is not None:
+            slab_sharding = dep.slab_sharding(spec)
         with self._lock:
             if spec.name in self._specs:
                 raise ValueError(f"table {spec.name!r} already exists")
@@ -241,7 +245,7 @@ class StoreServer:
         keys = S._as_keys(keys, self.device)
         values = S._as_values(spec, values, self.device)
         if self.wal_enabled:
-            keys, values = keys.clone(), values.clone()
+            keys, values = keys.clone(), S._rows(values, torch.clone)
         return keys, values
 
     def put(self, table: str, key, value) -> None:

@@ -27,6 +27,21 @@ reference's ``shard_map``: replicated compute (slot selection) runs once
 per distinct device of the mesh, per-rank work (the shard gather) once
 per rank — on one card, selection once a call and the gather D times.
 
+**Element-sharded tables** (the co-located deployment, ``core.deployment.
+Colocated``).  Given a ``parallel.sharding.ElemSharding``, ``init_table``
+cuts every element along one of its dims into D equal blocks: an
+:class:`ElemShardedSlab` whose rank ``r`` holds ``[capacity, *block]`` on
+its own device — the reference's slab placed ``P(None, *elem_spec)``.  The
+metadata stays single, as for a :class:`ShardedSlab`.  A write verb takes
+either whole values (each rank's block sliced from them and copied to its
+device) or an ``ElemShards`` of the ranks' own blocks (what a
+domain-decomposed producer emits, written into each rank's shard as it
+is), and calls no collective.  A read selects slots once and launches the
+gather kernel once per shard on that shard's rows (:func:`_gather_blocks`);
+a caller that needs whole elements gets them through ONE counted
+``collectives.all_gather`` along the cut dim, decided in one place,
+:func:`_gather` — every read verb here returns whole elements.
+
 Differences from the reference, all deliberate:
 
 * Keys are int64 tensors carrying the uint32 key value (torch has no
@@ -74,14 +89,15 @@ from ..device import resolve_device
 from ..kernels.store import ops as _kops
 from ..kernels.store.ref import EMPTY_KEY, KEY_DTYPE
 from ..parallel import collectives as C
-from ..parallel.sharding import SlabSharding
+from ..parallel.sharding import ElemSharding, ElemShards, SlabSharding
 from ..tree import tree_map
 
 __all__ = [
-    "TableSpec", "TableState", "ShardedSlab", "make_key", "name_key",
+    "TableSpec", "TableState", "ShardedSlab", "ElemShardedSlab",
+    "ElemShards", "make_key", "name_key",
     "init_table", "put", "put_many", "put_masked", "put_stream", "get",
     "get_many", "serve_batch", "sample", "sample_and_step",
-    "sample_sharded_impl",
+    "sample_sharded_impl", "whole_slab",
     "latest", "poll", "delete", "valid_count", "table_bytes", "slab_bytes",
     "copy_state", "capture_scan", "capture_scan_multi",
     "capture_scan_collect", "capture_scan_collect_multi",
@@ -137,26 +153,49 @@ class ShardedSlab(NamedTuple):
     placement: SlabSharding
 
 
+class ElemShardedSlab(NamedTuple):
+    """A slab whose elements are cut along one dim: ``shards[r]`` holds
+    every slot's rank-``r`` block, ``[capacity, *placement.local_shape(
+    shape)]``, on rank ``r``'s device, a separate allocation per rank."""
+
+    shards: tuple[torch.Tensor, ...]
+    placement: ElemSharding
+
+
+Slab = torch.Tensor | ShardedSlab | ElemShardedSlab
+
+
 class TableState(NamedTuple):
     """Device-resident state of one table."""
 
-    slab: torch.Tensor | ShardedSlab  # [capacity, *shape]
+    slab: Slab                # [capacity, *shape], whole or in shards
     keys: torch.Tensor      # int64[capacity]; EMPTY_KEY where never written
     version: torch.Tensor   # int32[capacity]; 0 where empty, else write stamp
     ptr: torch.Tensor       # int32 scalar: next ring slot
     count: torch.Tensor     # int32 scalar: total successful puts (watermark)
 
 
-def init_table(spec: TableSpec, slab_sharding: SlabSharding | None = None,
+def init_table(spec: TableSpec,
+               slab_sharding: SlabSharding | ElemSharding | None = None,
                *, device=None) -> TableState:
     """Allocate an empty table on ``device`` (default: the card); with
     ``slab_sharding`` the slab is split over its mesh's devices, one
-    of which must be ``device`` (the metadata's).  The positional order is
-    the reference's (``init_table(spec, slab_sharding)``)."""
+    of which must be ``device`` (the metadata's): along the slot axis for a
+    ``SlabSharding``, along an element dim for an ``ElemSharding`` (one
+    that cuts nothing leaves the slab whole).  The positional order is the
+    reference's (``init_table(spec, slab_sharding)``)."""
     dev = resolve_device(device)
     shape = (spec.capacity, *spec.shape)
+    if isinstance(slab_sharding, ElemSharding) \
+            and slab_sharding.dim is None:
+        slab_sharding = None
     if slab_sharding is None:
         slab = torch.zeros(shape, dtype=spec.dtype, device=dev)
+    elif isinstance(slab_sharding, ElemSharding):
+        local = slab_sharding.local_shape(spec.shape)
+        slab = ElemShardedSlab(tuple(
+            torch.zeros((spec.capacity, *local), dtype=spec.dtype, device=d)
+            for d in slab_sharding.mesh.devices), slab_sharding)
     else:
         mesh = slab_sharding.mesh
         if slab_sharding.local_cap * mesh.size != spec.capacity:
@@ -195,14 +234,70 @@ def _as_keys(keys, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(keys).astype(np.int64), device=device)
 
 
-def _as_values(spec: TableSpec, values, device) -> torch.Tensor:
+def _as_values(spec: TableSpec, values, device):
+    """``values`` as the table's dtype: a tensor on ``device``, or an
+    ``ElemShards`` whose blocks stay on their ranks' devices."""
+    if isinstance(values, ElemShards):
+        return ElemShards(tuple(b.to(spec.dtype) for b in values.blocks),
+                          values.placement)
     return torch.as_tensor(values, dtype=spec.dtype, device=device)
 
 
-def slab_bytes(slab: torch.Tensor | ShardedSlab) -> dict[str, int]:
+def _rows(values, fn: Callable):
+    """``fn`` applied to a tensor, or to every block of an ``ElemShards``
+    (a row-wise op: indexing, reshaping or stacking the leading dims)."""
+    if isinstance(values, ElemShards):
+        return ElemShards(tuple(fn(b) for b in values.blocks),
+                          values.placement)
+    return fn(values)
+
+
+def _value_shape(spec: TableSpec, values, lead: tuple) -> tuple | None:
+    """The shape ``values`` must have (``lead`` batch dims, then an
+    element, or each rank's block of one) when it differs, else None."""
+    if isinstance(values, ElemShards):
+        want = (*lead, *values.placement.local_shape(spec.shape))
+        got = [tuple(b.shape) for b in values.blocks]
+        if len(got) == values.placement.mesh.size \
+                and all(g == want for g in got):
+            return None
+        return f"blocks {got} != {values.placement.mesh.size} x {want}"
+    got = tuple(values.shape)
+    want = (*lead, *spec.shape)
+    return None if got == want else f"{got} != {want}"
+
+
+def _whole(values, lead: int):
+    """An ``ElemShards`` assembled into whole values (``lead`` batch dims)
+    by one counted ``all_gather``, on rank 0's device; a tensor as is."""
+    if not isinstance(values, ElemShards):
+        return values
+    layout = values.placement
+    if layout.dim is None:
+        return values.blocks[0]
+    mesh = layout.mesh
+    return C.all_gather(list(values.blocks), mesh,
+                        dim=lead + layout.dim)[mesh.devices[0]]
+
+
+def whole_slab(slab: Slab) -> torch.Tensor:
+    """The slab as one ``[capacity, *shape]`` tensor: a whole slab as it
+    is; a slot-sharded one's shards along the slot axis, an
+    element-sharded one's blocks along the cut dim, each by one counted
+    ``all_gather`` onto rank 0's device.  The one place outside the read
+    verbs that knows how shards assemble."""
+    if isinstance(slab, torch.Tensor):
+        return slab
+    layout = slab.placement
+    dim = 0 if isinstance(slab, ShardedSlab) else 1 + layout.dim
+    return C.all_gather(list(slab.shards), layout.mesh,
+                        dim=dim)[layout.mesh.devices[0]]
+
+
+def slab_bytes(slab: Slab) -> dict[str, int]:
     """Bytes of slab held on each device (``str(device)`` → bytes)."""
     out: dict[str, int] = {}
-    for t in slab.shards if isinstance(slab, ShardedSlab) else (slab,):
+    for t in (slab,) if isinstance(slab, torch.Tensor) else slab.shards:
         key = str(t.device)
         out[key] = out.get(key, 0) + t.numel() * t.element_size()
     return out
@@ -214,17 +309,31 @@ def copy_state(state: TableState) -> TableState:
     update the slab, keys and version in place, so a snapshot that shared
     them would follow every later write."""
     slab = state.slab
-    slab = ShardedSlab(tuple(t.clone() for t in slab.shards),
-                       slab.placement) if isinstance(slab, ShardedSlab) \
-        else slab.clone()
+    slab = slab.clone() if isinstance(slab, torch.Tensor) \
+        else type(slab)(tuple(t.clone() for t in slab.shards),
+                        slab.placement)
     return TableState(slab, state.keys.clone(), state.version.clone(),
                       state.ptr.clone(), state.count.clone())
 
 
-def _scatter_rows(slab: torch.Tensor | ShardedSlab, idx: torch.Tensor,
-                  rows: torch.Tensor) -> None:
+def _scatter_rows(slab: Slab, idx: torch.Tensor, rows) -> None:
     """``slab[idx] = rows`` in place (``idx`` int64, no slot twice); a
-    sharded slab takes each row into its owner's shard, in row order."""
+    sharded slab takes each row into its owner's shard, in row order; an
+    element-sharded one each rank's block of every row into that rank's
+    shard.  ``rows`` is a tensor ``[n, *shape]`` or an ``ElemShards`` of
+    the ranks' ``[n, *block]``: laid out like the slab, each block is
+    written as it is; otherwise it is assembled first (one all-gather)."""
+    if isinstance(slab, ElemShardedSlab):
+        layout = slab.placement
+        if isinstance(rows, ElemShards) and rows.placement.mesh \
+                == layout.mesh and rows.placement.dim == layout.dim:
+            blocks = rows.blocks
+        else:
+            blocks = layout.split(_whole(rows, 1), lead=1)
+        for shard, block in zip(slab.shards, blocks):
+            shard.index_copy_(0, idx.to(shard.device), block.to(shard.device))
+        return
+    rows = _whole(rows, 1).to(idx.device)
     if not isinstance(slab, ShardedSlab):
         slab.index_copy_(0, idx, rows)
         return
@@ -251,10 +360,22 @@ def _gather_sharded(slab: ShardedSlab, slots: dict) -> dict:
     return C.psum(local, mesh)
 
 
-def _gather(slab: torch.Tensor | ShardedSlab,
-            slots: torch.Tensor) -> torch.Tensor:
-    """Rows ``slab[slots]`` (int32, in range) through the gather kernels,
-    on ``slots``' device."""
+def _gather_blocks(slab: ElemShardedSlab,
+                   slots: torch.Tensor) -> ElemShards:
+    """Each rank's blocks of rows ``slots`` (int32, in range): the gather
+    kernel once per shard, on that shard's device, no collective."""
+    return ElemShards(tuple(_kops.gather_rows(shard, slots.to(shard.device))
+                            for shard in slab.shards), slab.placement)
+
+
+def _gather(slab: Slab, slots: torch.Tensor) -> torch.Tensor:
+    """Whole rows ``slab[slots]`` (int32, in range) through the gather
+    kernels, on ``slots``' device.  THE rule for element-sharded slabs:
+    the per-shard gathers of :func:`_gather_blocks`, then one counted
+    ``all_gather`` along the cut dim assembles whole elements (every read
+    verb returns whole elements)."""
+    if isinstance(slab, ElemShardedSlab):
+        return _whole(_gather_blocks(slab, slots), 1).to(slots.device)
     if not isinstance(slab, ShardedSlab):
         return _kops.gather_rows(slab, slots)
     mesh = slab.placement.mesh
@@ -270,7 +391,8 @@ def _write(state: TableState, keep: torch.Tensor, slots: torch.Tensor,
     slot, so the scatter is order-independent."""
     sel = keep.nonzero(as_tuple=True)[0]
     idx = slots.index_select(0, sel).to(torch.int64)
-    _scatter_rows(state.slab, idx, values.index_select(0, sel))
+    _scatter_rows(state.slab, idx, _rows(
+        values, lambda b: b.index_select(0, sel.to(b.device))))
     state.keys.index_copy_(0, idx, keys.index_select(0, sel))
     state.version.index_copy_(0, idx, stamps.index_select(0, sel))
 
@@ -291,14 +413,15 @@ def put(spec: TableSpec, state: TableState, key, value) -> TableState:
     """Insert/overwrite one element (in place; see module docstring)."""
     dev = state.keys.device
     value = _as_values(spec, value, dev)
-    if tuple(value.shape) != spec.shape:
+    bad = _value_shape(spec, value, ())
+    if bad:
         raise ValueError(
-            f"put into table {spec.name!r}: value shape "
-            f"{tuple(value.shape)} != element shape {spec.shape}")
+            f"put into table {spec.name!r}: value shape {bad} (element "
+            f"shape {spec.shape})")
     key = _as_keys(key, dev).reshape(())
     slot = _slot_for_put(spec, state, key).to(torch.int64).reshape(1)
     stamp = state.count + 1
-    _scatter_rows(state.slab, slot, value.unsqueeze(0))
+    _scatter_rows(state.slab, slot, _rows(value, lambda b: b.unsqueeze(0)))
     state.keys.index_copy_(0, slot, key.reshape(1))
     state.version.index_copy_(0, slot, stamp.reshape(1))
     new_ptr = (state.ptr + 1) % spec.capacity if spec.engine == "ring" \
@@ -314,10 +437,9 @@ def put_many(spec: TableSpec, state: TableState, keys, values) -> TableState:
     keys = _as_keys(keys, dev)
     values = _as_values(spec, values, dev)
     n = keys.shape[0]
-    if tuple(values.shape) != (n, *spec.shape):
-        raise ValueError(
-            f"put_many into {spec.name!r}: values {tuple(values.shape)} != "
-            f"({n}, *{spec.shape})")
+    bad = _value_shape(spec, values, (n,))
+    if bad:
+        raise ValueError(f"put_many into {spec.name!r}: values {bad}")
     i = torch.arange(n, dtype=torch.int32, device=dev)
     if spec.engine == "ring":
         slots = (state.ptr + i) % spec.capacity
@@ -346,10 +468,9 @@ def put_masked(spec: TableSpec, state: TableState, keys, values,
     values = _as_values(spec, values, dev)
     mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
     n = keys.shape[0]
-    if tuple(values.shape) != (n, *spec.shape):
-        raise ValueError(
-            f"put_masked into {spec.name!r}: values {tuple(values.shape)} "
-            f"!= ({n}, *{spec.shape})")
+    bad = _value_shape(spec, values, (n,))
+    if bad:
+        raise ValueError(f"put_masked into {spec.name!r}: values {bad}")
     m = mask.to(torch.int32)
     r = torch.cumsum(m, 0, dtype=torch.int32) - 1   # emission rank
     total = m.sum(dtype=torch.int32)
@@ -384,7 +505,7 @@ def put_stream(spec: TableSpec, state: TableState, keys,
     if keys.dim() == 2:
         t, r = keys.shape
         keys = keys.reshape(t * r)
-        values = values.reshape(t * r, *values.shape[2:])
+        values = _rows(values, lambda b: b.reshape(t * r, *b.shape[2:]))
     return put_many(spec, state, keys, values)
 
 
@@ -395,9 +516,9 @@ def get(spec: TableSpec, state: TableState, key):
     match = (state.keys == key) & (state.version > 0)
     found = match.any() & (key != EMPTY_KEY)
     idx = match.to(torch.int32).argmax().reshape(1)
-    value = _gather(state.slab, idx.to(torch.int32))[0] \
-        if isinstance(state.slab, ShardedSlab) \
-        else state.slab.index_select(0, idx)[0]
+    value = state.slab.index_select(0, idx)[0] \
+        if isinstance(state.slab, torch.Tensor) \
+        else _gather(state.slab, idx.to(torch.int32))[0]
     return torch.where(found, value, torch.zeros_like(value)), found
 
 
@@ -463,7 +584,7 @@ def sample(spec: TableSpec, state: TableState, draw: torch.Tensor):
         values, keys, ok = sample_sharded_impl(spec, state, draw)
         return values[state.keys.device], keys, ok
     slots, ok = _select(spec, state.version, draw)
-    values = _zero_unless(ok, _kops.gather_rows(state.slab, slots))
+    values = _zero_unless(ok, _gather(state.slab, slots))
     return values, state.keys.index_select(0, slots), ok
 
 
@@ -547,12 +668,35 @@ def bucket_length(length: int, min_bucket: int = MIN_BUCKET) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def _constrain_elem(spec: TableSpec, value, elem_sharding, lead: int = 0):
+    """An emitted element (with ``lead`` stacked leading axes) in the
+    producer's element layout: a whole value is cut into its ranks' blocks
+    on their devices; an ``ElemShards`` must already be laid out so.
+    ``elem_sharding=None`` (the unsharded path) leaves the value as it
+    is."""
+    if elem_sharding is None:
+        return value
+    if isinstance(value, ElemShards):
+        if value.placement.mesh != elem_sharding.mesh \
+                or value.placement.dim != elem_sharding.dim:
+            raise ValueError(f"capture into table {spec.name!r}: the "
+                             f"emission's layout {value.placement} is not "
+                             f"the producer's {elem_sharding}")
+        return value
+    value = torch.as_tensor(value).to(spec.dtype)
+    return ElemShards(tuple(elem_sharding.split(value, lead)),
+                      elem_sharding)
+
+
 def capture_scan(spec: TableSpec, state: TableState, step_fn: Callable,
                  carry, length: int, emit_every: int = 1, t0: int = 0,
-                 on_put: Callable | None = None):
+                 on_put: Callable | None = None, elem_sharding=None):
     """Run ``length`` producer steps and their puts: ``step_fn(carry, t)
     -> (carry, key, value)`` for ``t`` in ``t0 .. t0+length-1``; steps
-    where ``t % emit_every == 0`` put their value.
+    where ``t % emit_every == 0`` put their value.  ``elem_sharding`` (an
+    ``ElemSharding``: a domain-decomposed producer's element layout) holds
+    every emission in that layout, so on a table laid out alike each put is
+    a rank-local write into each rank's shard, with no collective.
 
     A host loop over the single-step verb, so the puts land in ring order
     exactly as the reference's one-dispatch scan leaves them — including
@@ -566,6 +710,7 @@ def capture_scan(spec: TableSpec, state: TableState, step_fn: Callable,
     for t in range(t0, t0 + length):
         carry, key, value = step_fn(carry, t)
         if t % emit_every == 0:
+            value = _constrain_elem(spec, value, elem_sharding)
             state = put(spec, state, key, value)
             if on_put is not None:
                 on_put(state, 1)
@@ -633,33 +778,53 @@ def capture_rows(length: int, emit_every: int = 1) -> int:
     return -(-length // emit_every)
 
 
-def _emitted(spec: TableSpec, value, lead: tuple = ()) -> torch.Tensor:
-    """A step's emitted value as the table's dtype, its shape checked."""
-    value = torch.as_tensor(value).to(spec.dtype)
-    if tuple(value.shape) != (*lead, *spec.shape):
+def _emitted(spec: TableSpec, value, lead: tuple = ()):
+    """A step's emitted value (a tensor or an ``ElemShards``) as the
+    table's dtype, its shape checked."""
+    value = _as_values(spec, value, None) if isinstance(value, ElemShards) \
+        else torch.as_tensor(value).to(spec.dtype)
+    bad = _value_shape(spec, value, lead)
+    if bad:
         raise ValueError(f"capture into table {spec.name!r}: value shape "
-                         f"{tuple(value.shape)} != {(*lead, *spec.shape)}")
+                         f"{bad}")
     return value
 
 
-def _pack(spec: TableSpec, keys: list, values: list, size: int):
+def _pad_rows(v: torch.Tensor, size: int) -> torch.Tensor:
+    return torch.cat([v, v.new_zeros((size - v.shape[0], *v.shape[1:]))])
+
+
+def _pack(spec: TableSpec, keys: list, values: list, size: int,
+          elem_sharding=None):
     """The collected emissions, in order, padded with zeros to ``size``
     entries → ``(keys [size], values [size, *shape], mask [size])``;
-    ``mask`` marks the filled prefix."""
-    dev = values[0].device if values else torch.device("cpu")
+    ``mask`` marks the filled prefix.  With ``elem_sharding`` the values
+    are an ``ElemShards`` of the ranks' ``[size, *block]``, each rank's
+    rows on its own device."""
+    if elem_sharding is not None:
+        dev = elem_sharding.mesh.devices[0]
+        local = elem_sharding.local_shape(spec.shape)
+        v = ElemShards(tuple(
+            _pad_rows(torch.cat([x.blocks[r] for x in values]) if values
+                      else torch.zeros((0, *local), dtype=spec.dtype,
+                                       device=d), size)
+            for r, d in enumerate(elem_sharding.mesh.devices)),
+            elem_sharding)
+    else:
+        dev = values[0].device if values else torch.device("cpu")
+        v = _pad_rows(torch.cat(values) if values
+                      else torch.zeros((0, *spec.shape), dtype=spec.dtype,
+                                       device=dev), size)
     k = torch.cat(keys).to(dev) if keys \
         else torch.zeros((0,), dtype=KEY_DTYPE, device=dev)
-    v = torch.cat(values) if values \
-        else torch.zeros((0, *spec.shape), dtype=spec.dtype, device=dev)
     n = k.shape[0]
-    k = torch.cat([k, torch.zeros((size - n,), dtype=KEY_DTYPE, device=dev)])
-    v = torch.cat([v, torch.zeros((size - n, *spec.shape), dtype=spec.dtype,
-                                  device=dev)])
+    k = _pad_rows(k, size)
     return k, v, torch.arange(size, device=dev) < n
 
 
 def capture_scan_collect(spec: TableSpec, step_fn: Callable, carry,
-                         length: int, emit_every: int = 1, t0: int = 0):
+                         length: int, emit_every: int = 1, t0: int = 0,
+                         elem_sharding=None):
     """:func:`capture_scan`'s steps with the would-be puts **collected**
     instead of applied: no table is touched.  The emitting steps fill a
     compact ``rows = capture_rows(length, emit_every)`` buffer in step
@@ -667,17 +832,21 @@ def capture_scan_collect(spec: TableSpec, step_fn: Callable, carry,
     bytes :func:`capture_scan` leaves.  The server's exactly-once insert
     (``StoreServer.apply_chunk``) takes the chunk whole.
 
-    Returns ``(carry, keys [rows], values [rows, *shape], mask [rows])``.
+    Returns ``(carry, keys [rows], values [rows, *shape], mask [rows])``;
+    with ``elem_sharding`` the values are an ``ElemShards`` of each rank's
+    ``[rows, *block]``, collected on its own device.
     """
-    keys, values = [], []
+    keys, values, layout = [], [], elem_sharding
     for t in range(t0, t0 + length):
         carry, key, value = step_fn(carry, t)
-        value = _emitted(spec, value)
+        value = _emitted(spec, _constrain_elem(spec, value, elem_sharding))
+        if isinstance(value, ElemShards):
+            layout = value.placement
         if t % emit_every == 0:
-            keys.append(_as_keys(key, value.device).reshape(1))
-            values.append(value.unsqueeze(0))
+            keys.append(_as_keys(key, None).reshape(1))
+            values.append(_rows(value, lambda b: b.unsqueeze(0)))
     return (carry, *_pack(spec, keys, values,
-                          capture_rows(length, emit_every)))
+                          capture_rows(length, emit_every), layout))
 
 
 def capture_scan_collect_multi(spec: TableSpec, step_fn: Callable, carry,

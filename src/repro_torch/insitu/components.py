@@ -3,9 +3,9 @@
 Port of ``src/repro/insitu/components.py``: the simulation
 ``Producer``, the ``TrainerConsumer`` (on one device or, through its
 config's mesh, data-parallel), the ``InferenceConsumer`` and the serving
-plane's two components, each with its typed output.  A sharded producer
-element (``elem_sharding``) and multi-consumer training (``count > 1``)
-raise ``NotImplementedError`` naming ``ROADMAP.md`` A5.
+plane's two components, each with its typed output.  Multi-consumer
+training (``count > 1``) raises ``NotImplementedError`` naming
+``ROADMAP.md`` A5.
 
 Two contracts differ from the reference: ``TrainerConsumer`` takes the
 trainer's random ``draws`` (see ``ml.trainer``), and an inference
@@ -53,6 +53,10 @@ class Producer:
     chunk: int | None = None      # fused chunk length (None: plan default)
     bucket: bool = True           # report the tail's pow2 bucket in the plan
     tier: str | None = None       # force a producer tier (see plan module)
+    #: ``ElemSharding`` of one emitted element (a domain-decomposed
+    #: solver's own layout, ``sim.distributed.make_producer``).  Set → the
+    #: plan resolves the ``capture_scan_sharded`` tier: every put is held
+    #: in that layout through ``store.capture_scan(elem_sharding=...)``.
     elem_sharding: Any = None
     warmup: bool = True
     name: str = "producer"
@@ -64,10 +68,6 @@ class Producer:
             raise ValueError("ranks must be >= 1")
         if self.emit_every < 1:
             raise ValueError("emit_every must be >= 1")
-        if self.elem_sharding is not None:
-            raise NotImplementedError(
-                "Producer.elem_sharding (capture_scan_sharded): ROADMAP.md "
-                "A5")
 
 
 @dataclass

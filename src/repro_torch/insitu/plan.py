@@ -1,16 +1,18 @@
 """Plan: tier selection as *data*.
 
-Port of ``src/repro/insitu/plan.py`` — the local deployment: the
-producer, trainer, inference and serving tiers, the per-component
-dispatch and model-swap predictions, the fault overhead of a declared
-``FaultPlan`` (replay ops in ``dispatches``, ``retries``, ``restarts``,
-and the ``Plan.faults`` totals ``stats()`` must show), the trainers'
-collective structure (``predicted_collectives``, held against what
-``plan(hlo=True)`` measures), and the frozen :class:`Plan` whose
-predictions the tests hold against ``StoreServer.stats()``.
+Port of ``src/repro/insitu/plan.py`` — the local and co-located
+deployments: the producer, trainer, inference and serving tiers, the
+per-component dispatch and model-swap predictions, the fault overhead of
+a declared ``FaultPlan`` (replay ops in ``dispatches``, ``retries``,
+``restarts``, and the ``Plan.faults`` totals ``stats()`` must show), the
+collective structure of the trainers, the producers and the serving
+drains (``predicted_collectives``, held against what ``plan(hlo=True)``
+measures), and the frozen :class:`Plan` whose predictions the tests hold
+against ``StoreServer.stats()``.
 
 =============  =====================================================
 producer       ``per_verb`` | ``capture_scan`` | ``capture_scan_multi``
+               | ``capture_scan_sharded``
 trainer        ``per_verb`` | ``fused`` | ``sharded_fused`` |
                ``slab_sharded``
 inference      ``fused_registry`` | ``three_step``
@@ -23,10 +25,14 @@ HLO: a mesh's collectives are explicit calls
 epoch of a tier makes, under the reference's five op names
 (:data:`COLLECTIVE_OPS`).
 
-The reference's ``capture_scan_sharded`` and ``slab_sharded_clustered``
-tiers, their producer and serving collective predictions
-(``sharded_producer_prediction``), the staged-transfer predictions and
-the contention model are ``ROADMAP.md`` A5.
+One prediction deliberately differs from the reference's: a serving
+drain on a request table whose elements are cut over a mesh (a
+co-located deployment) all-gathers the requests it reads, because the
+registered model takes whole elements (:func:`serving_collective_prediction`);
+the reference claims every drain collective-free.
+
+The ``slab_sharded_clustered`` tier, the staged-transfer predictions and
+the contention model are ``ROADMAP.md`` A5.2.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ __all__ = [
     "trainer_dispatches", "inference_dispatches", "clients_dispatches",
     "serving_dispatches", "serving_swaps", "COLLECTIVE_OPS",
     "COLLECTIVE_FREE", "TRAINER_COLLECTIVE_PREDICTIONS",
-    "trainer_collective_prediction",
+    "trainer_collective_prediction", "sharded_producer_prediction",
+    "serving_collective_prediction",
 ]
 
 #: the collective op names of the reference's HLO accounting
@@ -52,7 +59,8 @@ __all__ = [
 COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                   "collective-permute")
 
-PRODUCER_TIERS = ("per_verb", "capture_scan", "capture_scan_multi")
+PRODUCER_TIERS = ("per_verb", "capture_scan", "capture_scan_multi",
+                  "capture_scan_sharded")
 TRAINER_TIERS = ("per_verb", "fused", "sharded_fused", "slab_sharded")
 INFERENCE_TIERS = ("fused_registry", "three_step")
 SERVING_TIERS = ("continuous_batch", "three_step")
@@ -60,8 +68,19 @@ SERVING_TIERS = ("continuous_batch", "three_step")
 
 def producer_tier(comp) -> str:
     """Resolve a :class:`~.components.Producer`'s tier: a forced tier is
-    validated; otherwise non-traceable steps pin ``per_verb``, one rank
-    takes ``capture_scan``, several ``capture_scan_multi``."""
+    validated; otherwise non-traceable steps pin ``per_verb``, a set
+    ``elem_sharding`` takes ``capture_scan_sharded`` (single-rank: the one
+    rank IS the whole mesh), one rank ``capture_scan``, several
+    ``capture_scan_multi``."""
+    sharded = getattr(comp, "elem_sharding", None) is not None
+    if sharded and not comp.traceable:
+        raise ValueError("elem_sharding needs a traceable step_fn: the "
+                         "sharded put only exists inside the fused capture")
+    if sharded and comp.ranks > 1:
+        raise ValueError(
+            "elem_sharding is single-rank (ranks=1): a domain-decomposed "
+            "producer is ONE rank spread over the mesh — its parallelism "
+            "is the sharding, not a vmapped rank axis")
     if comp.tier is not None:
         if comp.tier not in PRODUCER_TIERS:
             raise ValueError(f"unknown producer tier {comp.tier!r} "
@@ -73,9 +92,19 @@ def producer_tier(comp) -> str:
                              "capture_scan_multi or ranks=1")
         if comp.tier == "capture_scan_multi" and comp.ranks == 1:
             raise ValueError("capture_scan_multi needs ranks > 1")
+        if comp.tier == "capture_scan_sharded" and not sharded:
+            raise ValueError("capture_scan_sharded needs elem_sharding "
+                             "(the producer's own element layout)")
+        if sharded and comp.tier not in ("per_verb", "capture_scan_sharded"):
+            raise ValueError(
+                f"tier {comp.tier!r} would drop the declared elem_sharding; "
+                f"use capture_scan_sharded (or per_verb to measure the "
+                f"unfused baseline)")
         return comp.tier
     if not comp.traceable:
         return "per_verb"
+    if sharded:
+        return "capture_scan_sharded"
     return "capture_scan" if comp.ranks == 1 else "capture_scan_multi"
 
 
@@ -175,6 +204,35 @@ def trainer_collective_prediction(tier: str, table_sharded: bool = False
     if table_sharded and tier == "fused":
         return None
     return TRAINER_COLLECTIVE_PREDICTIONS[tier]
+
+
+def sharded_producer_prediction(elem_sharding, colocated: bool
+                                ) -> tuple[tuple[str, bool], ...] | None:
+    """The collective structure of one ``capture_scan_sharded`` chunk: the
+    rank-local put adds **no cross-rank collective beyond the producer's
+    own halo exchange** — ``collective_permute`` nonzero (the ppermuted
+    faces), everything else, ``all_gather`` above all, zero.  Claimed only
+    where it is structural: co-located over more than one rank (the slab
+    carries the emission's layout).  Elsewhere ``None``: a local table
+    holds whole elements, so the emission is assembled into it."""
+    if not colocated or elem_sharding is None:
+        return None
+    if getattr(elem_sharding, "num_devices", 1) <= 1 \
+            or getattr(elem_sharding, "is_fully_replicated", False):
+        return None
+    return _pred(collective_permute=True)
+
+
+def serving_collective_prediction(req_sharded: bool
+                                  ) -> tuple[tuple[str, bool], ...]:
+    """The collective structure of one serving drain (either tier): the
+    store plumbing makes none on a whole request table; on one whose
+    elements are cut over a mesh (``req_sharded``, a co-located
+    deployment) each read assembles its requests with one all-gather, the
+    registered model taking whole elements, and the response write stays
+    rank-local.  (The reference claims the drain collective-free on every
+    deployment.)"""
+    return _pred(all_gather=True) if req_sharded else COLLECTIVE_FREE
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """InSituSession: one declarative call for a coupling scenario.
 
-Port of ``src/repro/insitu/session.py`` — the local deployment.  Declare
-*what* runs,
+Port of ``src/repro/insitu/session.py`` — the local and co-located
+deployments.  Declare *what* runs,
 
     session = InSituSession(
         tables=[TableSpec("field", shape=(4, n), capacity=24)],
@@ -14,12 +14,16 @@ Port of ``src/repro/insitu/session.py`` — the local deployment.  Declare
     result = session.run(plan=plan)
 
 and the :class:`~.plan.Plan` resolver picks *how*: per-verb vs
-``capture_scan`` vs ``capture_scan_multi`` producers, per-verb vs fused
+``capture_scan`` vs ``capture_scan_multi`` vs ``capture_scan_sharded``
+producers, per-verb vs fused
 vs mesh (``sharded_fused``, ``slab_sharded``) trainers, fused-registry vs
 three-step inference, continuous-batching vs three-step serving.  It
 predicts the store dispatches that ``result.server.stats()`` must show.
 A table that a slab-sharded trainer reads is created split over that
-trainer's mesh (``parallel.sharding.slab_sharding``).
+trainer's mesh (``parallel.sharding.slab_sharding``); every other table
+is placed by the deployment (``deployment=Colocated(...)``: its elements
+cut over the producer's mesh) or, without one, whole on the session's
+device.
 
 ``faults=`` arms a ``FaultPlan``: the producer survives crashes at
 declared steps or chunks (resuming from the table watermark), the
@@ -28,10 +32,11 @@ the serving loop from its results watermark (``ServeLoop.recover``), and
 the store replays its write-ahead log after a declared restart.  The plan
 walks the same schedule through ``core.faults.simulate_overhead``, so its
 predicted retries, replay ops and restarts equal the run's counters.
-``plan(hlo=True)`` measures each trainer tier's collectives: the
-``parallel.collectives`` calls one epoch makes on a throwaway table
-placed like the live one.  Deployments other than ``None`` (``ROADMAP.md``
-A5) raise.
+``plan(hlo=True)`` measures each component's collectives on throwaway
+tables placed like the live ones: the ``parallel.collectives`` calls one
+epoch of each trainer tier makes, one chunk of each producer and one drain
+of each serving consumer.  The ``Clustered`` deployment (``ROADMAP.md``
+A5.2) raises.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 
 from ..core import store as S
 from ..core.client import Client
+from ..core.deployment import check_deployment
 from ..core.faults import FaultPlan, InjectedCrash, simulate_overhead
 from ..core.orchestrator import InSituDriver, RunResult, StragglerPolicy
 from ..core.server import StoreServer
@@ -53,7 +59,7 @@ from ..device import resolve_device
 from ..ml import autoencoder as ae
 from ..ml import trainer as tr
 from ..parallel import collectives as C
-from ..parallel.sharding import slab_sharding
+from ..parallel.sharding import ElemSharding, slab_sharding
 from ..serve.engine import ServeLoop, request_key, submitted_meta
 from ..train import optimizer as opt
 from ..train.checkpoint import MemoryCheckpoint
@@ -129,14 +135,12 @@ class InSituSession:
                  faults: FaultPlan | None = None, device=None):
         if not components:
             raise ValueError("a session needs at least one component")
-        if deployment is not None:
-            raise NotImplementedError(
-                "Colocated/Clustered deployments (the element-sharded "
-                "producer, the dedicated store mesh): ROADMAP.md A5")
+        self.deployment = check_deployment(deployment)
         self.tables = tuple(tables)
-        self.deployment = None
         self.straggler = straggler
-        self.faults = faults
+        # the armed fault plan: the session's own, else the deployment's
+        self.faults = faults if faults is not None \
+            else getattr(deployment, "faults", None)
         self.device = resolve_device(device)
         self.components = self._normalize(components)
         table_names = {t.name for t in self.tables}
@@ -241,6 +245,12 @@ class InSituSession:
                         "kind": "producer", "name": comp.name, "tier": tier,
                         "table": comp.table, "overlap": False,
                         "n_chunks": -(-comp.steps // chunk)})
+                # the sharded chunk holds the solver's halo ppermutes:
+                # claim exactly that where the placement makes it
+                # structural; every other put path makes no collective
+                pred = P.sharded_producer_prediction(
+                    comp.elem_sharding, self.deployment is not None) \
+                    if tier == "capture_scan_sharded" else P.COLLECTIVE_FREE
                 entries.append(P.ComponentPlan(
                     name=comp.name, kind="producer", tier=tier,
                     table=comp.table, ranks=comp.ranks, steps=comp.steps,
@@ -248,7 +258,10 @@ class InSituSession:
                     bucketed=comp.bucket and tier != "per_verb",
                     dispatches=P.producer_dispatches(
                         tier, comp.steps, comp.emit_every, comp.ranks,
-                        chunk)))
+                        chunk),
+                    predicted_collectives=pred,
+                    collectives=self._producer_collectives(comp, tier, chunk)
+                    if hlo else None))
             elif isinstance(comp, TrainerConsumer):
                 tier = P.trainer_tier(comp.cfg, comp.tier)
                 mesh = comp.cfg.mesh
@@ -288,7 +301,9 @@ class InSituSession:
                     name=comp.name, kind="clients", tier="per_verb",
                     table=comp.table, steps=total,
                     dispatches=P.clients_dispatches(total, comp.submit,
-                                                    comp.collect)))
+                                                    comp.collect),
+                    predicted_collectives=P.COLLECTIVE_FREE if comp.submit
+                    else None))
             else:
                 total = comp.clients * comp.requests
                 tier = P.serving_tier(comp)
@@ -302,7 +317,11 @@ class InSituSession:
                     table=comp.table, steps=total,
                     dispatches=P.serving_dispatches(tier, total,
                                                     comp.max_batch),
-                    swaps=P.serving_swaps(tier)))
+                    swaps=P.serving_swaps(tier),
+                    predicted_collectives=P.serving_collective_prediction(
+                        self._table_is_sharded(comp.table)),
+                    collectives=self._serving_collectives(comp, tier)
+                    if hlo else None))
         fault_totals: tuple[tuple[str, int], ...] = ()
         if self.faults is not None:
             # a FRESH injector driven through the runtime's call sequence:
@@ -320,7 +339,9 @@ class InSituSession:
                     retries=o.retries, restarts=o.restarts))
             entries = merged
             fault_totals = tuple(sorted(totals.items()))
-        return P.Plan(deployment="local", components=tuple(entries),
+        dep = self.deployment.describe() if self.deployment is not None \
+            else "local"
+        return P.Plan(deployment=dep, components=tuple(entries),
                       faults=fault_totals)
 
     # -- collective accounting (plan(hlo=True)) -----------------------------
@@ -344,18 +365,91 @@ class InSituSession:
         state = tr.init_state(cfg, torch.Generator().manual_seed(cfg.seed),
                               tx, dev)
         epoch_fn = tr.EPOCH_BUILDERS[tier](cfg, levels, tx, spec)
-        table = S.init_table(spec, self._table_shardings().get(cfg.table),
-                             device=dev)
+        table = S.init_table(spec, self._table_placement(spec), device=dev)
         mu = torch.zeros(spec.shape[0], device=dev)
         with C.counted() as calls:
             block_until_ready(epoch_fn(table, state, tr._warm_draws(cfg, dev),
                                        mu, mu + 1.0)[1])
-        return tuple((op, calls.get(op.replace("-", "_"), 0))
-                     for op in P.COLLECTIVE_OPS)
+        return _by_op(calls)
+
+    def _producer_collectives(self, comp: Producer, tier: str, chunk: int
+                              ) -> tuple[tuple[str, int], ...]:
+        """The collectives of one put (``per_verb``: a zero element) or one
+        chunk of ``min(chunk, steps)`` steps of the producer's fused tier
+        from its initial carry, on a throwaway table placed like the live
+        one (the port's counterpart of compiling that chunk and counting
+        its HLO collectives)."""
+        spec = self._spec(comp.table)
+        state = S.init_table(spec, self._table_placement(spec),
+                             device=self.device)
+        n = min(chunk, comp.steps)
+        with C.counted() as calls:
+            if tier == "per_verb":
+                state = S.put(spec, state, 1, torch.zeros(
+                    spec.shape, dtype=spec.dtype, device=self.device))
+            elif tier == "capture_scan_multi":
+                state, _ = S.capture_scan_multi(
+                    spec, state, comp.step_fn, comp.carry, n, comp.ranks,
+                    comp.emit_every)
+            else:
+                es = comp.elem_sharding if tier == "capture_scan_sharded" \
+                    else None
+                state, _ = S.capture_scan(
+                    spec, state, lambda c, t: comp.step_fn(c, 0, t),
+                    comp.carry, n, comp.emit_every, elem_sharding=es)
+            block_until_ready(state.count)
+        return _by_op(calls)
+
+    def _serving_collectives(self, comp: ServingConsumer, tier: str
+                             ) -> tuple[tuple[str, int], ...]:
+        """The collectives of one serving drain on throwaway request and
+        results tables placed like the live ones: ``max_batch`` requests
+        through the fused gather → model → scatter, or the three-step
+        tier's one get and one put.  The registered model is unknown at
+        plan time, so a stub that reads every request element stands in:
+        the claim covers the store plumbing."""
+        req_spec, res_spec = self._spec(comp.table), self._spec(comp.results)
+        dev = self.device
+        req = S.init_table(req_spec, self._table_placement(req_spec),
+                           device=dev)
+        res = S.init_table(res_spec, self._table_placement(res_spec),
+                           device=dev)
+        n = comp.max_batch
+
+        def stub_apply(params, xs):
+            means = xs.reshape(xs.shape[0], -1).mean(dim=1)
+            return means.reshape(-1, *([1] * len(res_spec.shape))).expand(
+                xs.shape[0], *res_spec.shape).to(res_spec.dtype)
+
+        with C.counted() as calls:
+            if tier == "three_step":
+                x, _ = S.get(req_spec, req, 1)
+                res = S.put(res_spec, res, 1, stub_apply(None, x[None])[0])
+            else:
+                res, _, _ = S.serve_batch(
+                    req_spec, res_spec, stub_apply, req, res, None,
+                    torch.zeros((n,), dtype=S.KEY_DTYPE, device=dev),
+                    torch.zeros((n,), dtype=torch.bool, device=dev))
+            block_until_ready(res.count)
+        return _by_op(calls)
+
+    def _table_placement(self, spec: S.TableSpec):
+        """Where ``spec``'s slab lives: split over a slab-sharded trainer's
+        mesh when one reads it, else by the deployment's rule (``None``:
+        whole on the session's device)."""
+        explicit = self._table_shardings().get(spec.name)
+        if explicit is not None:
+            return explicit
+        if self.deployment is not None:
+            return self.deployment.slab_sharding(spec)
+        return None
 
     def _table_is_sharded(self, table: str) -> bool:
-        """Is ``table`` split over more than one rank?"""
-        placement = self._table_shardings().get(table)
+        """Is ``table``'s slab split over more than one rank (slots or
+        element blocks)?"""
+        placement = self._table_placement(self._spec(table))
+        if isinstance(placement, ElemSharding):
+            return not placement.is_fully_replicated
         return placement is not None and placement.mesh.size > 1
 
     def _spec(self, table: str) -> S.TableSpec:
@@ -402,7 +496,8 @@ class InSituSession:
         ``preload`` is called with the fresh server before any component
         starts (register a served model there)."""
         plan = plan or self.plan()
-        driver = InSituDriver(tables=self.tables, straggler=self.straggler,
+        driver = InSituDriver(deployment=self.deployment,
+                              tables=self.tables, straggler=self.straggler,
                               table_shardings=self._table_shardings(),
                               faults=self.faults, device=self.device)
         if preload is not None:
@@ -478,7 +573,9 @@ class InSituSession:
                 return ProducerOutput(steps=done)
             return fn
 
-        single = entry.tier == "capture_scan"
+        single = entry.tier in ("capture_scan", "capture_scan_sharded")
+        es = comp.elem_sharding if entry.tier == "capture_scan_sharded" \
+            else None
         step_fn = (lambda c, t: comp.step_fn(c, 0, t)) if single \
             else comp.step_fn
 
@@ -499,7 +596,8 @@ class InSituSession:
                 with client.timers.time("equation_solution") as box:
                     carry = client.capture_scan(
                         comp.table, step_fn, carry, k, comp.emit_every,
-                        t0=base, n_ranks=None if single else comp.ranks)
+                        t0=base, n_ranks=None if single else comp.ranks,
+                        elem_sharding=es)
                     box[0] = client.server.checkout(comp.table).count
                 done += k
                 if time.perf_counter() - it0 > pol.max_step_s:
@@ -684,6 +782,12 @@ class InSituSession:
             return ServingOutput(steps=loop.served, batches=loop.batches,
                                  swaps=loop.swaps)
         return fn
+
+
+def _by_op(calls: dict) -> tuple[tuple[str, int], ...]:
+    """``collectives.counted()``'s calls under the reference's op names."""
+    return tuple((op, calls.get(op.replace("-", "_"), 0))
+                 for op in P.COLLECTIVE_OPS)
 
 
 def _survive_crash(client: Client, name: str, idx: int, table: str) -> None:

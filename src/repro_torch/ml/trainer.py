@@ -426,13 +426,11 @@ def make_sharded_fused_epoch(cfg: TrainerConfig, levels,
 def _replicated_sample(spec: S.TableSpec, table_state: S.TableState,
                        draw: torch.Tensor, mesh):
     """``store.sample`` on a whole copy of the table on every distinct
-    device of ``mesh`` → ``({device: values}, ok)``.  A slab-sharded table
-    is all-gathered first (the reference's replicated entry)."""
-    slab = table_state.slab
-    if isinstance(slab, S.ShardedSlab):
-        whole = C.all_gather(slab.shards, mesh)
-    else:
-        whole = {d: slab.to(d) for d in mesh.distinct_devices}
+    device of ``mesh`` → ``({device: values}, ok)``.  A sharded table, by
+    slot or by element, is assembled first (``store.whole_slab``: the
+    reference's replicated entry)."""
+    full = S.whole_slab(table_state.slab)
+    whole = {d: full.to(d) for d in mesh.distinct_devices}
     out = {d: S.sample(spec, table_state._replace(
         slab=w, keys=table_state.keys.to(d),
         version=table_state.version.to(d)), draw)

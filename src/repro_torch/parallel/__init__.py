@@ -3,9 +3,11 @@
 pipelines and compression are ``ROADMAP.md`` A5)."""
 
 from . import collectives, sharding
-from .sharding import (Mesh, ParamSpec, SlabSharding, data_mesh, init_params,
-                       lm_params_from_numpy, slab_sharding)
+from .sharding import (ElemSharding, ElemShards, Mesh, ParamSpec,
+                       SlabSharding, data_mesh, init_params,
+                       lm_params_from_numpy, slab_sharding, space_mesh)
 
-__all__ = ["collectives", "sharding", "Mesh", "SlabSharding", "data_mesh",
+__all__ = ["collectives", "sharding", "Mesh", "SlabSharding",
+           "ElemSharding", "ElemShards", "data_mesh", "space_mesh",
            "slab_sharding", "ParamSpec", "init_params",
            "lm_params_from_numpy"]

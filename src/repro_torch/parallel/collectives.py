@@ -1,18 +1,24 @@
 """The mesh's collectives, as explicit functions over its ranks.
 
-The reference's ``lax.psum`` and ``all_gather`` inside a ``shard_map``
-become calls that take one value per rank of a
+The reference's ``lax.psum``, ``all_gather`` and ``lax.ppermute``
+inside a ``shard_map`` become calls that take one value per rank of a
 :class:`~repro_torch.parallel.sharding.Mesh` and return one result per
 distinct device (``{device: tensor}``): ranks that share a device share
 its result.  The order of a sum is fixed (ascending rank), so every rank
 holds the same bits.  Where ranks sit on different devices the sum is
 taken on rank 0's device and then copied to the others.
 
-``COUNTS`` counts the calls by kind (``all_reduce``, ``all_gather``), a
-tree reduced in one ``psum`` counting once; :func:`counted` gives the
-calls a block makes, which ``InSituSession.plan(hlo=True)`` reads for one
-epoch of each trainer tier (the port's counterpart of counting the
-collectives in compiled HLO).
+:func:`ppermute` is the
+exception: it moves one block per rank to another rank, so it takes and
+returns one value per rank (``[rank]``), each on its rank's device.
+
+``COUNTS`` counts the calls by kind (``all_reduce``, ``all_gather``,
+``collective_permute``), a tree reduced in one ``psum`` counting once;
+:func:`counted` gives the calls a block makes, which
+``InSituSession.plan(hlo=True)`` reads for one epoch of each trainer
+tier, one producer chunk and one serving drain (the port's counterpart of
+counting the collectives in compiled HLO, ``collective_permute`` standing
+for ``collective-permute``).
 """
 
 from __future__ import annotations
@@ -26,10 +32,11 @@ import torch
 from ..tree import tree_map
 from .sharding import Mesh
 
-__all__ = ["psum", "all_gather", "COUNTS", "reset_counts", "counted"]
+__all__ = ["psum", "all_gather", "ppermute", "COUNTS", "reset_counts",
+           "counted"]
 
 #: calls so far, by kind
-COUNTS = {"all_reduce": 0, "all_gather": 0}
+COUNTS = {"all_reduce": 0, "all_gather": 0, "collective_permute": 0}
 _lock = threading.Lock()
 
 
@@ -83,10 +90,30 @@ def psum(per_rank: Sequence, mesh: Mesh) -> dict:
     return _broadcast(total, mesh)
 
 
-def all_gather(shards: Sequence[torch.Tensor], mesh: Mesh) -> dict:
-    """The ranks' slab shards concatenated along the slot axis →
-    ``{device: slab}``."""
+def all_gather(shards: Sequence[torch.Tensor], mesh: Mesh,
+               dim: int = 0) -> dict:
+    """The ranks' blocks concatenated along ``dim`` (a slab's slot axis by
+    default) → ``{device: whole}``."""
     _per_rank(shards, mesh)
     _count("all_gather")
     home = mesh.devices[0]
-    return _broadcast(torch.cat([s.to(home) for s in shards]), mesh)
+    return _broadcast(torch.cat([s.to(home) for s in shards], dim=dim),
+                      mesh)
+
+
+def ppermute(per_rank: Sequence[torch.Tensor], mesh: Mesh,
+             perm: Sequence[tuple[int, int]]) -> list[torch.Tensor]:
+    """``lax.ppermute``: for each ``(source, dest)`` pair of ``perm``, rank
+    ``dest`` receives rank ``source``'s value on its own device; a rank no
+    pair names as a destination receives zeros → one value per rank."""
+    _per_rank(per_rank, mesh)
+    dests = [d for _, d in perm]
+    if len(set(dests)) != len(dests) \
+            or len({s for s, _ in perm}) != len(perm):
+        raise ValueError(f"ppermute: {perm} is not a permutation")
+    _count("collective_permute")
+    out: list = [None] * mesh.size
+    for src, dst in perm:
+        out[dst] = per_rank[src].to(mesh.devices[dst])
+    return [torch.zeros_like(per_rank[r], device=mesh.devices[r])
+            if o is None else o for r, o in enumerate(out)]

@@ -1,8 +1,10 @@
 """Meshes, the slab placement rule, and parameter specs.
 
 Port of ``src/repro/parallel/sharding.py``: :func:`data_mesh`,
-:func:`slab_sharding` and, from ``:254-301``, :class:`ParamSpec`,
-:func:`init_params` and :func:`lm_params_from_numpy`.
+:func:`space_mesh`, :func:`slab_sharding` and, from ``:254-301``,
+:class:`ParamSpec`, :func:`init_params` and :func:`lm_params_from_numpy`;
+and :class:`ElemSharding`, the port's stand-in for the ``NamedSharding``
+of one stored element (the co-located deployment's layout).
 
 The port is single-controller, as the reference is: one process holds the
 store, the producer and the trainer, and a mesh is an ordered list of
@@ -13,7 +15,7 @@ its collectives become the explicit functions of
 the caller lists it twice (``data_mesh(2, devices=["cuda:0"] * 2)``): the
 port's counterpart of the reference's forced host devices, and how one
 card runs a 2-rank mesh.  Multi-host ``torch.distributed`` is a later
-slice (``ROADMAP.md`` A5).  The logical axes of a :class:`ParamSpec` are
+slice (``ROADMAP.md`` A5.4).  The logical axes of a :class:`ParamSpec` are
 kept so a spec tree reads like the reference's; they place nothing.
 """
 
@@ -21,15 +23,16 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 
-__all__ = ["Mesh", "SlabSharding", "data_mesh", "slab_sharding",
-           "ParamSpec", "init_params", "lm_params_from_numpy"]
+__all__ = ["Mesh", "SlabSharding", "ElemSharding", "ElemShards", "data_mesh",
+           "space_mesh", "slab_sharding", "ParamSpec", "init_params",
+           "lm_params_from_numpy"]
 
 
 def _canonical(device) -> torch.device:
@@ -75,6 +78,84 @@ class SlabSharding:
         return rank * self.local_cap
 
 
+@dataclass(frozen=True)
+class ElemSharding:
+    """The layout of one stored element over a mesh: ``spec`` holds, for
+    each element dim, the mesh's axis name (that dim is cut into
+    ``mesh.size`` equal blocks, block ``r`` on rank ``r``'s device) or
+    ``None`` (whole on every rank); missing trailing entries are ``None``.
+    The port's counterpart of ``NamedSharding(mesh, PartitionSpec(*spec))``
+    over the element dims; a 1-D mesh cuts at most one dim."""
+
+    mesh: Mesh
+    spec: tuple = ()
+
+    def __post_init__(self):
+        spec = tuple(self.spec)
+        object.__setattr__(self, "spec", spec)
+        for entry in spec:
+            if entry is not None and entry != self.mesh.axis:
+                raise ValueError(f"elem spec {spec} names axis {entry!r}; "
+                                 f"the mesh has {self.mesh.axis!r}")
+        if sum(e is not None for e in spec) > 1:
+            raise ValueError(f"elem spec {spec} uses mesh axis "
+                             f"{self.mesh.axis!r} twice")
+
+    @property
+    def dim(self) -> int | None:
+        """The element dim cut over the mesh (``None``: replicated)."""
+        for i, entry in enumerate(self.spec):
+            if entry is not None:
+                return i
+        return None
+
+    @property
+    def num_devices(self) -> int:
+        return self.mesh.size
+
+    @property
+    def is_fully_replicated(self) -> bool:
+        return self.dim is None or self.mesh.size == 1
+
+    def local_shape(self, shape) -> tuple[int, ...]:
+        """One rank's block of an element of ``shape``."""
+        shape = tuple(shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"elem spec {self.spec} has more entries than "
+                             f"the element rank {len(shape)} (shape "
+                             f"{shape})")
+        if self.dim is None:
+            return shape
+        d = self.mesh.size
+        if shape[self.dim] % d:
+            raise ValueError(f"element dim {self.dim} of {shape} does not "
+                             f"divide over the {d}-rank {self.mesh.axis!r} "
+                             f"axis")
+        return shape[:self.dim] + (shape[self.dim] // d,) \
+            + shape[self.dim + 1:]
+
+    def split(self, x: torch.Tensor, lead: int = 0) -> list[torch.Tensor]:
+        """Each rank's block of ``x`` (``lead`` batch dims before the
+        element dims), contiguous on its rank's device."""
+        if self.dim is None:
+            return [x.to(d) for d in self.mesh.devices]
+        axis = lead + self.dim
+        blk = x.shape[axis] // self.mesh.size
+        return [x.narrow(axis, r * blk, blk).to(d).contiguous()
+                for r, d in enumerate(self.mesh.devices)]
+
+
+class ElemShards(NamedTuple):
+    """A value (or a batch of values, with leading batch dims) held as each
+    rank's block of its elements: ``blocks[r]`` is rank ``r``'s block, laid
+    out by ``placement``, on its rank's device.  What a domain-decomposed
+    producer emits (``sim.distributed.make_producer``); never assembled
+    unless a reader needs the whole element."""
+
+    blocks: tuple[torch.Tensor, ...]
+    placement: ElemSharding
+
+
 def data_mesh(n_devices: int | None = None, axis: str = "data",
               devices: Sequence | None = None) -> Mesh:
     """A 1-D mesh over ``axis`` for data parallelism.
@@ -97,6 +178,16 @@ def data_mesh(n_devices: int | None = None, axis: str = "data",
     if not devices:
         raise ValueError("a mesh needs at least one device")
     return Mesh(tuple(_canonical(d) for d in devices), axis)
+
+
+def space_mesh(n_devices: int | None = None, axis: str = "space",
+               devices: Sequence | None = None) -> Mesh:
+    """A 1-D mesh over ``axis`` for domain decomposition: the producer-side
+    twin of :func:`data_mesh` (the axis a halo-exchanged solver,
+    ``sim.distributed``, cuts its grid rows over, and the axis its element
+    layout carries into the store).  Ranks may share a device, as in
+    :func:`data_mesh`: ``space_mesh(2, devices=["cuda:0"] * 2)``."""
+    return data_mesh(n_devices, axis=axis, devices=devices)
 
 
 def slab_sharding(spec, mesh: Mesh | None) -> SlabSharding | None:

@@ -37,7 +37,9 @@ def test_scan_sees_the_whole_port():
     for module in ("kernels/attention/ops.py", "kernels/ssd/ops.py",
                    "models/lm.py", "serve/decode.py", "launch/serve.py",
                    "sim/reproducer.py", "ml/resnet.py", "sim/spectral.py",
-                   "core/locktrack.py", "configs/quadconv_ae.py"):
+                   "core/locktrack.py", "configs/quadconv_ae.py",
+                   "sim/halo.py", "sim/distributed.py",
+                   "core/deployment.py"):
         assert f"src/repro_torch/{module}" in names
     assert len([n for n in names if n.startswith("examples/torch_")]) == 5
     assert _imported_roots(REPO / "src" / "repro" / "core" / "store.py") \

@@ -155,6 +155,17 @@ def test_gather_kernel_exact(cuda, dtype, elem):
     assert torch.equal(out, sref.gather_rows_ref(slab, slots))
 
 
+def test_gather_kernel_exact_on_a_colocated_shard(cuda):
+    """The gather on one rank's shard of a co-located ring: rows of the
+    [2, 2048, 4096] fp32 block a 4,096^2 FD snapshot puts on each of 2
+    space ranks (32 MB a row), a separate allocation per rank."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shard = torch.randn((4, 2, 2048, 4096), generator=gen, device=cuda)
+    slots = torch.tensor([3, 0, 2, 3], dtype=torch.int32, device=cuda)
+    out = sops.gather_rows(shard, slots)
+    assert torch.equal(out, sref.gather_rows_ref(shard, slots))
+
+
 @pytest.mark.parametrize("elem", [
     (4, 2048),     # the training table's rows: 2 of a block's 1,024 units
     (4, 1000),     # 1,000 16-byte units: no multiple of the block's 1,024

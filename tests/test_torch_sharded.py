@@ -428,7 +428,8 @@ def test_collective_counts_by_entry():
             state, _ = epoch(table, state, ttr.draw_epoch(cfg, gen, "cpu"),
                              torch.zeros(4), torch.ones(4))
         assert C.COUNTS == {"all_gather": 3 * gathers,
-                            "all_reduce": 3 * reduces}, (slab, C.COUNTS)
+                            "all_reduce": 3 * reduces,
+                            "collective_permute": 0}, (slab, C.COUNTS)
 
 
 def test_slab_sharded_session_runs_as_planned():
@@ -451,7 +452,8 @@ def test_slab_sharded_session_runs_as_planned():
     # the bootstrap's gather
     n_batches = -(-(GATHER - 1) // BATCH)
     assert C.COUNTS == {"all_gather": 0, "all_reduce":
-                        (PLAN_EPOCHS + 1) * (1 + 2 * n_batches) + 1}
+                        (PLAN_EPOCHS + 1) * (1 + 2 * n_batches) + 1,
+                        "collective_permute": 0}
     hist = res.output("trainer").history
     assert len(hist) == PLAN_EPOCHS
     assert all(np.isfinite(h.train_loss) for h in hist)
