@@ -183,6 +183,28 @@ Phases, each printing one line (or a few):
    model through ``InSituSession`` with ``InferenceConsumer`` tiers
    ``three_step`` and ``fused_registry`` (``examples/insitu_inference.py``'s
    path), each ``ok``;
+15d. clustered fd — the ``[colocated fd]`` producer into a clustered
+   ring (``make_clustered_1d(db_fraction=0.5)`` over 4 ranks of this
+   card: 2 client ranks run the solver, 2 db ranks hold the ring cut
+   on dim 1), overlap on, off, and on with a dropped transfer: staged
+   transfers and op counts exact to the plan, a chunk's collectives the
+   halo's alone, the ring bit for bit ``[colocated fd]``'s and the
+   solver's, the three tables equal, a reordered-pipeline control that
+   must fail; a staged chunk's ms against its bytes bound, the share of
+   the staging the overlap hides, the idle share, peak memory;
+15e. clustered train — phase 8's workflow with the trainer in tier
+   ``slab_sharded_clustered`` (2 client ranks, the table slot-cut over 2
+   db ranks): params and losses ``torch.equal`` to ``[sharded]``'s
+   ``slab_sharded`` run, ``gather_stage`` == epochs, exact launches, an
+   epoch's collectives as predicted, epoch ms beside ``slab_sharded``'s;
+15f. clustered serve — phase 4's session on a 1 + 1 clustered store at
+   both tiers: responses ``torch.equal`` to phase 4's, ``request_stage``
+   32 and (three-step) ``response_stage`` 32, launches equal, requests/s
+   in ABBA turns with the local run;
+15g. fan-in — ``benchmarks/fig5_weak_scaling.py``'s clustered producer
+   (256 KB a step, 256 steps in chunks of 16) at fan-in 1, 2 and 3 over
+   8 ranks of this card, overlap on and off: counts exact, then the
+   fitted ``ContentionModel``, its residual and ``autotune_chunk``;
 16. checkpoint — a ``MemoryCheckpoint`` of a 4 MB state on the card,
    unchanged by an in-place update of the live state; then
    ``repro_torch.launch.train.run`` at the Phi-4-mini smoke config with
@@ -841,12 +863,14 @@ def microstep_breakdown(cfg, levels, params, batch) -> dict:
 
 def train_session(dev, cfg, fcfg, sequential: bool, counters,
                   label: str | None = None, mesh=None,
-                  slab_sharded: bool = False, faults=None) -> dict:
+                  slab_sharded: bool = False, faults=None,
+                  deployment=None, hlo: bool = False) -> dict:
     """The paper's workflow as one session: flat-plate producer → fused
     trainer (over ``mesh`` if given) → in-situ inference, checked end to
     end; under ``faults`` (a ``FaultPlan``) every component's dispatches,
     retries and restarts and the server's fault counters are held to the
-    plan's predictions."""
+    plan's predictions.  ``deployment`` places the store (default local);
+    ``hlo`` plans with ``plan(hlo=True)``."""
     from repro_torch.core import TableSpec
     from repro_torch.core import store as S
     from repro_torch.insitu import (InferenceConsumer, InSituSession,
@@ -900,8 +924,8 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
                             draws=tr.TrainDraws(draws.bootstrap,
                                                 timed_epochs())),
             InferenceConsumer("encoder", feed, steps=N_INF)],
-        faults=faults, device=dev)
-    plan = sess.plan()
+        faults=faults, deployment=deployment, device=dev)
+    plan = sess.plan(hlo=hlo)
     for k in counters:
         k.launches = 0
     torch.cuda.synchronize()
@@ -928,7 +952,8 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
             or not history[-1].train_loss < history[0].train_loss:
         raise AssertionError(f"{mode}: losses not finite and falling: "
                              f"{history}")
-    if stats["op_count"] != plan.store_dispatches:
+    if stats["op_count"] != plan.store_dispatches \
+            or stats["staged_transfers"] != plan.staged_transfers:
         raise AssertionError(f"{mode}: plan {plan.explain()} != stats "
                              f"{stats}")
     if faults is not None:
@@ -975,7 +1000,9 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
             "norm_stats": trainer.norm_stats,
             "trainer_ops": plan.component("trainer").store_dispatches,
             "epoch_ms": [a.elapsed_time(b) for a, b in zip(starts, ends)],
-            "plan": plan, "stats": stats, "server": res.server}
+            "plan": plan, "stats": stats, "server": res.server,
+            "staged_delta": {e.name: res.staged_delta(e.name)
+                             for e in plan.components}}
 
 
 def check_fault_predictions(mode: str, plan, res) -> None:
@@ -996,10 +1023,13 @@ def check_fault_predictions(mode: str, plan, res) -> None:
 
 
 def equal_tables(a, b) -> bool:
-    """Two ``TableState``s bit for bit (each shard of a sharded slab)."""
+    """Two ``TableState``s bit for bit (each shard of a sharded slab, the
+    slabs' placements equal)."""
     from repro_torch.tree import tree_leaves
-    return all(torch.equal(x, y) for x, y in zip(tree_leaves(tuple(a)),
-                                                 tree_leaves(tuple(b))))
+    la, lb = tree_leaves(tuple(a)), tree_leaves(tuple(b))
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(la, lb))
 
 
 def chaos_train_phase(dev, cfg, fcfg, counters) -> dict:
@@ -2256,7 +2286,7 @@ def sharded_phase(dev, cfg, fcfg, fused: dict) -> tuple[dict, dict]:
         "eight_epochs": eight, "control_rank_1_dropped": control}
     seconds["checks"] = time.perf_counter() - t0
     line["seconds"] = seconds
-    return row, line
+    return row, line, runs["slab_sharded"]
 
 
 def divergence(params, ref_params, losses, ref_losses) -> dict:
@@ -2665,7 +2695,7 @@ def face_reversed_exchange(mesh):
     return exchange
 
 
-def colocated_fd_phase(dev, counters) -> tuple[dict, dict]:
+def colocated_fd_phase(dev, counters) -> tuple[dict, dict, torch.Tensor]:
     """15b. ``[colocated fd]``: the distributed FD producer
     (``sim.distributed``, decaying turbulence from a seeded numpy-free
     draw) at ``FD_N``^2 on ``SHARDS`` space ranks of this card, its
@@ -2682,7 +2712,8 @@ def colocated_fd_phase(dev, counters) -> tuple[dict, dict]:
     ``FD_ATOL``); and, as a control that must fail that limit, one step
     with the halo faces' directions reversed.  Also the gather kernel on a
     shard's rows against its plain version.  Returns the phase's line and
-    the gather's row at the shard-local shape."""
+    the gather's row at the shard-local shape, and the ring as read
+    (``[clustered fd]`` holds its own ring to it)."""
     from repro_torch.core import Colocated, TableSpec
     from repro_torch.core import store as S
     from repro_torch.insitu import InSituSession, Producer
@@ -2756,7 +2787,6 @@ def colocated_fd_phase(dev, counters) -> tuple[dict, dict]:
     if bad:
         raise AssertionError(f"colocated fd: stored snapshots {bad} differ "
                              f"from the solver's state")
-    del values
     got = fd.unshard_state(a)
     gap = max(float((got.u - w.u).abs().max()),
               float((got.v - w.v).abs().max()))
@@ -2821,7 +2851,7 @@ def colocated_fd_phase(dev, counters) -> tuple[dict, dict]:
         "peak_mem_gb": peak / 1e9, "one_chunk_profile": prof}
     del sess, plan, a, s0
     torch.cuda.empty_cache()
-    return line, row
+    return line, row, values
 
 
 def colocated_serve_phase(dev, session, preload, local: dict,
@@ -2933,6 +2963,432 @@ def colocated_transfer_phase(dev, local_default: dict) -> dict:
             "reproducer_phase_local": {k: local_default[k] for k in keys},
             "reads_bit_identical": True,
             "deployment": runs[True][0]["deployment"]}
+
+
+def clustered_fd_session(dev, overlap: bool, steps: int = FD_STEPS,
+                         faults=None, warmup: bool = True):
+    """The ``[colocated fd]`` producer into a CLUSTERED ring: 4 ranks on
+    this card split 2 client (the producer's ``space`` mesh) + 2 db (the
+    ring, each element cut on dim 1 over them, ``fan_in`` 1).  Returns
+    the session and the producer's first state."""
+    from repro_torch.core import TableSpec, make_clustered_1d
+    from repro_torch.insitu import InSituSession, Producer
+    from repro_torch.sim import distributed as fd
+    d = make_clustered_1d(db_fraction=0.5, axis="space",
+                          devices=[dev] * (2 * SHARDS),
+                          elem_spec=(None, "space", None), overlap=overlap,
+                          faults=faults)
+    cfg = fd.FDConfig(n=FD_N, nu=FD_NU, dt=FD_DT, jacobi_iters=FD_ITERS)
+    noise = fd.draw_noise(cfg, torch.Generator().manual_seed(SEED), dev)
+    step_fn, s0, es = fd.make_producer(cfg, d.client_mesh,
+                                       init="decaying_turbulence",
+                                       noise=noise)
+    sess = InSituSession(
+        tables=[TableSpec("field", shape=(2, FD_N, FD_N), capacity=FD_CAP)],
+        components=[Producer(step_fn, table="field", steps=steps,
+                             chunk=FD_CHUNK, carry=s0, elem_sharding=es,
+                             warmup=warmup)],
+        deployment=d, device=dev)
+    return sess, s0, cfg, d
+
+
+def clustered_fd_phase(dev, counters, colocated_ring) -> dict:
+    """``[clustered fd]``: the halo-exchanged FD producer of ``[colocated
+    fd]`` (4,096², 48 steps in chunks of 16, tier
+    ``capture_scan_sharded``) into a clustered ring of 16 [2, 4096, 4096]
+    fp32 snapshots on 2 db ranks of this card: overlap on and off in ABBA
+    turns, then overlap on under a ``FaultPlan`` that drops the second
+    staged transfer.  Checks, each hard: staged transfers == the
+    plan's (3 chunk stages, plus the simulator's one restage on the
+    faulted run); op_count == the plan (the overlap's one drain, the
+    faulted run's drain-on-restage); a chunk's counted collectives
+    (``plan(hlo=True)``: collect, stage and insert) are the halo's
+    ``collective_permute`` and nothing else; a read of the whole ring
+    (probe once, the gather once per db shard) equals ``[colocated fd]``'s
+    ring and a fresh 2-rank solver run bit for bit; the runs'
+    tables ``torch.equal``; and, as a control that must fail, a staging
+    pipeline that inserts each new chunk before the in-flight one leaves
+    a different table.  Times: ms a step, a staged chunk (16 snapshots of
+    128 MiB, 2.15 GB; CUDA events) against its bytes bound, the share of
+    the staging that the overlap hides (the serial runs' mean producer
+    wall less the overlapped runs', against the three staged copies'
+    time), the device's idle share (a profiled 2-chunk run), peak
+    memory."""
+    from repro_torch.core import client as client_mod
+    from repro_torch.core import store as S
+    from repro_torch.core.deployment import StagingPipeline
+    from repro_torch.core.faults import FaultEvent, FaultPlan, RetryPolicy
+    from repro_torch.parallel import collectives as C
+    from repro_torch.sim import distributed as fd
+    keys = torch.stack([S.make_key(0, t)
+                        for t in range(FD_STEPS - FD_CAP, FD_STEPS)])
+    drop = FaultPlan(events=(FaultEvent("drop_chunk", table="field", at=1),),
+                     retry=RetryPolicy(interval=1e-4, max_interval=1e-3))
+    runs, first, line = {}, None, {}
+    # overlap and serial in ABBA turns, then the faulted run
+    for label, overlap, faults in (("overlap", True, None),
+                                   ("serial", False, None),
+                                   ("serial 2", False, None),
+                                   ("overlap 2", True, None),
+                                   ("overlap, dropped transfer", True, drop)):
+        sess, s0, cfg, d = clustered_fd_session(dev, overlap, faults=faults)
+        plan = sess.plan(hlo=label == "overlap")
+        entry = plan.component("producer")
+        for k in counters:
+            k.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = sess.run(plan=plan, sequential=True, max_wall_s=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if not res.ok:
+            raise AssertionError({n: c.error
+                                  for n, c in res.run.components.items()})
+        stats = res.server.stats()
+        want_staged = 3 + (faults is not None)
+        if not (stats["op_count"] == plan.store_dispatches
+                and stats["staged_transfers"] == plan.staged_transfers
+                == want_staged
+                and dict(entry.staged).get("chunk_stage") == 3
+                and dict(entry.dispatches).get("drain", 0) == int(overlap)):
+            raise AssertionError(f"clustered fd {label}: plan "
+                                 f"{plan.explain()} vs {stats}")
+        if label == "overlap":
+            chunk = dict(entry.collectives)
+            if entry.tier != "capture_scan_sharded" \
+                    or not chunk["collective-permute"] > 0 \
+                    or any(v for k, v in chunk.items()
+                           if k != "collective-permute"):
+                raise AssertionError(f"clustered fd: a chunk's "
+                                     f"collectives {chunk}")
+            line["chunk_collectives"] = chunk
+            line["reference_claim"] = entry.predicted_collectives
+            for k in counters:
+                k.launches = 0
+            with C.counted() as calls:
+                values, found = res.server.get_many("field", keys)
+            torch.cuda.synchronize()
+            launches = {k.symbol: k.launches for k in counters}
+            if launches != {"probe_slots": 1, "gather_rows": SHARDS,
+                            "sample_slots": 0, "quadconv_contract": 0} \
+                    or calls["all_gather"] != 1 or not bool(found.all()):
+                raise AssertionError(f"clustered fd: the read {launches} "
+                                     f"{calls}")
+            if not torch.equal(values, colocated_ring):
+                raise AssertionError("clustered fd: the ring differs from "
+                                     "[colocated fd]'s")
+            sharded = fd.make_step(cfg, d.client_mesh)
+            a, bad = s0, []
+            for t in range(FD_STEPS):
+                a = sharded(a)
+                if t >= FD_STEPS - FD_CAP and not torch.equal(
+                        values[t - (FD_STEPS - FD_CAP)], fd.snapshot(a)):
+                    bad.append(t)
+            if bad:
+                raise AssertionError(f"clustered fd: snapshots {bad} differ "
+                                     f"from the solver's state")
+            del values, a
+            line["read_launches"] = launches
+            first = res.server.checkout("field")
+        elif not equal_tables(first, res.server.checkout("field")):
+            raise AssertionError(f"clustered fd {label}: the table differs "
+                                 f"from the overlapped run's")
+        summary = res.run.timers.summary()
+        runs[label] = {
+            "op_count": stats["op_count"],
+            "plan_store_dispatches": plan.store_dispatches,
+            "staged_transfers": stats["staged_transfers"],
+            "plan_staged": dict(entry.staged),
+            "dispatch_detail": dict(entry.dispatches),
+            "retries": res.retries, "wall_s": wall,
+            "producer_wall_s": res.run.components["producer"].wall_s,
+            "ms_per_step": res.run.components["producer"].wall_s * 1e3
+            / FD_STEPS,
+            "send_ms_total": summary["send"]["total_s"] * 1e3
+            if "send" in summary else None,
+            "peak_mem_gb": peak / 1e9}
+        del res, sess, plan
+    del first
+    torch.cuda.empty_cache()
+    # the control: each new chunk inserted before the in-flight one
+    class Reordered(StagingPipeline):
+        def swap(self, staged):
+            if self._in_flight is None:
+                self._in_flight = staged
+                return None
+            return staged
+
+    real = client_mod.StagingPipeline
+    client_mod.StagingPipeline = Reordered
+    try:
+        sess, *_ = clustered_fd_session(dev, True, warmup=False)
+        res = sess.run(sequential=True, max_wall_s=600)
+    finally:
+        client_mod.StagingPipeline = real
+    if not res.ok:
+        raise AssertionError("clustered fd control did not run")
+    ctl_vals, ctl_found = res.server.get_many("field", keys)
+    if bool(ctl_found.all()) and torch.equal(ctl_vals, colocated_ring):
+        raise AssertionError("clustered fd: the reordered-pipeline control "
+                             "passed")
+    line["reordered_pipeline_control"] = {
+        "newest_chunk_found": int(ctl_found.sum()), "of": FD_CAP,
+        "failed": True}
+    del res, sess, ctl_vals
+    torch.cuda.empty_cache()
+    # one staged chunk's copies, alone: serial (current stream) and on
+    # the staging stream, against the bytes bound (read + write once)
+    sess, s0, cfg, d = clustered_fd_session(dev, True)
+    spec = sess.tables[0]
+    from repro_torch.parallel.sharding import ElemSharding, ElemShards
+    layout = ElemSharding(d.client_mesh, (None, "space", None))
+    blocks = tuple(torch.randn(FD_CHUNK, 2, FD_N // SHARDS, FD_N,
+                               device=dev) for _ in range(SHARDS))
+    chunk_v = ElemShards(blocks, layout)
+    k = torch.arange(FD_CHUNK, device=dev)
+    m = torch.ones(FD_CHUNK, dtype=torch.bool, device=dev)
+    nbytes = sum(b.numel() * 4 for b in blocks)
+    staged = d.stage_chunk(k, chunk_v, m, spec)
+    if not all(torch.equal(a, b) for a, b in zip(staged.values.blocks,
+                                                 blocks)):
+        raise AssertionError("clustered fd: a staged chunk differs")
+    del staged
+    serial_ms = time_ms(lambda: d.stage_chunk(k, chunk_v, m, spec), 10)
+
+    def async_stage():
+        d.stage_chunk(k, chunk_v, m, spec, donate=True).wait()
+
+    stream_ms = time_ms(async_stage, 10)
+    b, by = bound(2 * nbytes)
+    del blocks, chunk_v
+    torch.cuda.empty_cache()
+    # the idle share: a 2-chunk overlapped run, profiled
+    two, *_ = clustered_fd_session(dev, True, steps=2 * FD_CHUNK,
+                                   warmup=False)
+    prof = profile(lambda: two.run(sequential=True, max_wall_s=600))
+    del two, sess
+    torch.cuda.empty_cache()
+    hidden = statistics.mean(runs[k]["producer_wall_s"]
+                             for k in ("serial", "serial 2")) \
+        - statistics.mean(runs[k]["producer_wall_s"]
+                          for k in ("overlap", "overlap 2"))
+    line.update({
+        "grid": f"{FD_N}^2", "client_ranks": SHARDS, "db_ranks": SHARDS,
+        "fan_in": d.fan_in, "deployment": d.describe(),
+        "steps": FD_STEPS, "chunk": FD_CHUNK, "runs": runs,
+        "snapshots_bit_identical": FD_CAP,
+        "tables_equal_across_runs": True,
+        "staged_chunk": {"bytes": nbytes, "serial_ms": serial_ms,
+                         "staging_stream_ms": stream_ms, "bound_ms": b,
+                         "bound_by": by,
+                         "share_of_bound": b / serial_ms},
+        "overlap_hidden_ms": hidden * 1e3,
+        "staged_copies_ms": 3 * serial_ms,
+        "overlap_hidden_share": hidden * 1e3 / (3 * serial_ms),
+        "two_chunk_profile": prof})
+    return line
+
+
+def clustered_train_phase(dev, cfg, fcfg, counters, slab: dict) -> dict:
+    """``[clustered train]``: phase 8's in-situ workflow with the trainer
+    on a 2-rank client mesh and the table slot-partitioned on
+    ``Clustered(slab_axis="data")``'s 2-rank db mesh (4 ranks on this
+    card): tier ``slab_sharded_clustered``.  Checks, each hard: the
+    trained params and every epoch's losses ``torch.equal`` to
+    ``[sharded]``'s ``slab_sharded`` run (the same draws, the same rows);
+    ``gather_stage`` == epochs, and the run's staged transfers and
+    op_count == the plan; the sharded gather once per db shard per
+    staged gather and the bootstrap (no warm-up gather), the sample
+    kernel once per gather, QuadConv's launches equal to ``slab_sharded``'s;
+    an epoch's counted collectives (``plan(hlo=True)``) as predicted.
+    Prints the epoch ms beside ``slab_sharded``'s."""
+    from repro_torch.core import make_clustered_1d
+    from repro_torch.tree import tree_leaves
+    d = make_clustered_1d(db_fraction=0.5, devices=[dev] * (2 * SHARDS),
+                          slab_axis="data")
+    run = train_session(dev, cfg, fcfg, True, counters, label="clustered",
+                        mesh=d.client_mesh, slab_sharded=True, deployment=d,
+                        hlo=True)
+    plan, stats = run["plan"], run["stats"]
+    trainer = plan.component("trainer")
+    trainer.check_collectives()
+    coll = dict(trainer.collectives)
+    if run["tier"] != "slab_sharded_clustered" or coll["all-gather"] \
+            or not coll["all-reduce"] > 0:
+        raise AssertionError(f"clustered train: {run['tier']} {coll}")
+    if dict(trainer.staged) != {"gather_stage": EPOCHS} \
+            or stats["staged_transfers"] != plan.staged_transfers \
+            or run["staged_delta"]["trainer"] != EPOCHS:
+        raise AssertionError(f"clustered train: staged {stats} vs "
+                             f"{plan.explain()}")
+    gathers = run["trainer_ops"]          # the epochs and the bootstrap
+    want = {"gather_rows_sharded": SHARDS * gathers,
+            "sample_slots": gathers,
+            "quadconv_contract": slab["launches"]["quadconv_contract"]}
+    got = {k: run["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"clustered train: launches {got}, expected "
+                             f"{want}")
+    if not all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(run["state"]), tree_leaves(slab["state"]))) \
+            or [(h.train_loss, h.val_loss) for h in run["history"]] \
+            != [(h.train_loss, h.val_loss) for h in slab["history"]]:
+        raise AssertionError("clustered train: params or losses differ "
+                             "from slab_sharded's")
+    return {"tier": run["tier"], "deployment": plan.deployment,
+            "op_count": stats["op_count"],
+            "plan_store_dispatches": plan.store_dispatches,
+            "staged_transfers": stats["staged_transfers"],
+            "plan_staged": {e.name: dict(e.staged)
+                            for e in plan.components if e.staged},
+            "launches": run["launches"], "epoch_collectives": coll,
+            "equal_to_slab_sharded": True,
+            "epoch_ms": run["epoch_ms"],
+            "slab_sharded_epoch_ms": slab["epoch_ms"],
+            "peak_gb": run["peak_gb"], "wall_s": run["wall_s"],
+            "slab_sharded_wall_s": slab["wall_s"]}
+
+
+def clustered_serve_phase(dev, session, preload, local: dict,
+                          kernels) -> dict:
+    """``[clustered serve]``: phase 4's serving session (both tiers) on
+    ``make_clustered_1d(db_fraction=0.5)`` over 2 ranks of this card (one
+    client, one db), in turns with the local session (local, clustered,
+    clustered, local).  Every clustered response ``torch.equal`` to phase
+    4's local run at the same tier; plan == ``stats()``; ``request_stage``
+    32 at both tiers and ``response_stage`` 32 at ``three_step`` only; the
+    probe, gather and QuadConv launches equal to phase 4's; requests/s
+    of every run."""
+    from repro_torch.core import make_clustered_1d
+    out = {}
+    for tier, (want, local_launches) in local.items():
+        rates = {"local": [], "clustered": []}
+        for clustered in (False, True, True, False):
+            sess = session(tier, deployment=make_clustered_1d(
+                db_fraction=0.5, devices=[dev] * 2) if clustered else None)
+            plan = sess.plan()
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sess.run(plan=plan, sequential=True, preload=preload,
+                           max_wall_s=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.symbol: k.launches for k in kernels}
+            if not res.ok:
+                raise AssertionError({n: c.error
+                                      for n, c in res.run.components.items()})
+            resp = res.output("readers").responses
+            rates["clustered" if clustered else "local"].append(
+                len(resp) / wall)
+            if not clustered:
+                continue
+            stats = res.server.stats()
+            staged = {e.name: dict(e.staged) for e in plan.components
+                      if e.staged}
+            want_staged = {"writers": {"request_stage": CLIENTS * REQUESTS}}
+            if tier == "three_step":
+                want_staged["serving"] = {
+                    "response_stage": CLIENTS * REQUESTS}
+            if (stats["op_count"], stats["model_swaps"],
+                    stats["staged_transfers"]) != (
+                        plan.store_dispatches, plan.model_swaps,
+                        plan.staged_transfers) or staged != want_staged \
+                    or any(res.staged_delta(e.name) != e.staged_transfers
+                           for e in plan.components):
+                raise AssertionError(f"clustered serve {tier}: plan "
+                                     f"{plan.explain()} != stats {stats}")
+            if sorted(resp) != sorted(want) \
+                    or not all(torch.equal(resp[k], want[k]) for k in want):
+                raise AssertionError(f"clustered serve {tier}: responses "
+                                     f"differ from the local run's")
+            if launches != local_launches:
+                raise AssertionError(f"clustered serve {tier}: launches "
+                                     f"{launches}, local {local_launches}")
+            out[tier] = {
+                "deployment": plan.deployment, "requests": len(resp),
+                "responses_equal_local": True,
+                "op_count": stats["op_count"],
+                "predicted": plan.store_dispatches,
+                "staged_transfers": stats["staged_transfers"],
+                "plan_staged": staged, "launches": launches}
+            del res, sess
+        out[tier]["requests_per_s"] = rates
+    return out
+
+
+def fan_in_scenario(dev) -> dict:
+    """The paper's fan-in scenario, ungated but for its counts: the fused
+    256 KB-a-rank producer of ``benchmarks/fig5_weak_scaling.py``'s
+    clustered child (capacity 16, ``emit_every`` 1, 256 steps in chunks
+    of 16) at the ``db_fraction``s that give ``fan_in`` 1, 2 and 3 over 8
+    ranks of this card, overlap on and off, best of two runs each; the
+    staged and op counts held to the plan; the ``ContentionModel`` fitted
+    over the overlapped cells, its residual, and ``autotune_chunk``'s
+    choice."""
+    from repro_torch.core import TableSpec, make_clustered_1d
+    from repro_torch.core import store as S
+    from repro_torch.insitu import InSituSession, Producer
+    from repro_torch.insitu import plan as P
+    steps, chunk, msg = 256, 16, 256 * 1024
+    snap = torch.randn(msg // 4, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+
+    def step(carry, rank, t):
+        return carry + 1.0, S.make_key(rank, t), snap * carry
+
+    cells = []
+    for frac in (0.5, 0.375, 0.25):
+        for overlap in (True, False):
+            d = make_clustered_1d(db_fraction=frac, devices=[dev] * 8,
+                                  overlap=overlap)
+            walls = []
+            for _ in range(2):
+                sess = InSituSession(
+                    tables=[TableSpec("field", shape=(msg // 4,),
+                                      capacity=16)],
+                    components=[Producer(step, table="field", steps=steps,
+                                         carry=torch.zeros((), device=dev),
+                                         chunk=chunk)],
+                    deployment=d, device=dev)
+                plan = sess.plan()
+                res = sess.run(plan=plan, sequential=True, max_wall_s=600)
+                torch.cuda.synchronize()
+                if not res.ok:
+                    raise AssertionError("fan-in scenario did not run")
+                t = res.run.timers
+                walls.append(t.total("equation_solution") + t.total("send"))
+                stats = res.server.stats()
+                if (stats["op_count"], stats["staged_transfers"]) != (
+                        plan.store_dispatches, plan.staged_transfers) \
+                        or plan.staged_transfers != steps // chunk:
+                    raise AssertionError(f"fan-in {d.fan_in}: {stats} vs "
+                                         f"{plan.explain()}")
+            cells.append({"fan_in": d.fan_in, "overlap": overlap,
+                          "clients": d.client_mesh.size,
+                          "db": d.db_mesh.size,
+                          "steps_per_s": steps / min(walls),
+                          "step_bytes": msg,
+                          "dispatch_s": t.total("send")
+                          / max(1, stats["op_count"]),
+                          "staged_transfers": stats["staged_transfers"],
+                          "op_count": stats["op_count"]})
+    fit_cells = [c for c in cells if c["overlap"]]
+    model = P.ContentionModel.fit(fit_cells)
+    model = P.ContentionModel(model.t_base, model.k_fanin, model.step_bytes,
+                              t_dispatch=statistics.mean(
+                                  c["dispatch_s"] for c in fit_cells))
+    return {"cells": cells,
+            "model": {"t_base_s": model.t_base, "k_fanin_s": model.k_fanin,
+                      "t_dispatch_s": model.t_dispatch},
+            "residual": model.residual(fit_cells),
+            "autotune_chunk": {f: P.autotune_chunk(1, model, steps=steps,
+                                                   fan_in=f)
+                               for f in (1, 2, 3)}}
 
 
 def launch_floor(lib) -> dict:
@@ -3314,7 +3770,8 @@ def main() -> int:
 
     # 14. the slab-sharded data plane on a 2-rank mesh on this card
     torch.cuda.empty_cache()
-    sharded_row, sharded = sharded_phase(dev, tcfg, tfcfg, trained)
+    sharded_row, sharded, slab_run = sharded_phase(dev, tcfg, tfcfg,
+                                                   trained)
     print(f"[sharded] {json.dumps(sharded)}", flush=True)
 
     # 15. the paper's reproducer: transfer and ResNet-50 inference loops
@@ -3329,12 +3786,39 @@ def main() -> int:
         {"continuous_batch": (batched, launches),
          "three_step": (single, single_launches)}, kernels)
     print(f"[colocated serve] {smi} {json.dumps(colo_serve)}", flush=True)
-    colo_fd, gather["colocated"] = colocated_fd_phase(dev, counters)
+    colo_fd, gather["colocated"], colo_ring = colocated_fd_phase(
+        dev, counters)
     print(f"[colocated fd] {smi} {json.dumps(colo_fd)}", flush=True)
     print(f"[kernels] {json.dumps(gather['colocated'])}", flush=True)
     colo_transfer = colocated_transfer_phase(dev, repro_default)
     print(f"[colocated transfer] {smi} {json.dumps(colo_transfer)}",
           flush=True)
+
+    # 15d-g. the clustered deployment: client and db ranks on this card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    clu_fd = clustered_fd_phase(dev, counters, colo_ring)
+    del colo_ring
+    clu_fd["seconds"] = time.perf_counter() - t0
+    print(f"[clustered fd] {smi} {json.dumps(clu_fd)}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    clu_train = clustered_train_phase(
+        dev, tcfg, tfcfg, [sops.PROBE, sops.SAMPLE, sops.GATHER,
+                           sops.GATHER_SHARDED, qops.QUADCONV], slab_run)
+    clu_train["seconds"] = time.perf_counter() - t0
+    print(f"[clustered train] {smi} {json.dumps(clu_train)}", flush=True)
+    t0 = time.perf_counter()
+    clu_serve = clustered_serve_phase(
+        dev, session, preload,
+        {"continuous_batch": (batched, launches),
+         "three_step": (single, single_launches)}, kernels)
+    clu_serve["seconds"] = time.perf_counter() - t0
+    print(f"[clustered serve] {smi} {json.dumps(clu_serve)}", flush=True)
+    t0 = time.perf_counter()
+    fan_in = fan_in_scenario(dev)
+    fan_in["seconds"] = time.perf_counter() - t0
+    print(f"[fan-in] {smi} {json.dumps(fan_in)}", flush=True)
 
     # 16. checkpoints: in memory on the card, and the launcher's resume
     torch.cuda.empty_cache()
@@ -3361,6 +3845,11 @@ def main() -> int:
                 "launches"].get(name, 0),
             "colocated fd": colo_fd["launches"][name],
             "colocated transfer": colo_transfer["colocated"][0][
+                "launches"].get(name, 0),
+            "clustered fd (the ring's read)": clu_fd["read_launches"].get(
+                name, 0),
+            "clustered train": clu_train["launches"].get(name, 0),
+            "clustered serve": clu_serve["continuous_batch"][
                 "launches"].get(name, 0)}
         if row["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
@@ -3410,6 +3899,11 @@ def main() -> int:
     rows.insert(3, dict(
         sharded_row, path="insitu slab_sharded (2 ranks on one card)",
         launches=sharded["slab_sharded"]["launches"]["gather_rows_sharded"],
+        launches_by_path={
+            "slab_sharded": sharded["slab_sharded"]["launches"][
+                "gather_rows_sharded"],
+            "clustered train (2 db ranks)": clu_train["launches"][
+                "gather_rows_sharded"]},
         kernel_ms=sharded_row["ms"]))
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -20,8 +20,17 @@ server inserts it exactly once (``StoreServer.apply_chunk``), the whole
 attempt inside the retry boundary and against the original carry.
 ``capture_scan(elem_sharding=...)`` is the domain-decomposed producer's
 capture (the ``capture_scan_sharded`` tier): on a co-located table each
-rank's block is written into its own shard.  The staged (cross-mesh)
-capture paths of the ``Clustered`` deployment are ``ROADMAP.md`` A5.2.
+rank's block is written into its own shard.
+
+On a ``Clustered`` deployment every chunk takes the logged path too,
+armed or not, and crosses to the db mesh in ONE staged hop: serially
+(``StoreServer.apply_chunk``), or with ``overlap`` through the two-slot
+pipeline (:class:`~.deployment.StagingPipeline`): chunk N's copies are
+enqueued on the staging stream, the previous chunk is inserted in the
+same capture, and chunk N's insert waits for the next capture, for
+:meth:`drain_captures` at capture end, or for the drain-on-restage
+flush after a dropped transfer.  ``sample_staged`` is the clustered
+read: gathered on the db mesh, one hop back.
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ from typing import Callable, Sequence
 import torch
 
 from . import store as S
-from .faults import StoreTimeout, call_with_retry
+from .deployment import StagingPipeline
+from .faults import StoreTimeout, TransferDropped, call_with_retry
 from .server import StoreServer
 from .telemetry import Timers, poll_backoff
 
@@ -52,6 +62,8 @@ class Client:
         self.restarts = 0
         self.straggler_events = 0
         self._seq = 0            # next logged chunk's sequence number
+        # two-slot overlap pipelines, one per table (clustered fused tier)
+        self._staging: dict[str, StagingPipeline] = {}
         S.name_key("__warmup__")
         self.timers.record("client_init", time.perf_counter() - t0)
 
@@ -222,25 +234,49 @@ class Client:
                              "spread over the mesh")
         spec = self.server.spec(table)
         clocks = S._rank_clocks(t0, n_ranks or 1)
-        if self.server.wal_enabled:
+        dep = self.server.deployment
+        staged = dep is not None and dep.crosses_mesh
+        # a crossing deployment must go collect → stage → masked insert;
+        # an armed FaultPlan routes every deployment through the same
+        # logged path, because exactly-once needs the chunk boundary
+        if staged or self.server.wal_enabled:
             puts = S.capture_emit_count(length, emit_every, clocks[0]) \
                 * (n_ranks or 1)
             chunk_id = (self.rank, self._seq)
             self._seq += 1
+            overlap = staged and getattr(dep, "overlap", False)
 
             def attempt():
-                with self.server.capture(table) as txn:
-                    if n_ranks is None:
-                        new_carry, keys, vals, mask = S.capture_scan_collect(
-                            spec, step_fn, carry, length, emit_every,
-                            t0=clocks[0], elem_sharding=elem_sharding)
-                    else:
-                        new_carry, keys, vals, mask = \
-                            S.capture_scan_collect_multi(
-                                spec, step_fn, carry, length, n_ranks,
-                                emit_every, t0=clocks)
-                    self.server.apply_chunk(table, chunk_id, txn, keys,
-                                            vals, mask, puts)
+                try:
+                    with self.server.capture(table) as txn:
+                        if n_ranks is None:
+                            new_carry, keys, vals, mask = \
+                                S.capture_scan_collect(
+                                    spec, step_fn, carry, length,
+                                    emit_every, t0=clocks[0],
+                                    elem_sharding=elem_sharding)
+                        else:
+                            new_carry, keys, vals, mask = \
+                                S.capture_scan_collect_multi(
+                                    spec, step_fn, carry, length, n_ranks,
+                                    emit_every, t0=clocks)
+                        if overlap:
+                            # two slots: this chunk's copies in flight,
+                            # the previous chunk inserted now (collect
+                            # order, one capture late)
+                            pending = self.server.stage_chunk_logged(
+                                table, chunk_id, keys, vals, mask, puts)
+                            prev = self._pipeline(table).swap(pending)
+                            if prev is not None:
+                                self.server.insert_chunk(table, txn, prev)
+                        else:
+                            self.server.apply_chunk(table, chunk_id, txn,
+                                                    keys, vals, mask, puts)
+                except TransferDropped:
+                    # drain-on-restage: flush the surviving in-flight slot
+                    # before the retry re-collects and re-stages
+                    self.drain_captures(table)
+                    raise
                 return new_carry
 
             with self.timers.time("send"):
@@ -262,6 +298,27 @@ class Client:
                         emit_every, t0=clocks, on_put=commit)
         return carry
 
+    def _pipeline(self, table: str) -> StagingPipeline:
+        pipe = self._staging.get(table)
+        if pipe is None:
+            pipe = self._staging[table] = StagingPipeline()
+        return pipe
+
+    def drain_captures(self, table: str) -> None:
+        """Flush the two-slot staging pipeline: insert the in-flight
+        chunk in one capture.  Called at capture end (an overlapped
+        producer run ends with exactly one chunk in flight: the plan's ONE
+        ``drain`` op) and on a dropped transfer's restage (recovery
+        overhead, which ``faults.simulate_overhead`` predicts).  A no-op,
+        no op counted, when nothing is in flight."""
+        pipe = self._staging.get(table)
+        prev = pipe.drain() if pipe is not None else None
+        if prev is None:
+            return
+        with self.timers.time("send"):
+            with self.server.capture(table) as txn:
+                self.server.insert_chunk(table, txn, prev)
+
     # -- consumer-side loaders ------------------------------------------------
 
     def sample_batch(self, table: str, n: int, draw):
@@ -274,6 +331,21 @@ class Client:
                 "sample", table, lambda: self.server.sample(table, draw))
             box[0] = values
         return values, keys, ok
+
+    def sample_staged(self, table: str, n: int, draw):
+        """The clustered random gather: ``n`` elements sampled on the
+        store mesh and brought back to the clients in ONE counted staged
+        transfer (``StoreServer.sample_staged``) → ``(values [n, *shape],
+        ok)``.  ``draw`` holds ``n`` uniforms in ``[0, 1)``, as for
+        :meth:`sample_batch`."""
+        if len(draw) != n:
+            raise ValueError(f"sample_staged: {len(draw)} draws for n={n}")
+        with self.timers.time("retrieve") as box:
+            values, ok = self._call_verb(
+                "sample_staged", table,
+                lambda: self.server.sample_staged(table, draw))
+            box[0] = values
+        return values, ok
 
     def capture_epoch(self, table: str, body):
         """One read-only capture through the fault boundary;

@@ -28,9 +28,9 @@ duplicated one hits the acknowledged-id set and is a no-op.  A store
 restart replays the write-ahead log's tail from the last snapshot: the
 same entries in the same order from the same state give the same bytes.
 
-The clustered deployment's two-slot overlap pipeline (``ROADMAP.md`` A5)
-is not in the port, so the simulator raises on a schedule entry that asks
-for it.
+On a clustered deployment the simulator also walks the two-slot overlap
+pipeline (a drop flushes the in-flight chunk in its own op before the
+restage) and counts the re-staged hops (``extra_staged``).
 """
 
 from __future__ import annotations
@@ -359,8 +359,7 @@ def simulate_overhead(plan: FaultPlan, schedule, crosses_mesh: bool
     * producer per-verb: ``{kind, name, tier: "per_verb", table, steps,
       emit_every, ranks}``
     * producer fused: ``{kind, name, tier, table, n_chunks, overlap}``
-      (a true ``overlap``, the clustered two-slot staging pipeline,
-      raises: ``ROADMAP.md`` A5)
+      (``overlap``: the clustered two-slot staging pipeline)
     * trainer: ``{kind, name, tier, table, epochs, bootstrap}``
     * inference: ``{kind, name, tier, steps}``
     * serving clients: ``{kind, name, tier, table, results, requests,
@@ -422,6 +421,37 @@ def simulate_overhead(plan: FaultPlan, schedule, crosses_mesh: bool
             break
         _commit(o, table)
 
+    def _overlap_capture(o: Overhead, table: str, pending: bool) -> bool:
+        # mirrors the two-slot pipeline in Client.capture_scan: verb
+        # attempt, then THIS chunk's staging attempt (hop paid before the
+        # drop check, dup pays one more).  A drop triggers the drain-on-
+        # restage flush — the surviving in-flight slot commits in its own
+        # recovery op — before the retry re-collects and re-stages.  A
+        # successful stage swaps slots: the PREVIOUS chunk commits in
+        # this capture, the new chunk becomes the in-flight slot.
+        while True:
+            try:
+                inj.on_verb("capture", table)
+            except StoreUnavailable:
+                o.retries += 1
+                continue
+            try:
+                dup = inj.on_stage(table)
+            except TransferDropped:
+                o.retries += 1
+                if crosses_mesh:
+                    o.extra_staged += 1
+                if pending:
+                    o.extra_ops += 1      # the drain-on-restage op
+                    _commit(o, table)
+                    pending = False
+                continue
+            if dup and crosses_mesh:
+                o.extra_staged += 1
+            if pending:
+                _commit(o, table)
+            return True
+
     def _serve_chunk(o: Overhead, table: str) -> None:
         # mirrors Client.serve_batch: verb attempt, then the injector's
         # stage hook on the results table (a drop retries the whole fused
@@ -462,12 +492,18 @@ def simulate_overhead(plan: FaultPlan, schedule, crosses_mesh: bool
                         _commit(o, comp["table"])
         elif kind == "producer":
             if comp.get("overlap"):
-                raise NotImplementedError(
-                    "the overlapped staging pipeline of a Clustered "
-                    "deployment: ROADMAP.md A5")
-            for i in range(comp["n_chunks"]):
-                _crash_point(o, comp["name"], i)
-                _logged_capture(o, comp["table"])
+                pending = False
+                for i in range(comp["n_chunks"]):
+                    _crash_point(o, comp["name"], i)
+                    pending = _overlap_capture(o, comp["table"], pending)
+                if pending:
+                    # the capture-end drain: its op is part of the base
+                    # plan (("drain", 1)), only its commit walks here
+                    _commit(o, comp["table"])
+            else:
+                for i in range(comp["n_chunks"]):
+                    _crash_point(o, comp["name"], i)
+                    _logged_capture(o, comp["table"])
         elif kind == "trainer":
             if comp["bootstrap"]:
                 _verb(o, "sample", comp["table"])

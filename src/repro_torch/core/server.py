@@ -23,14 +23,20 @@ tail).  The write verbs update a table in place, so :meth:`snapshot`,
 (``store.copy_state``), and the log holds copies of the payloads it is
 given.
 
-**Deployments.**  ``deployment=Colocated(...)`` (``core.deployment``)
-places every table by the deployment's rule (``slab_sharding(spec)``: an
-element cut over the producer's mesh, so a domain-decomposed emission is
-written rank-local); its ``faults`` arm the server when ``faults`` is not
-given.  Nothing crosses a mesh, so ``staged_transfers`` stays 0.  The
-``Clustered`` deployment (the dedicated store mesh, with the overlap
-pipeline's ``stage_chunk_logged``/``insert_chunk``) is ``ROADMAP.md`` A5.2
-and raises here.
+**Deployments.**  A deployment (``core.deployment``) places every table
+by its rule (``slab_sharding(spec)``) and its ``faults`` arm the server
+when ``faults`` is not given.  ``Colocated(...)`` cuts each element over
+the producer's mesh, so a domain-decomposed emission is written
+rank-local; nothing crosses a mesh and ``staged_transfers`` stays 0.
+``Clustered(...)`` keeps the tables on its db mesh, which must hold the
+server's device: every write verb stages its payload onto that mesh
+first (``_staged``, ``_staged_batch``), a fused chunk crosses in ONE hop
+(:meth:`stage_chunk`, :meth:`apply_chunk`, or the overlap pipeline's
+:meth:`stage_chunk_logged` then :meth:`insert_chunk`), and
+:meth:`sample_staged` gathers on the db mesh and moves the batch back
+to the clients.  ``staged_transfers`` counts one per hop, where the
+reference counts: a dropped transfer has paid its hop, a duplicated one
+pays one more, and a deferred insert never counts.
 """
 
 from __future__ import annotations
@@ -43,13 +49,43 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.sharding import _canonical
+from ..tree import tree_map
 from . import store as S
-from .deployment import check_deployment
+from .deployment import Colocated, check_deployment
 from .faults import (FaultInjector, FaultPlan, StoreTimeout,
                      WatermarkTimeout)
 from .telemetry import Timers, poll_backoff
 
-__all__ = ["StoreServer", "CaptureTxn"]
+__all__ = ["StoreServer", "CaptureTxn", "PendingChunk"]
+
+
+class PendingChunk:
+    """An in-flight slot of the overlap staging pipeline: the chunk's
+    ``stage_chunk`` copies are enqueued (and its hop counted) but its
+    masked insert has not run.  ``keys``/``values``/``mask`` are the
+    *staged* (db-placed, store-owned) tensors and ``staged`` the
+    deployment's ``StagedChunk`` (its copies' event and sources), so the
+    deferred :meth:`StoreServer.insert_chunk` is a db-mesh op with no
+    further hop."""
+
+    __slots__ = ("chunk_id", "keys", "values", "mask", "puts", "staged")
+
+    def __init__(self, chunk_id: tuple, keys, values, mask, puts: int,
+                 staged=None):
+        self.chunk_id = chunk_id
+        self.keys = keys
+        self.values = values
+        self.mask = mask
+        self.puts = puts
+        self.staged = staged
+
+    def wait(self) -> None:
+        """Order the current stream after the chunk's copies (a no-op
+        where they ran in stream order)."""
+        if self.staged is not None:
+            self.staged.wait()
+
 
 class CaptureTxn:
     """One capture transaction on a single table.
@@ -80,6 +116,11 @@ class StoreServer:
             faults = getattr(deployment, "faults", None)
         self.timers = timers or Timers()
         self.device = resolve_device(device)
+        db_mesh = getattr(self.deployment, "db_mesh", None)
+        if db_mesh is not None \
+                and _canonical(self.device) not in db_mesh.distinct_devices:
+            raise ValueError(f"server device {self.device} is not on the "
+                             f"clustered db mesh {db_mesh.devices}")
         self._lock = threading.RLock()           # registries + metadata only
         self._table_locks: dict[str, threading.RLock] = {}
         self._specs: dict[str, S.TableSpec] = {}
@@ -93,7 +134,8 @@ class StoreServer:
         self._meta_event = threading.Condition(self._lock)
         self._ops_lock = threading.Lock()
         self.op_count = 0                        # dispatched store ops
-        self.staged_transfers = 0                # 0: no deployment crosses
+        self.staged_transfers = 0                # cross-mesh staging hops
+        self._gathers: dict[tuple, Callable] = {}  # clustered gather cache
         # the fault/recovery machinery, armed by a declared FaultPlan (an
         # empty one too: a fault-free baseline takes this path as well)
         self.faults = FaultInjector(faults) if faults is not None else None
@@ -108,6 +150,10 @@ class StoreServer:
     def _bump_ops(self, n: int = 1) -> None:
         with self._ops_lock:
             self.op_count += n
+
+    def _bump_staged(self, n: int = 1) -> None:
+        with self._ops_lock:
+            self.staged_transfers += n
 
     def _bump_retry(self, n: int = 1) -> None:
         with self._ops_lock:
@@ -198,32 +244,121 @@ class StoreServer:
         if committed:
             self._after_commit(table)
 
+    # -- staging (the clustered deployment's hops) ---------------------------
+
+    def _crossing(self) -> bool:
+        dep = self.deployment
+        return dep is not None and dep.crosses_mesh
+
+    def _staged(self, value, spec: S.TableSpec | None = None):
+        """Stage one element onto the store placement (the per-verb path),
+        in the table's own element layout, counting one staged transfer
+        when the deployment crosses meshes."""
+        if not self._crossing():
+            return value
+        self._bump_staged()
+        return self.deployment.stage(value, spec)
+
+    def _staged_batch(self, values, spec: S.TableSpec | None = None):
+        """Stage a batch (any leading batch dims) in ONE transfer."""
+        if not self._crossing():
+            return values
+        self._bump_staged()
+        return self.deployment.stage_batch(values, spec)
+
+    def stage_chunk(self, table: str, keys, values, mask):
+        """Stage a whole collected chunk (keys, values, emit mask) onto
+        the store placement as ONE counted hop; a no-op, not counted, on a
+        deployment that never crosses meshes."""
+        if not self._crossing():
+            return keys, values, mask
+        self._bump_staged()
+        return tuple(self.deployment.stage_chunk(keys, values, mask,
+                                                 self._specs[table]))
+
     # lint: holds-lock — runs inside the caller's capture txn (table lock)
     def apply_chunk(self, table: str, chunk_id: tuple, txn: CaptureTxn,
                     keys, values, mask, puts: int) -> None:
         """Exactly-once insert of one collected chunk
         (``store.capture_scan_collect[_multi]``) into ``txn``'s table: the
-        write path of every fused capture once a ``FaultPlan`` is armed.
+        write path of every fused capture once a ``FaultPlan`` is armed
+        or the deployment crosses meshes.
 
         ``chunk_id`` is the client's stable ``(rank, seq)``: the SAME id
-        on every retry of one chunk, a new id per chunk.  The injector is
-        consulted first: a declared drop raises ``TransferDropped`` before
-        anything is applied (the client retries under the same id), a
-        declared duplicate delivers the chunk twice and the acknowledged
-        set makes the second delivery a no-op (``put_masked`` is not
-        idempotent: ``ptr`` and ``count`` advance on every apply).  The
-        applied chunk is logged for replay."""
+        on every retry of one chunk, a new id per chunk.  On a crossing
+        deployment the hop is counted first; then the injector is
+        consulted: a declared drop raises ``TransferDropped`` before
+        anything is applied (the hop is paid; the client retries under the
+        same id), a declared duplicate delivers the chunk twice (one more
+        hop) and the acknowledged set makes the second delivery a no-op
+        (``put_masked`` is not idempotent: ``ptr`` and ``count`` advance
+        on every apply).  The applied chunk, staged, is logged for
+        replay."""
         spec = self._specs[table]
-        if self.faults is not None:
-            # a declared duplicate's second delivery finds its id acked
-            self.faults.on_stage(table)
+        crossing = self._crossing()
+        if crossing:
+            self._bump_staged()
+        dup = self.faults.on_stage(table) if self.faults is not None \
+            else False
         if chunk_id not in self._acked:
+            if crossing:
+                keys, values, mask = self.deployment.stage_chunk(
+                    keys, values, mask, spec)
             txn.state = S.put_masked(spec, txn.state, keys, values, mask)
             txn.puts = puts
             self._acked.add(chunk_id)
             if self.wal_enabled:
                 self._wal[table].append(("chunk", (keys, values, mask),
                                          puts))
+        if dup and crossing:
+            # the duplicate delivery crosses too; the ack set drops it
+            self._bump_staged()
+
+    def stage_chunk_logged(self, table: str, chunk_id: tuple, keys, values,
+                           mask, puts: int) -> PendingChunk:
+        """First half of the overlapped exactly-once apply
+        (:meth:`apply_chunk` split at the wire): count the hop, consult
+        the injector, enqueue the chunk's copies on the staging stream
+        (``stage_chunk(..., donate=True)``) and hand back the in-flight
+        :class:`PendingChunk` for the client's two-slot pipeline.  The
+        hop counts once per crossing, at stage time, exactly as on the
+        serial path; the deferred insert never counts."""
+        spec = self._specs[table]
+        crossing = self._crossing()
+        if crossing:
+            self._bump_staged()
+        # may raise TransferDropped (hop paid, nothing in flight)
+        dup = self.faults.on_stage(table) if self.faults is not None \
+            else False
+        staged = None
+        if crossing:
+            staged = self.deployment.stage_chunk(keys, values, mask, spec,
+                                                 donate=True)
+            keys, values, mask = staged
+        if dup and crossing:
+            self._bump_staged()
+        return PendingChunk(chunk_id, keys, values, mask, puts, staged)
+
+    # lint: holds-lock — runs inside the caller's capture txn (table lock)
+    def insert_chunk(self, table: str, txn: CaptureTxn,
+                     pending: PendingChunk) -> None:
+        """Second half of the overlapped apply: the masked insert of an
+        in-flight staged chunk inside the caller's capture txn, after its
+        copies (the current stream waits on their event).
+        Deduplicated by the ack set like :meth:`apply_chunk` and logged
+        with the staged tensors, which the store owns, so a restart
+        replays it byte for byte."""
+        pending.wait()
+        if pending.chunk_id in self._acked:
+            return
+        spec = self._specs[table]
+        txn.state = S.put_masked(spec, txn.state, pending.keys,
+                                 pending.values, pending.mask)
+        txn.puts += pending.puts
+        self._acked.add(pending.chunk_id)
+        if self.wal_enabled:
+            self._wal[table].append(("chunk", (pending.keys, pending.values,
+                                               pending.mask), pending.puts))
 
     def _after_commit(self, table: str) -> None:
         """The declared operator actions at a commit boundary: ``snapshot``
@@ -239,18 +374,27 @@ class StoreServer:
 
     # -- verbs ---------------------------------------------------------------
 
-    def _logged(self, spec: S.TableSpec, keys, values):
-        """A write's payload on the table's device; copied when the log
-        keeps it, since the caller may reuse its tensors."""
+    def _logged(self, spec: S.TableSpec, keys, values, batch: bool = True):
+        """A write's payload on the table's device, staged onto the store
+        placement first on a crossing deployment (one counted hop:
+        ``batch`` for the batched verbs); copied when the log keeps it,
+        since the caller may reuse its tensors (a staged payload is
+        already the store's own copy)."""
+        staged = self._crossing()
+        if staged:
+            values = self._staged_batch(values, spec) if batch \
+                else self._staged(values, spec)
         keys = S._as_keys(keys, self.device)
         values = S._as_values(spec, values, self.device)
         if self.wal_enabled:
-            keys, values = keys.clone(), S._rows(values, torch.clone)
+            keys = keys.clone()
+            if not staged:
+                values = S._rows(values, torch.clone)
         return keys, values
 
     def put(self, table: str, key, value) -> None:
         spec = self._specs[table]
-        key, value = self._logged(spec, key, value)
+        key, value = self._logged(spec, key, value, batch=False)
         with self._table_locks[table]:
             self._state[table] = S.put(spec, self._state[table], key, value)
             self._counts[table] += 1
@@ -364,6 +508,40 @@ class StoreServer:
         self._bump_ops()
         return out
 
+    def _clustered_gather(self, table: str, n: int) -> Callable:
+        """The cached db-mesh gather of ``sample_staged`` (one per table
+        and batch size; ``store.make_clustered_gather``), its shard count
+        by the deployment's rule (``Clustered.gather_shards``)."""
+        key = (table, n)
+        fn = self._gathers.get(key)
+        if fn is None:
+            spec = self._specs[table]
+            dep = self.deployment
+            shards = dep.gather_shards(spec) \
+                if hasattr(dep, "gather_shards") else 1
+            fn = S.make_clustered_gather(
+                spec, n, db_mesh=getattr(dep, "db_mesh", None),
+                axis=getattr(dep, "slab_axis", None), shards=shards)
+            with self._lock:
+                self._gathers[key] = fn
+        return fn
+
+    def sample_staged(self, table: str, draw: torch.Tensor):
+        """The clustered read verb: sample ``n = len(draw)`` elements ON
+        the store mesh (the shard-local gather and one ``psum`` when the
+        slab's slot axis is cut), then move the batch onto the clients in
+        ONE counted staged transfer.  One store op, like :meth:`sample`;
+        off a crossing deployment a plain sample, nothing staged.
+        Returns ``(values [n, *shape], ok)``."""
+        gather = self._clustered_gather(table, len(draw))
+        with self._table_locks[table]:
+            values, ok = gather(self._state[table], draw)
+        if self._crossing():
+            values, ok = self.deployment.stage_to_clients((values, ok))
+            self._bump_staged()
+        self._bump_ops()
+        return values, ok
+
     def latest(self, table: str, n: int):
         """The ``n`` newest elements (``store.latest``)."""
         spec = self._specs[table]
@@ -380,8 +558,10 @@ class StoreServer:
         return bool(hit)
 
     def stats(self) -> dict:
-        """Telemetry snapshot: dispatched-op count, staged transfers (0 on
-        the local deployment), fault counters, model swaps and every
+        """Telemetry snapshot: dispatched-op count, staged transfers (the
+        clustered deployment's hops: one per staged verb element or batch,
+        one per fused chunk, one per staged gather; 0 elsewhere), fault
+        counters, model swaps and every
         table's cached watermark — the reference's keys — and
         ``slab_bytes``, each table's slab bytes by device."""
         with self._lock:
@@ -472,7 +652,12 @@ class StoreServer:
         explicit here.)  Each call bumps the key's version — the serving
         loop's hot-swap watermark.  ``jit_compile`` is the reference's
         signature: eager PyTorch has no compile step, so it changes
-        nothing here."""
+        nothing here.  On a clustered deployment the params are staged
+        onto the store placement (copied, not counted, as in the
+        reference)."""
+        dep = self.deployment
+        if dep is not None and not isinstance(dep, Colocated):
+            params = tree_map(dep.stage, params)
         with self._lock:
             self._models[key] = (apply_fn, params)
             self._model_versions[key] = \

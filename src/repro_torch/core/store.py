@@ -3,7 +3,8 @@
 Port of ``src/repro/core/store.py``: tables, the write verbs and
 ``delete``, the batched gets, ``latest`` and ``poll``, the serving
 dispatch, the trainer's random gather (``sample``), its slab-sharded form
-(``sample_sharded_impl``) and the producer's capture family with its
+(``sample_sharded_impl``), its clustered form on a dedicated db mesh
+(``make_clustered_gather``) and the producer's capture family with its
 collect-only form (``capture_scan_collect[_multi]``: the chunk a server
 armed with a ``FaultPlan`` inserts exactly once).  Each table is a fixed-capacity slab
 ``[capacity, *elem_shape]`` on the device plus per-slot metadata
@@ -101,7 +102,9 @@ __all__ = [
     "latest", "poll", "delete", "valid_count", "table_bytes", "slab_bytes",
     "copy_state", "capture_scan", "capture_scan_multi",
     "capture_scan_collect", "capture_scan_collect_multi",
-    "capture_emit_count", "capture_emit_count_multi", "capture_rows", "bucket_length", "MIN_BUCKET", "EMPTY_KEY", "KEY_DTYPE",
+    "capture_emit_count", "capture_emit_count_multi", "capture_rows",
+    "bucket_length", "make_clustered_gather", "MIN_BUCKET", "EMPTY_KEY",
+    "KEY_DTYPE",
 ]
 
 
@@ -888,12 +891,35 @@ def delete(spec: TableSpec, state: TableState, key) -> TableState:
     return state
 
 
-def _not_ported(name: str, item: str) -> Callable:
-    def fn(*_args, **_kwargs):
-        raise NotImplementedError(f"store.{name}: ROADMAP.md {item}")
-    fn.__name__ = name
-    return fn
+def make_clustered_gather(spec: TableSpec, n: int, db_mesh=None,
+                          axis: str | None = None, shards: int = 1,
+                          mode: str | None = None) -> Callable:
+    """The db-mesh half of the clustered read path: ONE store op sampling
+    ``n`` elements from the table on its own mesh.
 
+    With ``shards > 1`` the slab is slot-partitioned over the db mesh
+    (``axis`` names its axis) and the gather runs shard-local:
+    :func:`sample_sharded_impl`, the ``gather_sharded`` kernel once per db
+    shard and one ``psum``; the assembled batch then leaves the mesh in
+    the caller's staged transfer.  Otherwise :func:`sample` (the plain
+    ``sample`` and ``gather`` kernels).  Like :func:`sample`, it takes
+    ``n`` uniform draws in ``[0, 1)``, not a ``jax.random`` key.
 
-make_clustered_gather = _not_ported("make_clustered_gather",
-                                    "A5 (the Clustered deployment)")
+    Returns ``fn(state, draw) -> (values [n, *shape], ok)``, on the
+    table's device.  ``mode`` keeps the reference's signature (the port's
+    kernels choose their route by device)."""
+    if shards > 1 and db_mesh is not None and axis is not None \
+            and axis != db_mesh.axis:
+        raise ValueError(f"make_clustered_gather: axis {axis!r} is not the "
+                         f"db mesh's {db_mesh.axis!r}")
+
+    def gather(state: TableState, draw: torch.Tensor):
+        if draw.shape != (n,):
+            raise ValueError(f"draw of shape {tuple(draw.shape)} for n={n}")
+        if shards > 1:
+            values, _, ok = sample_sharded_impl(spec, state, draw)
+            return values[state.keys.device], ok
+        values, _, ok = sample(spec, state, draw)
+        return values, ok
+
+    return gather

@@ -1,7 +1,8 @@
 """Plan: tier selection as *data*.
 
-Port of ``src/repro/insitu/plan.py`` — the local and co-located
-deployments: the producer, trainer, inference and serving tiers, the
+Port of ``src/repro/insitu/plan.py`` — the local, co-located and
+clustered deployments: the producer, trainer, inference and serving
+tiers, the
 per-component dispatch and model-swap predictions, the fault overhead of
 a declared ``FaultPlan`` (replay ops in ``dispatches``, ``retries``,
 ``restarts``, and the ``Plan.faults`` totals ``stats()`` must show), the
@@ -14,7 +15,7 @@ against ``StoreServer.stats()``.
 producer       ``per_verb`` | ``capture_scan`` | ``capture_scan_multi``
                | ``capture_scan_sharded``
 trainer        ``per_verb`` | ``fused`` | ``sharded_fused`` |
-               ``slab_sharded``
+               ``slab_sharded`` | ``slab_sharded_clustered``
 inference      ``fused_registry`` | ``three_step``
 serving        ``continuous_batch`` | ``three_step``
 =============  =====================================================
@@ -31,8 +32,14 @@ co-located deployment) all-gathers the requests it reads, because the
 registered model takes whole elements (:func:`serving_collective_prediction`);
 the reference claims every drain collective-free.
 
-The ``slab_sharded_clustered`` tier, the staged-transfer predictions and
-the contention model are ``ROADMAP.md`` A5.2.
+Clustered deployments also get *staged-transfer* predictions
+(``ComponentPlan.staged``, ``staged_transfers``): one hop per put verb on
+the per-verb tier, exactly ONE per fused chunk, one per epoch of the
+staged clustered gather, held exactly against ``stats()
+["staged_transfers"]``; the overlap pipeline adds one ``drain`` op per
+fused producer run.  :class:`ContentionModel` fits producer steps/s
+against the clients-per-shard ``fan_in``, and :func:`autotune_chunk`
+picks the fused chunk from it.
 """
 
 from __future__ import annotations
@@ -41,13 +48,17 @@ from dataclasses import dataclass
 from typing import Any
 
 from ..core import store as S
+from ..core.deployment import fan_in_ratio
 
 __all__ = [
     "PRODUCER_TIERS", "TRAINER_TIERS", "INFERENCE_TIERS", "SERVING_TIERS",
     "producer_tier", "trainer_tier", "inference_tier", "serving_tier",
-    "default_chunk", "ComponentPlan", "Plan", "producer_dispatches",
+    "default_chunk", "autotune_chunk", "ContentionModel", "fan_in_ratio",
+    "ComponentPlan", "Plan", "producer_dispatches",
     "trainer_dispatches", "inference_dispatches", "clients_dispatches",
-    "serving_dispatches", "serving_swaps", "COLLECTIVE_OPS",
+    "serving_dispatches", "serving_swaps", "producer_staged",
+    "trainer_staged", "inference_staged", "clients_staged",
+    "serving_staged", "COLLECTIVE_OPS",
     "COLLECTIVE_FREE", "TRAINER_COLLECTIVE_PREDICTIONS",
     "trainer_collective_prediction", "sharded_producer_prediction",
     "serving_collective_prediction",
@@ -61,7 +72,8 @@ COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
 
 PRODUCER_TIERS = ("per_verb", "capture_scan", "capture_scan_multi",
                   "capture_scan_sharded")
-TRAINER_TIERS = ("per_verb", "fused", "sharded_fused", "slab_sharded")
+TRAINER_TIERS = ("per_verb", "fused", "sharded_fused", "slab_sharded",
+                 "slab_sharded_clustered")
 INFERENCE_TIERS = ("fused_registry", "three_step")
 SERVING_TIERS = ("continuous_batch", "three_step")
 
@@ -112,12 +124,9 @@ def trainer_tier(cfg, override: str | None = None) -> str:
     """Resolve a trainer tier from a ``TrainerConfig`` (the rule
     ``ml.trainer.insitu_train`` consults when no plan names one): a forced
     tier is checked against the config, with the reference's errors."""
-    mesh_tiers = ("sharded_fused", "slab_sharded")
+    mesh_tiers = ("sharded_fused", "slab_sharded", "slab_sharded_clustered")
+    slab_tiers = ("slab_sharded", "slab_sharded_clustered")
     if override is not None:
-        if override == "slab_sharded_clustered":
-            raise NotImplementedError(
-                "tier slab_sharded_clustered (the Clustered deployment): "
-                "ROADMAP.md A5")
         if override not in TRAINER_TIERS:
             raise ValueError(f"unknown trainer tier {override!r} "
                              f"(have {TRAINER_TIERS})")
@@ -126,12 +135,20 @@ def trainer_tier(cfg, override: str | None = None) -> str:
         if override not in mesh_tiers and cfg.mesh is not None:
             raise ValueError(
                 f"cfg.mesh is set; tier {override!r} would ignore it")
-        if override == "slab_sharded" and not cfg.slab_sharded:
+        if override in slab_tiers and not cfg.slab_sharded:
             raise ValueError(f"{override} needs cfg.slab_sharded=True")
-        if override != "slab_sharded" and cfg.slab_sharded:
+        if override not in slab_tiers and cfg.slab_sharded:
             raise ValueError(
                 f"cfg.slab_sharded is set; tier {override!r} would pass "
                 f"the table replicated")
+        if override == "slab_sharded_clustered" and cfg.db_mesh is None:
+            raise ValueError("slab_sharded_clustered needs cfg.db_mesh "
+                             "(the store's dedicated mesh; a session "
+                             "wires it from the Clustered deployment)")
+        if override != "slab_sharded_clustered" and cfg.db_mesh is not None:
+            raise ValueError(
+                f"cfg.db_mesh is set; tier {override!r} would ignore the "
+                f"dedicated store mesh")
         if override != "per_verb" and not cfg.fused:
             raise ValueError(f"tier {override!r} needs cfg.fused=True")
         return override
@@ -139,7 +156,10 @@ def trainer_tier(cfg, override: str | None = None) -> str:
         return "per_verb"
     if cfg.mesh is None:
         return "fused"
-    return "slab_sharded" if cfg.slab_sharded else "sharded_fused"
+    if cfg.slab_sharded:
+        return "slab_sharded_clustered" if cfg.db_mesh is not None \
+            else "slab_sharded"
+    return "sharded_fused"
 
 
 def inference_tier(comp) -> str:
@@ -155,6 +175,102 @@ def default_chunk(emit_every: int) -> int:
     """The fused producer's chunk length (steps per capture): one bucket
     floor's worth of emissions (``store.MIN_BUCKET``)."""
     return max(S.MIN_BUCKET * emit_every, S.MIN_BUCKET)
+
+
+@dataclass(frozen=True)
+class ContentionModel:
+    """The fan-in contention model: predicted producer throughput
+    (steps/s) as a function of the clients-per-shard ``fan_in``, fitted
+    from a measured sweep (the paper's Fig.-5 story made quantitative),
+
+        t_step(fan_in) = t_base + k_fanin * fan_in
+        steps_per_s    = 1 / t_step
+
+    ``k_fanin``'s sign is fitted, not assumed.  ``fit`` is an ordinary
+    least-squares line through ``(fan_in, 1/steps_per_s)``; ``residual``
+    is the worst relative throughput error over the cells it was fitted
+    from."""
+
+    t_base: float               # seconds/step at fan_in -> 0
+    k_fanin: float              # marginal seconds/step per fan-in unit
+    step_bytes: float = 0.0     # staged payload bytes per producer step
+    #: fixed per-capture host overhead (seconds/op) from the measured
+    #: dispatch-cost curve — the autotuner's amortization term.
+    t_dispatch: float = 0.0
+
+    @classmethod
+    def fit(cls, cells) -> "ContentionModel":
+        """Least-squares fit from sweep cells — mappings with ``fan_in``
+        and ``steps_per_s`` (and optionally ``step_bytes``).  Needs >= 2
+        distinct fan-in points."""
+        pts = sorted({(float(c["fan_in"]), 1.0 / float(c["steps_per_s"]))
+                      for c in cells})
+        xs = [x for x, _ in pts]
+        ys = [y for _, y in pts]
+        if len(set(xs)) < 2:
+            raise ValueError(
+                f"contention fit needs >= 2 distinct fan_in points, got "
+                f"{sorted(set(xs))}")
+        n = float(len(xs))
+        mx, my = sum(xs) / n, sum(ys) / n
+        sxx = sum((x - mx) ** 2 for x in xs)
+        sxy = sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+        k = sxy / sxx
+        bites = [float(c.get("step_bytes", 0.0)) for c in cells]
+        return cls(t_base=my - k * mx, k_fanin=k,
+                   step_bytes=max(bites) if bites else 0.0)
+
+    def predict_steps_per_s(self, fan_in: int) -> float:
+        t = self.t_base + self.k_fanin * float(fan_in)
+        if t <= 0:
+            raise ValueError(
+                f"contention model predicts non-positive step time "
+                f"{t:.3g}s at fan_in={fan_in} (t_base={self.t_base:.3g}, "
+                f"k_fanin={self.k_fanin:.3g}) — fit covers too narrow a "
+                f"sweep to extrapolate this far")
+        return 1.0 / t
+
+    def residual(self, cells) -> float:
+        """Worst relative throughput error of the fitted line over
+        ``cells``."""
+        return max(abs(self.predict_steps_per_s(c["fan_in"])
+                       / float(c["steps_per_s"]) - 1.0) for c in cells)
+
+
+def autotune_chunk(emit_every: int, model: ContentionModel | None = None,
+                   dispatch_cost: float | None = None,
+                   steps: int | None = None,
+                   fan_in: int = 1, max_chunk: int = 512) -> int:
+    """The fused producer's chunk length from the fitted cost model: the
+    power-of-two bucket boundaries from the data plane's floor up, the
+    one minimizing the predicted wall time of a ``steps``-step run,
+
+        ceil(steps/chunk) * (dispatch_cost + chunk * t_step(fan_in))
+        + dispatch_cost                                  # the drain
+
+    Without a model (or with ``fan_in`` outside its fit) it is
+    :func:`default_chunk`."""
+    if model is None:
+        return default_chunk(emit_every)
+    if dispatch_cost is None:
+        dispatch_cost = model.t_dispatch
+    try:
+        t_step = 1.0 / model.predict_steps_per_s(fan_in)
+    except ValueError:
+        return default_chunk(emit_every)
+    total = int(steps) if steps else max_chunk
+    floor = S.bucket_length(S.MIN_BUCKET * emit_every)
+    candidates = []
+    c = floor
+    while c <= max(floor, max_chunk):
+        candidates.append(c)
+        c *= 2
+
+    def wall(n: int) -> float:
+        n_chunks = -(-total // n)
+        return n_chunks * (dispatch_cost + n * t_step) + dispatch_cost
+
+    return min(candidates, key=wall)
 
 
 def serving_tier(comp) -> str:
@@ -189,6 +305,10 @@ TRAINER_COLLECTIVE_PREDICTIONS: dict[str, tuple[tuple[str, bool], ...]] = {
     "fused": COLLECTIVE_FREE,
     "sharded_fused": _pred(all_reduce=True),
     "slab_sharded": _pred(all_reduce=True),
+    # the db-side gather's psum and the client-side DDP psum; the hop
+    # between the meshes is a staged copy, never a collective, and the
+    # table is never all-gathered (the slab stays on the db mesh)
+    "slab_sharded_clustered": _pred(all_reduce=True),
 }
 
 
@@ -198,7 +318,11 @@ def trainer_collective_prediction(tier: str, table_sharded: bool = False
     table it reads is split over more than one rank (a slab-sharded
     trainer's placement).  Then ``sharded_fused`` all-gathers the slab on
     entry, the anti-pattern ``slab_sharded`` removes; the single-device
-    ``fused`` tier gets no claim (``None``), as in the reference."""
+    ``fused`` tier gets no claim (``None``), as in the reference.  The
+    clustered staged tier never takes the table into its epoch, so its
+    claim is the same on any placement."""
+    if tier == "slab_sharded_clustered":
+        return TRAINER_COLLECTIVE_PREDICTIONS[tier]
     if table_sharded and tier == "sharded_fused":
         return _pred(all_reduce=True, all_gather=True)
     if table_sharded and tier == "fused":
@@ -251,6 +375,9 @@ class ComponentPlan:
     mesh_devices: int = 1        # mesh trainer: ranks of its mesh
     #: predicted store dispatches this component will perform, by cause.
     dispatches: tuple[tuple[str, int], ...] = ()
+    #: predicted cross-mesh staged transfers (clustered deployments), by
+    #: cause — held exactly against ``stats()["staged_transfers"]``.
+    staged: tuple[tuple[str, int], ...] = ()
     #: predicted model-generation adoptions (serving hot-swap).
     swaps: int = 0
     #: the collective calls one epoch of the component's tier made
@@ -265,10 +392,22 @@ class ComponentPlan:
     #: predicted crash restarts (producer: resume from the watermark;
     #: trainer: from its ``MemoryCheckpoint``; serving: ``recover()``)
     restarts: int = 0
+    #: clients per db shard for THIS component's staged traffic
+    #: (``fan_in_ratio``, the source ``Clustered.fan_in`` uses; 1 off
+    #: clustered)
+    fan_in: int = 1
+    #: the contention model's predicted producer steps/s at ``fan_in``,
+    #: when the deployment carries a fitted :class:`ContentionModel`
+    predicted_steps_per_s: float | None = None
 
     @property
     def store_dispatches(self) -> int:
         return sum(n for _, n in self.dispatches)
+
+    @property
+    def staged_transfers(self) -> int:
+        """Predicted staged hops (0 off the clustered deployment)."""
+        return sum(n for _, n in self.staged)
 
     def check_collectives(self) -> None:
         """Assert the measured collectives (``plan(hlo=True)``) have the
@@ -290,6 +429,9 @@ class ComponentPlan:
             "store_dispatches": self.store_dispatches,
             "dispatch_detail": dict(self.dispatches),
         }
+        if self.staged:
+            out["staged_transfers"] = self.staged_transfers
+            out["staged_detail"] = dict(self.staged)
         if self.kind == "producer":
             out["ranks"] = self.ranks
             out["dispatches_per_step"] = \
@@ -297,6 +439,17 @@ class ComponentPlan:
             if self.tier != "per_verb":
                 out["chunk"] = self.chunk
                 out["bucketed"] = self.bucketed
+                if self.staged:
+                    # THE clustered fused claim: one hop per chunk capture
+                    # (the overlap pipeline's drain stages nothing)
+                    captures = dict(self.dispatches).get(
+                        "capture", self.store_dispatches)
+                    out["staged_per_chunk"] = \
+                        self.staged_transfers / max(1, captures)
+            if self.staged:
+                out["fan_in"] = self.fan_in
+            if self.predicted_steps_per_s is not None:
+                out["predicted_steps_per_s"] = self.predicted_steps_per_s
         if self.kind == "trainer":
             out["dispatches_per_epoch"] = \
                 dict(self.dispatches).get("epoch", 0) / max(1, self.steps)
@@ -330,6 +483,8 @@ class Plan:
 
     deployment: str
     components: tuple[ComponentPlan, ...]
+    #: clients per store shard (``Deployment.fan_in``; 1 off clustered)
+    fan_in: int = 1
     #: the declared faults' totals, ``simulate_overhead``'s prediction of
     #: ``stats()``'s counters: sorted ``(("faults_injected", n),
     #: ("recoveries", n), ("retries", n))``; ``()`` when no plan is armed
@@ -351,6 +506,11 @@ class Plan:
     def store_dispatches(self) -> int:
         """Predicted total store dispatches for one session run."""
         return sum(c.store_dispatches for c in self.components)
+
+    @property
+    def staged_transfers(self) -> int:
+        """Predicted total staged hops (0 off clustered)."""
+        return sum(c.staged_transfers for c in self.components)
 
     @property
     def model_swaps(self) -> int:
@@ -386,6 +546,9 @@ class Plan:
         out = {"deployment": self.deployment,
                "store_dispatches": self.store_dispatches,
                "components": {c.name: c.explain() for c in self.components}}
+        if self.fan_in != 1 or self.staged_transfers:
+            out["fan_in"] = self.fan_in
+            out["staged_transfers"] = self.staged_transfers
         if self.model_swaps:
             out["model_swaps"] = self.model_swaps
         if self.faults:
@@ -394,13 +557,18 @@ class Plan:
 
 
 def producer_dispatches(tier: str, steps: int, emit_every: int,
-                        ranks: int, chunk: int
+                        ranks: int, chunk: int, overlap: bool = False
                         ) -> tuple[tuple[str, int], ...]:
     """Per-verb: one ``put`` per rank per emitting step.  Fused: one
-    capture per chunk, ``ceil(steps / chunk)``."""
+    capture per chunk, ``ceil(steps / chunk)``; ``overlap`` (the
+    clustered two-slot staging pipeline) adds the ONE capture-end
+    ``drain`` op that inserts the last in-flight chunk."""
     if tier == "per_verb":
         return (("put", ranks * S.capture_emit_count(steps, emit_every)),)
-    return (("capture", -(-steps // chunk)),)
+    out = (("capture", -(-steps // chunk)),)
+    if overlap and steps > 0:
+        out += (("drain", 1),)
+    return out
 
 
 def trainer_dispatches(tier: str, epochs: int, bootstrap: bool
@@ -422,6 +590,55 @@ def inference_dispatches(tier: str, steps: int
     if tier == "fused_registry":
         return ()
     return (("three_step", 4 * steps),)
+
+
+def producer_staged(tier: str, steps: int, emit_every: int, ranks: int,
+                    chunk: int, crosses_mesh: bool
+                    ) -> tuple[tuple[str, int], ...]:
+    """Staged hops of a producer run: per-verb, one per rank per emitting
+    step; fused, ONE per chunk (``ceil(steps / chunk)``)."""
+    if not crosses_mesh:
+        return ()
+    if tier == "per_verb":
+        return (("elem_stage", ranks * S.capture_emit_count(steps,
+                                                            emit_every)),)
+    return (("chunk_stage", -(-steps // chunk)),)
+
+
+def trainer_staged(tier: str, epochs: int, crosses_mesh: bool
+                   ) -> tuple[tuple[str, int], ...]:
+    """Staged hops of one trainer: only the clustered staged tier moves
+    bytes (one gathered batch per epoch)."""
+    if crosses_mesh and tier == "slab_sharded_clustered":
+        return (("gather_stage", epochs),)
+    return ()
+
+
+def inference_staged(tier: str, steps: int, crosses_mesh: bool
+                     ) -> tuple[tuple[str, int], ...]:
+    """The three-step protocol stages its two put legs a step (input in,
+    prediction out); the fused registry path never touches the store."""
+    if crosses_mesh and tier == "three_step":
+        return (("put_stage", 2 * steps),)
+    return ()
+
+
+def clients_staged(requests: int, submit: bool, crosses_mesh: bool
+                   ) -> tuple[tuple[str, int], ...]:
+    """Each submitted request's put stages its payload; response gets
+    read in place and never stage."""
+    if crosses_mesh and submit:
+        return (("request_stage", requests),)
+    return ()
+
+
+def serving_staged(tier: str, requests: int, crosses_mesh: bool
+                   ) -> tuple[tuple[str, int], ...]:
+    """The fused drain runs on the store placement (no hop); the
+    three-step baseline stages each response put."""
+    if crosses_mesh and tier == "three_step":
+        return (("response_stage", requests),)
+    return ()
 
 
 def clients_dispatches(requests: int, submit: bool, collect: bool

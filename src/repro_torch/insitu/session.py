@@ -1,7 +1,7 @@
 """InSituSession: one declarative call for a coupling scenario.
 
-Port of ``src/repro/insitu/session.py`` — the local and co-located
-deployments.  Declare *what* runs,
+Port of ``src/repro/insitu/session.py`` — the local, co-located and
+clustered deployments.  Declare *what* runs,
 
     session = InSituSession(
         tables=[TableSpec("field", shape=(4, n), capacity=24)],
@@ -16,14 +16,20 @@ deployments.  Declare *what* runs,
 and the :class:`~.plan.Plan` resolver picks *how*: per-verb vs
 ``capture_scan`` vs ``capture_scan_multi`` vs ``capture_scan_sharded``
 producers, per-verb vs fused
-vs mesh (``sharded_fused``, ``slab_sharded``) trainers, fused-registry vs
-three-step inference, continuous-batching vs three-step serving.  It
-predicts the store dispatches that ``result.server.stats()`` must show.
-A table that a slab-sharded trainer reads is created split over that
-trainer's mesh (``parallel.sharding.slab_sharding``); every other table
-is placed by the deployment (``deployment=Colocated(...)``: its elements
-cut over the producer's mesh) or, without one, whole on the session's
-device.
+vs mesh (``sharded_fused``, ``slab_sharded``, ``slab_sharded_clustered``)
+trainers, fused-registry vs three-step inference, continuous-batching vs
+three-step serving.  It predicts the store dispatches and staged
+transfers that ``result.server.stats()`` must show.  A table that a
+slab-sharded trainer reads is created split over that trainer's mesh
+(``parallel.sharding.slab_sharding``); every other table is placed by
+the deployment (``Colocated``: its elements cut over the producer's mesh;
+``Clustered``: on its db mesh, where a slab-sharded trainer's table stays
+too, the trainer reaching it through the staged gather) or, without one,
+whole on the session's device.  Under ``Clustered`` the plan's fused
+producer chunk comes from the deployment's ``cost_model``
+(``plan.autotune_chunk``) unless the producer names one, the overlap
+pipeline adds one ``drain`` op per fused producer, and
+``SessionResult.staged_delta`` attributes the hops to components.
 
 ``faults=`` arms a ``FaultPlan``: the producer survives crashes at
 declared steps or chunks (resuming from the table watermark), the
@@ -35,8 +41,7 @@ predicted retries, replay ops and restarts equal the run's counters.
 ``plan(hlo=True)`` measures each component's collectives on throwaway
 tables placed like the live ones: the ``parallel.collectives`` calls one
 epoch of each trainer tier makes, one chunk of each producer and one drain
-of each serving consumer.  The ``Clustered`` deployment (``ROADMAP.md``
-A5.2) raises.
+of each serving consumer.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ import torch
 
 from ..core import store as S
 from ..core.client import Client
-from ..core.deployment import check_deployment
+from ..core.deployment import Clustered, check_deployment
 from ..core.faults import FaultPlan, InjectedCrash, simulate_overhead
 from ..core.orchestrator import InSituDriver, RunResult, StragglerPolicy
 from ..core.server import StoreServer
@@ -103,6 +108,11 @@ class SessionResult:
     def op_delta(self, name: str) -> int | None:
         """Store dispatches attributed to one component (sequential runs)."""
         return self.run.components[name].op_delta
+
+    def staged_delta(self, name: str) -> int | None:
+        """Staged transfers attributed to one component (sequential runs;
+        0 off a clustered deployment)."""
+        return self.run.components[name].staged_delta
 
     @property
     def straggler_events(self) -> int:
@@ -231,10 +241,20 @@ class InSituSession:
         #: entry in the sequential order the exactness claim covers
         schedule: list[dict] = []
         first_trainer = True
+        dep = self.deployment
+        crosses = dep is not None and dep.crosses_mesh
         for comp in self.components:
             if isinstance(comp, Producer):
                 tier = P.producer_tier(comp)
-                chunk = comp.chunk or P.default_chunk(comp.emit_every)
+                # the two-slot staging pipeline exists only on the fused
+                # crossing path (per-verb puts stage per element)
+                overlap = crosses and tier != "per_verb" \
+                    and getattr(dep, "overlap", False)
+                fan_in = dep.fan_in if crosses else 1
+                cost_model = getattr(dep, "cost_model", None)
+                chunk = comp.chunk or P.autotune_chunk(
+                    comp.emit_every, cost_model, steps=comp.steps,
+                    fan_in=fan_in)
                 if tier == "per_verb":
                     schedule.append({
                         "kind": "producer", "name": comp.name, "tier": tier,
@@ -243,41 +263,55 @@ class InSituSession:
                 else:
                     schedule.append({
                         "kind": "producer", "name": comp.name, "tier": tier,
-                        "table": comp.table, "overlap": False,
+                        "table": comp.table, "overlap": overlap,
                         "n_chunks": -(-comp.steps // chunk)})
                 # the sharded chunk holds the solver's halo ppermutes:
                 # claim exactly that where the placement makes it
-                # structural; every other put path makes no collective
+                # structural (co-located); every other put path makes no
+                # collective (a clustered hop is a staged copy)
                 pred = P.sharded_producer_prediction(
-                    comp.elem_sharding, self.deployment is not None) \
+                    comp.elem_sharding, dep is not None and not crosses) \
                     if tier == "capture_scan_sharded" else P.COLLECTIVE_FREE
+                predicted_sps = None
+                if cost_model is not None and tier != "per_verb":
+                    try:
+                        predicted_sps = cost_model.predict_steps_per_s(
+                            fan_in)
+                    except ValueError:
+                        pass    # fan_in outside the fitted sweep: no claim
                 entries.append(P.ComponentPlan(
                     name=comp.name, kind="producer", tier=tier,
                     table=comp.table, ranks=comp.ranks, steps=comp.steps,
                     chunk=0 if tier == "per_verb" else chunk,
                     bucketed=comp.bucket and tier != "per_verb",
+                    fan_in=fan_in, predicted_steps_per_s=predicted_sps,
                     dispatches=P.producer_dispatches(
                         tier, comp.steps, comp.emit_every, comp.ranks,
-                        chunk),
+                        chunk, overlap=overlap),
+                    staged=P.producer_staged(
+                        tier, comp.steps, comp.emit_every, comp.ranks,
+                        chunk, crosses),
                     predicted_collectives=pred,
                     collectives=self._producer_collectives(comp, tier, chunk)
                     if hlo else None))
             elif isinstance(comp, TrainerConsumer):
-                tier = P.trainer_tier(comp.cfg, comp.tier)
-                mesh = comp.cfg.mesh
+                cfg = self._trainer_cfg(comp)
+                tier = P.trainer_tier(cfg, comp.tier)
+                mesh = cfg.mesh
                 schedule.append({
                     "kind": "trainer", "name": comp.name, "tier": tier,
-                    "table": comp.cfg.table, "epochs": comp.cfg.epochs,
+                    "table": cfg.table, "epochs": cfg.epochs,
                     "bootstrap": first_trainer})
                 entries.append(P.ComponentPlan(
                     name=comp.name, kind="trainer", tier=tier,
-                    table=comp.cfg.table, steps=comp.cfg.epochs,
+                    table=cfg.table, steps=cfg.epochs,
                     mesh_devices=1 if mesh is None else mesh.size,
                     dispatches=P.trainer_dispatches(
-                        tier, comp.cfg.epochs, bootstrap=first_trainer),
+                        tier, cfg.epochs, bootstrap=first_trainer),
+                    staged=P.trainer_staged(tier, cfg.epochs, crosses),
                     predicted_collectives=P.trainer_collective_prediction(
-                        tier, self._table_is_sharded(comp.cfg.table)),
-                    collectives=self._trainer_collectives(comp, tier)
+                        tier, self._table_is_sharded(cfg.table)),
+                    collectives=self._trainer_collectives(comp, cfg, tier)
                     if hlo else None))
                 first_trainer = False
             elif isinstance(comp, InferenceConsumer):
@@ -287,7 +321,8 @@ class InSituSession:
                 entries.append(P.ComponentPlan(
                     name=comp.name, kind="inference", tier=tier,
                     steps=comp.steps,
-                    dispatches=P.inference_dispatches(tier, comp.steps)))
+                    dispatches=P.inference_dispatches(tier, comp.steps),
+                    staged=P.inference_staged(tier, comp.steps, crosses)))
             elif isinstance(comp, ServingClients):
                 total = comp.clients * comp.requests
                 schedule.append({
@@ -302,6 +337,7 @@ class InSituSession:
                     table=comp.table, steps=total,
                     dispatches=P.clients_dispatches(total, comp.submit,
                                                     comp.collect),
+                    staged=P.clients_staged(total, comp.submit, crosses),
                     predicted_collectives=P.COLLECTIVE_FREE if comp.submit
                     else None))
             else:
@@ -317,6 +353,7 @@ class InSituSession:
                     table=comp.table, steps=total,
                     dispatches=P.serving_dispatches(tier, total,
                                                     comp.max_batch),
+                    staged=P.serving_staged(tier, total, crosses),
                     swaps=P.serving_swaps(tier),
                     predicted_collectives=P.serving_collective_prediction(
                         self._table_is_sharded(comp.table)),
@@ -326,7 +363,7 @@ class InSituSession:
         if self.faults is not None:
             # a FRESH injector driven through the runtime's call sequence:
             # the predicted replays, retries and restarts are exact
-            per, totals = simulate_overhead(self.faults, schedule, False)
+            per, totals = simulate_overhead(self.faults, schedule, crosses)
             merged = []
             for e in entries:
                 o = per.get(e.name)
@@ -336,27 +373,33 @@ class InSituSession:
                 merged.append(_dc_replace(
                     e, dispatches=e.dispatches + (
                         (("replay", o.extra_ops),) if o.extra_ops else ()),
+                    staged=e.staged + (
+                        (("restage", o.extra_staged),) if o.extra_staged
+                        else ()),
                     retries=o.retries, restarts=o.restarts))
             entries = merged
             fault_totals = tuple(sorted(totals.items()))
-        dep = self.deployment.describe() if self.deployment is not None \
-            else "local"
-        return P.Plan(deployment=dep, components=tuple(entries),
+        return P.Plan(deployment=dep.describe() if dep is not None
+                      else "local", components=tuple(entries),
+                      fan_in=dep.fan_in if dep is not None else 1,
                       faults=fault_totals)
 
     # -- collective accounting (plan(hlo=True)) -----------------------------
 
-    def _trainer_collectives(self, comp: TrainerConsumer, tier: str
+    def _trainer_collectives(self, comp: TrainerConsumer, cfg, tier: str
                              ) -> tuple[tuple[str, int], ...]:
         """The collectives one epoch of ``tier`` makes, by the reference's
         op names: ``parallel.collectives.COUNTS``' change over one epoch
         from a fresh state on a throwaway table placed like the live one
-        (split over the slab-sharded trainer's mesh where the live one
-        is), with the off-clock warm-up's fixed draws.  The port's
-        counterpart of compiling the epoch and counting HLO ops."""
+        (split over the slab-sharded trainer's mesh, or on the clustered
+        db mesh, where the live one is), with the off-clock warm-up's
+        fixed draws.  The port's counterpart of compiling the epoch and
+        counting HLO ops.  The clustered tier counts both of its halves:
+        the db-mesh staged gather (its shard count by the deployment's
+        rule, ``Clustered.gather_shards``) and the DDP body on the
+        gathered batch; the hop between them is a copy."""
         if tier == "per_verb":
             return tuple((op, 0) for op in P.COLLECTIVE_OPS)
-        cfg = comp.cfg
         spec = self._spec(cfg.table)
         dev = self.device
         levels = ae.coords_pyramid(cfg.ae,
@@ -367,9 +410,19 @@ class InSituSession:
         epoch_fn = tr.EPOCH_BUILDERS[tier](cfg, levels, tx, spec)
         table = S.init_table(spec, self._table_placement(spec), device=dev)
         mu = torch.zeros(spec.shape[0], device=dev)
+        draws = tr._warm_draws(cfg, dev)
         with C.counted() as calls:
-            block_until_ready(epoch_fn(table, state, tr._warm_draws(cfg, dev),
-                                       mu, mu + 1.0)[1])
+            if tier == "slab_sharded_clustered":
+                shards = self.deployment.gather_shards(spec) \
+                    if isinstance(self.deployment, Clustered) else 1
+                gather = S.make_clustered_gather(
+                    spec, cfg.gather, db_mesh=cfg.db_mesh, axis=cfg.db_axis,
+                    shards=shards)
+                vals, ok = gather(table, draws.sample)
+                out = epoch_fn.train_fn(vals, ok, state, draws, mu, mu + 1.0)
+            else:
+                out = epoch_fn(table, state, draws, mu, mu + 1.0)
+            block_until_ready(out[1])
         return _by_op(calls)
 
     def _producer_collectives(self, comp: Producer, tier: str, chunk: int
@@ -378,15 +431,35 @@ class InSituSession:
         chunk of ``min(chunk, steps)`` steps of the producer's fused tier
         from its initial carry, on a throwaway table placed like the live
         one (the port's counterpart of compiling that chunk and counting
-        its HLO collectives)."""
+        its HLO collectives).  On a clustered deployment the fused chunk is
+        its client-side collect, the staged copy and the db-side masked
+        insert, all counted: the claim covers the whole put path."""
         spec = self._spec(comp.table)
         state = S.init_table(spec, self._table_placement(spec),
                              device=self.device)
         n = min(chunk, comp.steps)
+        dep = self.deployment
+        staged = dep is not None and dep.crosses_mesh
         with C.counted() as calls:
             if tier == "per_verb":
-                state = S.put(spec, state, 1, torch.zeros(
-                    spec.shape, dtype=spec.dtype, device=self.device))
+                value = torch.zeros(spec.shape, dtype=spec.dtype,
+                                    device=self.device)
+                if staged:
+                    value = dep.stage(value, spec)
+                state = S.put(spec, state, 1, value)
+            elif staged:
+                if tier == "capture_scan_multi":
+                    _, keys, vals, mask = S.capture_scan_collect_multi(
+                        spec, comp.step_fn, comp.carry, n, comp.ranks,
+                        comp.emit_every)
+                else:
+                    es = comp.elem_sharding \
+                        if tier == "capture_scan_sharded" else None
+                    _, keys, vals, mask = S.capture_scan_collect(
+                        spec, lambda c, t: comp.step_fn(c, 0, t),
+                        comp.carry, n, comp.emit_every, elem_sharding=es)
+                staged_chunk = dep.stage_chunk(keys, vals, mask, spec)
+                state = S.put_masked(spec, state, *staged_chunk)
             elif tier == "capture_scan_multi":
                 state, _ = S.capture_scan_multi(
                     spec, state, comp.step_fn, comp.carry, n, comp.ranks,
@@ -435,14 +508,28 @@ class InSituSession:
 
     def _table_placement(self, spec: S.TableSpec):
         """Where ``spec``'s slab lives: split over a slab-sharded trainer's
-        mesh when one reads it, else by the deployment's rule (``None``:
-        whole on the session's device)."""
+        mesh when one reads it (except under ``Clustered``: the slab stays
+        on the db mesh and the trainer reaches it through the staged
+        gather), else by the deployment's rule (``None``: whole on the
+        session's device)."""
         explicit = self._table_shardings().get(spec.name)
         if explicit is not None:
             return explicit
         if self.deployment is not None:
             return self.deployment.slab_sharding(spec)
         return None
+
+    def _trainer_cfg(self, comp: TrainerConsumer):
+        """The trainer's config as it runs: under ``Clustered`` a
+        slab-sharded trainer's table lives on the DEDICATED db mesh, so
+        that mesh and its slot axis are wired in (``db_mesh``,
+        ``db_axis``) and the tier resolves to ``slab_sharded_clustered``."""
+        cfg = comp.cfg
+        if isinstance(self.deployment, Clustered) and cfg.slab_sharded \
+                and cfg.db_mesh is None:
+            cfg = _dc_replace(cfg, db_mesh=self.deployment.db_mesh,
+                              db_axis=self.deployment.slab_axis)
+        return cfg
 
     def _table_is_sharded(self, table: str) -> bool:
         """Is ``table``'s slab split over more than one rank (slots or
@@ -475,8 +562,11 @@ class InSituSession:
 
     def _table_shardings(self) -> dict[str, Any]:
         """Each table a slab-sharded trainer reads → its placement over
-        that trainer's mesh (the other tables stay whole)."""
+        that trainer's mesh (the other tables stay whole); none under
+        ``Clustered``, whose own rule places every table."""
         out = {}
+        if isinstance(self.deployment, Clustered):
+            return out
         for comp in self.components:
             if isinstance(comp, TrainerConsumer) and comp.cfg.slab_sharded:
                 out[comp.cfg.table] = slab_sharding(
@@ -602,6 +692,9 @@ class InSituSession:
                 done += k
                 if time.perf_counter() - it0 > pol.max_step_s:
                     client.straggler_events += 1
+            # capture end: flush the overlap pipeline's in-flight chunk
+            # (the plan's ONE "drain" op; nothing off that pipeline)
+            client.drain_captures(comp.table)
             client.put_metadata("sim_done", True)
             return ProducerOutput(steps=done)
         return fn
@@ -609,7 +702,7 @@ class InSituSession:
     def _trainer_fn(self, comp: TrainerConsumer, entry: P.ComponentPlan,
                     verbose: bool):
         pol = self.straggler or StragglerPolicy()
-        cfg = comp.cfg
+        cfg = self._trainer_cfg(comp)
 
         def fn(client: Client, stop):
             user_cb = comp.on_epoch

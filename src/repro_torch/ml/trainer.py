@@ -6,7 +6,7 @@ them with per-channel statistics published once as store metadata, holds
 one out for validation, and runs Adam on the rest in mini-batches; MSE
 loss, lr scaled by the rank count (paper §4).
 
-Four tiers (``EPOCH_BUILDERS``), all on the same data stream:
+Five tiers (``EPOCH_BUILDERS``), all on the same data stream:
 
 * ``fused`` — the epoch runs as one read-only capture of the table
   (``Client.capture_epoch``): one store op per epoch.  In the reference
@@ -24,6 +24,13 @@ Four tiers (``EPOCH_BUILDERS``), all on the same data stream:
   table whole on every device (a slab-sharded table is all-gathered);
   ``slab_sharded`` gathers each rank's own rows from the sharded slab
   (``store.sample_sharded_impl``) and equals ``sharded_fused`` bit for bit.
+* ``slab_sharded_clustered`` — the table lives slot-partitioned on a
+  ``Clustered`` deployment's dedicated db mesh (``cfg.db_mesh``), the
+  DDP epoch runs on ``cfg.mesh`` (the client ranks): each epoch is ONE
+  ``Client.sample_staged`` (the shard-local gather on the db mesh, one
+  staged hop back), then the same DDP body on the staged batch
+  (:func:`make_clustered_sharded_epoch`).  With as many db ranks as
+  trainer ranks it equals ``slab_sharded`` bit for bit.
 
 Differences from the reference, all deliberate:
 
@@ -43,8 +50,8 @@ Differences from the reference, all deliberate:
   "draws", "history"}``, where ``draws`` is the run's epoch-draw
   iterator, positioned at the next epoch, so a resumed run takes the
   same draws from the same epoch.
-* ``ddp="int8"`` and the clustered tier (``db_mesh``) raise
-  ``NotImplementedError`` naming ``ROADMAP.md`` A5.
+* ``ddp="int8"`` raises ``NotImplementedError`` naming ``ROADMAP.md``
+  A5.
 """
 
 from __future__ import annotations
@@ -69,7 +76,8 @@ __all__ = ["TrainState", "TrainerConfig", "EpochResult", "EpochDraws",
            "TrainDraws", "draw_epoch", "default_draws", "init_state",
            "train_state_from_numpy", "value_and_grad", "make_train_step",
            "make_fused_epoch", "make_per_verb_epoch",
-           "make_sharded_fused_epoch", "EPOCH_BUILDERS", "insitu_train"]
+           "make_sharded_fused_epoch", "make_clustered_sharded_epoch",
+           "EPOCH_BUILDERS", "CLIENT_DRIVEN_TIERS", "insitu_train"]
 
 
 class TrainState(NamedTuple):
@@ -85,8 +93,13 @@ class TrainerConfig:
     ``fused`` picks the one-capture epoch (default) over the per-verb
     loop.  ``mesh`` (a ``parallel.sharding.Mesh``) trains data-parallel
     over its ``mesh_axis`` with the exact ``ddp="psum"``; ``slab_sharded``
-    has the table enter the epoch split over that mesh.  ``ddp="int8"``
-    and ``db_mesh`` raise (``ROADMAP.md`` A5).
+    has the table enter the epoch split over that mesh.  ``db_mesh`` /
+    ``db_axis`` are the slab-sharded *clustered* data plane (tier
+    ``slab_sharded_clustered``): the table lives slot-partitioned on that
+    dedicated mesh (a ``Clustered`` deployment's db ranks; a session wires
+    them from the deployment) while the DDP epoch runs on ``mesh``;
+    ``db_mesh`` needs ``slab_sharded=True``.  ``ddp="int8"`` raises
+    (``ROADMAP.md`` A5).
     """
 
     ae: ae.AEConfig
@@ -104,7 +117,8 @@ class TrainerConfig:
     mesh_axis: str = "data"      # mesh axis the batch shards over
     ddp: str = "psum"            # "psum" (exact); "int8" is A5
     slab_sharded: bool = False   # table enters the epoch pre-sharded
-    db_mesh: Any = None          # the clustered tier: A5
+    db_mesh: Any = None          # clustered: the store's dedicated mesh
+    db_axis: str | None = None   # clustered: slot-partition axis on db_mesh
 
     def __post_init__(self):
         if self.ddp not in ("psum", "int8"):
@@ -113,15 +127,18 @@ class TrainerConfig:
             raise NotImplementedError(
                 "TrainerConfig.ddp='int8' (parallel/compress.py): "
                 "ROADMAP.md A5")
-        if self.db_mesh is not None:
-            raise NotImplementedError(
-                "TrainerConfig.db_mesh (tier slab_sharded_clustered): "
-                "ROADMAP.md A5")
         if self.mesh is not None and not self.fused:
             raise ValueError("mesh-sharded training requires fused=True")
         if self.slab_sharded and self.mesh is None:
             raise ValueError("slab_sharded needs a mesh (the slab shards "
                              "over cfg.mesh_axis)")
+        if self.db_mesh is not None and not self.slab_sharded:
+            raise ValueError("db_mesh is the slab-sharded clustered data "
+                             "plane; it needs slab_sharded=True")
+        if self.db_mesh is not None and self.db_axis is not None \
+                and self.db_axis != self.db_mesh.axis:
+            raise ValueError(f"db_axis {self.db_axis!r} is not the db "
+                             f"mesh's axis {self.db_mesh.axis!r}")
         if self.mesh is not None and self.mesh_axis != self.mesh.axis:
             # the port's mesh is 1-D: its one axis is the only one to shard
             raise ValueError(f"mesh_axis {self.mesh_axis!r} is not the "
@@ -343,37 +360,22 @@ def make_per_verb_epoch(cfg: TrainerConfig, levels,
     return epoch
 
 
-def make_sharded_fused_epoch(cfg: TrainerConfig, levels,
-                             tx: opt.GradientTransformation,
-                             spec: S.TableSpec):
-    """The fused epoch with DDP over ``cfg.mesh``'s ``cfg.mesh_axis`` (D
-    ranks), the reference's one ``shard_map`` as a loop over the ranks.
-
-    Same signature and draws as :func:`make_fused_epoch`, so the data
-    stream is the fused tier's.  The gather and the data step run once per
-    distinct device of the mesh (replicated compute); each microstep's
-    ranks take their ``batch_size / D`` slices of the mini-batch, the
-    gradients and the loss are ``psum``-ed and divided by D, and each
-    distinct device applies one Adam update to its replica of the state
-    (so ranks sharing a card share one).  Validation runs on rank 0's
-    device, which holds the returned state and metrics.
-
-    ``cfg.slab_sharded`` picks the table's entry: split (the slab-sharded
-    gather, ``store.sample_sharded_impl``) or whole on every device — a
-    slab-sharded table is then ``all_gather``-ed on entry.
-    """
+def _ddp_epoch(cfg: TrainerConfig, levels, tx: opt.GradientTransformation):
+    """The DDP epoch body over ``cfg.mesh`` on a gathered batch:
+    ``run(vals {device: [G, *shape]}, ok, state, draws, mu, sd) ->
+    (state, metrics)``.  The data step runs once per distinct device of
+    the mesh (replicated compute); each microstep's ranks take their
+    ``batch_size / D`` slices of the mini-batch, the gradients and the
+    loss are ``psum``-ed and divided by D, and each distinct device
+    applies one Adam update to its replica of the state (so ranks sharing
+    a card share one).  Validation runs on rank 0's device, which holds
+    the returned state and metrics."""
     mesh = cfg.mesh
-    if mesh is None:
-        raise ValueError("make_sharded_fused_epoch needs cfg.mesh")
     axis, ndev = mesh.axis, mesh.size
     bs, starts = _windows(cfg)
     if bs % ndev:
         raise ValueError(
             f"batch_size {bs} must divide by mesh axis {axis!r} size {ndev}")
-    if cfg.slab_sharded and spec.capacity % ndev:
-        raise ValueError(
-            f"slab-sharded entry needs capacity {spec.capacity} "
-            f"divisible by mesh axis {axis!r} size {ndev}")
     bl = bs // ndev
     home = mesh.devices[0]
     devices = mesh.distinct_devices
@@ -383,19 +385,7 @@ def make_sharded_fused_epoch(cfg: TrainerConfig, levels,
         return value_and_grad(
             lambda p: ae.loss_fn(p, cfg.ae, lv[dev], batch), params)
 
-    def epoch(table_state: S.TableState, state: TrainState,
-              draws: EpochDraws, mu, sd):
-        if cfg.slab_sharded:
-            slab = table_state.slab
-            if not isinstance(slab, S.ShardedSlab) \
-                    or slab.placement.mesh != mesh:
-                raise ValueError("slab_sharded: the table is not "
-                                 "slab-sharded over cfg.mesh")
-            vals, _, ok = S.sample_sharded_impl(spec, table_state,
-                                                draws.sample)
-        else:
-            vals, ok = _replicated_sample(spec, table_state, draws.sample,
-                                          mesh)
+    def run(vals: dict, ok, state: TrainState, draws: EpochDraws, mu, sd):
         data = {d: _prep(cfg, v, draws, mu.to(d), sd.to(d))
                 for d, v in vals.items()}
         states = {d: tree_map(lambda t: t.to(d), state) for d in devices}
@@ -420,6 +410,101 @@ def make_sharded_fused_epoch(cfg: TrainerConfig, levels,
         return states[home], (torch.stack(losses).mean(), val_loss, val_rel,
                               ok)
 
+    return run
+
+
+def make_sharded_fused_epoch(cfg: TrainerConfig, levels,
+                             tx: opt.GradientTransformation,
+                             spec: S.TableSpec):
+    """The fused epoch with DDP over ``cfg.mesh``'s ``cfg.mesh_axis`` (D
+    ranks), the reference's one ``shard_map`` as a loop over the ranks
+    (:func:`_ddp_epoch`).
+
+    Same signature and draws as :func:`make_fused_epoch`, so the data
+    stream is the fused tier's.  The gather runs once per distinct device
+    of the mesh.  ``cfg.slab_sharded`` picks the table's entry: split
+    (the slab-sharded gather, ``store.sample_sharded_impl``) or whole on
+    every device — a slab-sharded table is then ``all_gather``-ed on
+    entry.
+    """
+    mesh = cfg.mesh
+    if mesh is None:
+        raise ValueError("make_sharded_fused_epoch needs cfg.mesh")
+    run = _ddp_epoch(cfg, levels, tx)
+    if cfg.slab_sharded and spec.capacity % mesh.size:
+        raise ValueError(
+            f"slab-sharded entry needs capacity {spec.capacity} "
+            f"divisible by mesh axis {mesh.axis!r} size {mesh.size}")
+
+    def epoch(table_state: S.TableState, state: TrainState,
+              draws: EpochDraws, mu, sd):
+        if cfg.slab_sharded:
+            slab = table_state.slab
+            if not isinstance(slab, S.ShardedSlab) \
+                    or slab.placement.mesh != mesh:
+                raise ValueError("slab_sharded: the table is not "
+                                 "slab-sharded over cfg.mesh")
+            vals, _, ok = S.sample_sharded_impl(spec, table_state,
+                                                draws.sample)
+        else:
+            vals, ok = _replicated_sample(spec, table_state, draws.sample,
+                                          mesh)
+        return run(vals, ok, state, draws, mu, sd)
+
+    return epoch
+
+
+def make_clustered_sharded_epoch(cfg: TrainerConfig, levels,
+                                 tx: opt.GradientTransformation,
+                                 spec: S.TableSpec):
+    """The slab-sharded *clustered* tier: the table lives slot-partitioned
+    on ``cfg.db_mesh`` (a ``Clustered(slab_axis=...)`` deployment's db
+    ranks), the DDP epoch runs on ``cfg.mesh`` (the client ranks).  Each
+    epoch is:
+
+    1. ONE ``Client.sample_staged``: slot selection, the shard-local
+       gather (``gather_sharded`` once per db shard) and the batch's
+       ``psum`` on the db mesh (``store.make_clustered_gather``), then
+       ONE counted staged hop of the batch onto the clients;
+    2. the DDP body of :func:`make_sharded_fused_epoch` on it
+       (:func:`_ddp_epoch`), the batch copied to each distinct device of
+       ``cfg.mesh``.
+
+    Client-driven, like :func:`make_per_verb_epoch`: ``epoch(client,
+    state, draws, mu, sd)``.  The draws are the other tiers', so the
+    training data is too.  ``epoch.warmup(state, mu, sd)`` runs the DDP
+    body once on zeros, off the store; ``epoch.train_fn(vals, ok, state,
+    draws, mu, sd)`` is step 2 alone (``plan(hlo=True)`` counts its
+    collectives)."""
+    mesh = cfg.mesh
+    if mesh is None:
+        raise ValueError("make_clustered_sharded_epoch needs cfg.mesh")
+    run = _ddp_epoch(cfg, levels, tx)
+    devices = mesh.distinct_devices
+
+    def train_fn(vals: torch.Tensor, ok, state: TrainState,
+                 draws: EpochDraws, mu, sd):
+        return run({d: vals.to(d) for d in devices}, ok, state, draws, mu,
+                   sd)
+
+    def epoch(client: Client, state: TrainState, draws: EpochDraws, mu,
+              sd):
+        vals, ok = client.sample_staged(cfg.table, cfg.gather, draws.sample)
+        with client.timers.time("train"):
+            state, metrics = train_fn(vals, ok, state, draws, mu, sd)
+            block_until_ready(state.params)
+        return state, metrics
+
+    def warmup(state: TrainState, mu, sd):
+        dev = mesh.devices[0]
+        vals = torch.zeros((cfg.gather, *spec.shape), dtype=spec.dtype,
+                           device=dev)
+        block_until_ready(train_fn(vals, torch.ones((), dtype=torch.bool,
+                                                    device=dev), state,
+                                   _warm_draws(cfg, dev), mu, sd)[1])
+
+    epoch.warmup = warmup
+    epoch.train_fn = train_fn
     return epoch
 
 
@@ -445,8 +530,13 @@ EPOCH_BUILDERS: dict[str, Callable] = {
     "fused": make_fused_epoch,
     "sharded_fused": make_sharded_fused_epoch,
     "slab_sharded": make_sharded_fused_epoch,
+    "slab_sharded_clustered": make_clustered_sharded_epoch,
     "per_verb": make_per_verb_epoch,
 }
+
+#: tiers whose epoch is driven through a live ``Client`` (store verbs)
+#: instead of a capture of the checked-out table state
+CLIENT_DRIVEN_TIERS = ("per_verb", "slab_sharded_clustered")
 
 
 def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
@@ -487,7 +577,10 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
     if tier not in EPOCH_BUILDERS:
         raise ValueError(f"unknown trainer tier {tier!r} "
                          f"(have {sorted(EPOCH_BUILDERS)})")
-    dev = client.server.device
+    # the clustered tier trains on its own (client) mesh, the others on
+    # the server's device
+    dev = cfg.mesh.devices[0] if tier == "slab_sharded_clustered" \
+        else client.server.device
     levels = ae.coords_pyramid(cfg.ae, torch.as_tensor(coords).to(dev))
     tx = opt.adam(cfg.scaled_lr)
     resumed = memckpt.restore() if memckpt is not None else None
@@ -496,7 +589,7 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
                            dev)
     spec = client.server.spec(cfg.table)
     epoch_fn = EPOCH_BUILDERS[tier](cfg, levels, tx, spec)
-    fused = tier != "per_verb"
+    fused = tier not in CLIENT_DRIVEN_TIERS
     history: list[EpochResult] = []
     start_epoch = 0
 

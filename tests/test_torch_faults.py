@@ -551,11 +551,18 @@ def test_random_plans_and_overheads_match_reference(seed):
 
 
 def test_simulator_refuses_the_overlap_pipeline():
-    plan = tfaults.FaultPlan.random(0)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tfaults.simulate_overhead(plan, [{
-            "kind": "producer", "name": "p", "tier": "capture_scan",
-            "table": "field", "overlap": True, "n_chunks": 2}], True)
+    """The overlap pipeline's walk, once refused, now predicts what the
+    reference's does: a drop flushes the in-flight chunk in its own op
+    and pays its hop again."""
+    schedule = [{"kind": "producer", "name": "p", "tier": "capture_scan",
+                 "table": "field", "overlap": True, "n_chunks": 3}]
+    for f in (tfaults, jfaults):
+        plan = f.FaultPlan(events=(f.FaultEvent("drop_chunk", table="field",
+                                                at=1),))
+        per, totals = f.simulate_overhead(plan, schedule, True)
+        o = per["p"]
+        assert (o.extra_ops, o.extra_staged, o.retries) == (1, 1, 1)
+        assert totals["faults_injected"] == 1
 
 
 def test_armed_entry_points_default_to_the_card(monkeypatch):

@@ -44,6 +44,9 @@ its limit with the causal mask off; ``mha``
 differentiated through the kernels agrees with autograd through
 ``mha_ref`` within the reference's 1e-4.
 
+The clustered deployment's overlapped capture, its copies on a staging
+stream, leaves the serial capture's table bit for bit.
+
 ``train.checkpoint.Checkpointer`` stages a state on the card into pinned
 host memory: a save raises ``max_memory_allocated`` by no more than the
 largest leaf, an in-place update queued right after it never reaches
@@ -632,3 +635,53 @@ def test_checkpointer_stages_through_host_memory(cuda, tmp_path):
     for k, v in want.items():
         assert got[k] is state[k] and got[k].device.type == "cuda"
         assert torch.equal(got[k].cpu(), v), k
+
+
+def test_overlapped_clustered_capture_on_a_staging_stream(cuda):
+    """The clustered overlap pipeline on the card: four fused chunks of a
+    producer whose every chunk is big enough for the staging copy to
+    still run when the next chunk's collect starts, into a clustered ring
+    (2 client + 2 db ranks of the card, the element cut over the db
+    ranks) with the copies on the staging stream.  The table equals the
+    serial run's bit for bit, the staged tensors are the store's own
+    (never the collect buffers), and the hops count one a chunk."""
+    from repro_torch.core import Client, StoreServer, TableSpec
+    from repro_torch.core import deployment as dep
+    from repro_torch.core import store as S
+    from repro_torch.parallel.sharding import ElemSharding
+
+    tables = {}
+    for overlap in (True, False):
+        d = dep.make_clustered_1d(devices=["cuda:0"] * 4, db_fraction=0.5,
+                                  axis="space", elem_spec=(None, "space"),
+                                  overlap=overlap)
+        es = ElemSharding(d.client_mesh, (None, "space"))
+        srv = StoreServer(d)
+        srv.create_table(TableSpec("f", shape=(4, 1 << 18), capacity=6))
+        cli = Client(srv)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def step(c, t):
+            x = torch.randn(4, 1 << 18, device="cuda", generator=gen)
+            for _ in range(20):       # keep the producer's stream busy
+                x = torch.sin(x) + 0.5 * x
+            return c, S.make_key(0, t), x
+
+        for i in range(4):
+            cli.capture_scan("f", step, None, 4, t0=4 * i, elem_sharding=es)
+        if overlap:
+            assert cli._staging["f"].pending
+            slot = cli._staging["f"]._in_flight
+            # the copies on the staging stream, their sources held
+            assert slot.staged.ready is not None and slot.staged._sources
+            assert all(b.device.type == "cuda" for b in slot.values.blocks)
+        cli.drain_captures("f")
+        torch.cuda.synchronize()
+        st = srv.stats()
+        assert st["staged_transfers"] == 4
+        assert st["op_count"] == 4 + overlap
+        tables[overlap] = S.copy_state(srv.checkout("f"))
+    a, b = tables[True], tables[False]
+    assert torch.equal(S.whole_slab(a.slab), S.whole_slab(b.slab))
+    for x, y in zip(a[1:], b[1:]):
+        assert torch.equal(x, y)

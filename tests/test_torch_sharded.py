@@ -490,9 +490,10 @@ def _config(pkg, kind):
 
 @pytest.mark.parametrize("kind", sorted(_CFGS))
 def test_trainer_tier_matrix_matches_reference(kind):
-    """Every config kind × every override (None, each port tier, an
-    unknown name): the same tier or the same error type; the clustered
-    tier raises ``NotImplementedError`` in the port."""
+    """Every config kind × every override (None, each port tier, the
+    clustered one among them, an unknown name): the same tier or the same
+    error type; without ``db_mesh`` the clustered tier raises the
+    reference's ``ValueError``."""
     jcfg = _outcome(lambda: _config("jax", kind))
     tcfg = _outcome(lambda: _config("torch", kind))
     assert (jcfg[0], tcfg[0]) in (("tier", "tier"), ("error", "error"))
@@ -503,7 +504,7 @@ def test_trainer_tier_matrix_matches_reference(kind):
     for override in (None, *tplan.TRAINER_TIERS, "bogus"):
         assert _outcome(lambda: tplan.trainer_tier(tc, override)) \
             == _outcome(lambda: jplan.trainer_tier(jc, override)), override
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError):
         tplan.trainer_tier(tc, "slab_sharded_clustered")
 
 
@@ -528,9 +529,12 @@ def test_mesh_and_ddp_validation():
     assert slab_sharding(spec, mesh3) is None
     with pytest.raises(NotImplementedError, match="A5"):
         ttr.TrainerConfig(ae=cfg_ae, mesh=mesh3, ddp="int8")
-    with pytest.raises(NotImplementedError, match="A5"):
-        ttr.TrainerConfig(ae=cfg_ae, mesh=mesh3, slab_sharded=True,
-                          db_mesh=mesh3)
+    clustered = ttr.TrainerConfig(ae=cfg_ae, batch_size=3, mesh=mesh3,
+                                  slab_sharded=True, db_mesh=mesh3,
+                                  db_axis="data")
+    assert tplan.trainer_tier(clustered) == "slab_sharded_clustered"
+    with pytest.raises(ValueError, match="needs slab_sharded=True"):
+        ttr.TrainerConfig(ae=cfg_ae, mesh=mesh3, db_mesh=mesh3)
     with pytest.raises(NotImplementedError, match="A5"):
         StoreServer(device="cpu").create_table(spec, deployment="colocated")
     mesh = data_mesh(2, devices=["cpu", "cpu"])
