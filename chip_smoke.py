@@ -279,6 +279,11 @@ MESH_RTOL, MESH_ATOL, MESH_TRAIN_RTOL, MESH_VAL_RTOL = 2e-5, 1e-6, 1e-5, 1e-4
 # relative, train loss equal; PERF.md): a control that drops one rank's
 # gradients must exceed the param limit
 DRIFT_PARAM_ATOL, DRIFT_LOSS_RTOL = 1e-5, 1e-6
+# the int8 wire's first epoch at phase 8's width against psum's: the H100
+# reads 4.0% (PERF.md), twice the reference's 2% at its narrower config,
+# from the parameters whose int8 gradient rounds to 0 or flips its sign
+# (int8_microstep_witness)
+INT8_EPOCH_RTOL = 0.05
 LAYER_GRAD_LIMIT = 2e-2
 LOSS_LIMIT = 1e-3
 GRAD_NORM_LIMIT = 5e-2
@@ -864,13 +869,15 @@ def microstep_breakdown(cfg, levels, params, batch) -> dict:
 def train_session(dev, cfg, fcfg, sequential: bool, counters,
                   label: str | None = None, mesh=None,
                   slab_sharded: bool = False, faults=None,
-                  deployment=None, hlo: bool = False) -> dict:
+                  deployment=None, hlo: bool = False, ddp: str = "psum",
+                  ddp_error_feedback: bool = True) -> dict:
     """The paper's workflow as one session: flat-plate producer → fused
-    trainer (over ``mesh`` if given) → in-situ inference, checked end to
-    end; under ``faults`` (a ``FaultPlan``) every component's dispatches,
-    retries and restarts and the server's fault counters are held to the
-    plan's predictions.  ``deployment`` places the store (default local);
-    ``hlo`` plans with ``plan(hlo=True)``."""
+    trainer (over ``mesh`` if given, its gradients summed by ``ddp``) →
+    in-situ inference, checked end to end; under ``faults`` (a
+    ``FaultPlan``) every component's dispatches, retries and restarts and
+    the server's fault counters are held to the plan's predictions.
+    ``deployment`` places the store (default local); ``hlo`` plans with
+    ``plan(hlo=True)``."""
     from repro_torch.core import TableSpec
     from repro_torch.core import store as S
     from repro_torch.insitu import (InferenceConsumer, InSituSession,
@@ -884,7 +891,8 @@ def train_session(dev, cfg, fcfg, sequential: bool, counters,
     coords = fp.grid_coords(fcfg, dev)
     tcfg = tr.TrainerConfig(ae=cfg, epochs=EPOCHS, gather=GATHER,
                             batch_size=BATCH, lr=1e-3, seed=SEED, mesh=mesh,
-                            slab_sharded=slab_sharded)
+                            slab_sharded=slab_sharded, ddp=ddp,
+                            ddp_error_feedback=ddp_error_feedback)
     draws = tr.default_draws(tcfg, dev)
     starts, ends, history, inputs = [], [], [], {}
 
@@ -3391,6 +3399,769 @@ def fan_in_scenario(dev) -> dict:
                                for f in (1, 2, 3)}}
 
 
+def clustered_2d_session(dev, overlap: bool = True, steps: int = FD_STEPS,
+                         warmup: bool = True, deployment=None):
+    """``[clustered fd]``'s producer into a ring on a 2-D ``(slab, space)``
+    db grid (``fig_turbulence``'s deployment): 6 ranks on this card, 2
+    client (the producer's ``space`` mesh) + 4 db as a 2 x 2 grid
+    (``make_clustered_2d``: slots cut over ``slab``, each element's dim 1
+    over ``space``).  Returns the session, the producer's first state, its
+    config and the deployment."""
+    from repro_torch.core import TableSpec, make_clustered_2d
+    from repro_torch.insitu import InSituSession, Producer
+    from repro_torch.sim import distributed as fd
+    d = deployment or make_clustered_2d(
+        (None, "space", None), db_fraction=2 / 3,
+        devices=[dev] * (3 * SHARDS), overlap=overlap)
+    cfg = fd.FDConfig(n=FD_N, nu=FD_NU, dt=FD_DT, jacobi_iters=FD_ITERS)
+    noise = fd.draw_noise(cfg, torch.Generator().manual_seed(SEED), dev)
+    step_fn, s0, es = fd.make_producer(cfg, d.client_mesh,
+                                       init="decaying_turbulence",
+                                       noise=noise)
+    sess = InSituSession(
+        tables=[TableSpec("field", shape=(2, FD_N, FD_N), capacity=FD_CAP)],
+        components=[Producer(step_fn, table="field", steps=steps,
+                             chunk=FD_CHUNK, carry=s0, elem_sharding=es,
+                             warmup=warmup)],
+        deployment=d, device=dev)
+    return sess, s0, cfg, d
+
+
+def clustered_2d_phase(dev, counters, colocated_ring) -> dict:
+    """16a. ``[clustered2d fd]``: ``fig_turbulence``'s scenario at full
+    size, ``[clustered fd]``'s producer (4,096², 2 client ``space`` ranks,
+    48 steps in chunks of 16) into a ring of 16 [2, 4096, 4096] fp32
+    snapshots on a 2 x 2 ``(slab, space)`` db grid, overlap on and off.
+    Checks, each hard: staged transfers == the plan's, one a chunk;
+    op_count == the plan; the put path makes no all-gather or all-reduce
+    (the halo's ``collective_permute`` only); a read of the whole ring
+    launches the probe once and the gather once a db shard (4), with one
+    grouped all-gather and one grouped psum, and equals ``[colocated
+    fd]``'s ring and the solver's own snapshots bit for bit; the two
+    runs' tables equal; the gather kernel on a grid shard against its
+    plain version.  Controls that must fail: a deployment that stages
+    each db rank the block of its SLAB coordinate (the element layout's
+    axes swapped) makes the insert all-gather; a read that skips one
+    column's all-gather differs.  Times: ms a step, a staged chunk (each
+    of the 4 db ranks copying its half of the 16 snapshots) against its
+    bytes bound, peak memory."""
+    from repro_torch.core import make_clustered_2d
+    from repro_torch.core import store as S
+    from repro_torch.core.deployment import Clustered
+    from repro_torch.kernels.store import ops as sops
+    from repro_torch.kernels.store import ref as sref
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import ElemSharding, ElemShards
+    from repro_torch.sim import distributed as fd
+    keys = torch.stack([S.make_key(0, t)
+                        for t in range(FD_STEPS - FD_CAP, FD_STEPS)])
+    db = 2 * SHARDS
+    runs, line, first = {}, {}, None
+    for label, overlap in (("overlap", True), ("serial", False)):
+        sess, s0, cfg, d = clustered_2d_session(dev, overlap)
+        plan = sess.plan(hlo=overlap)
+        entry = plan.component("producer")
+        for k in counters:
+            k.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with C.counted() as put_calls:
+            res = sess.run(plan=plan, sequential=True, max_wall_s=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if not res.ok:
+            raise AssertionError({n: c.error
+                                  for n, c in res.run.components.items()})
+        stats = res.server.stats()
+        chunks = -(-FD_STEPS // FD_CHUNK)
+        if not (stats["op_count"] == plan.store_dispatches
+                and stats["staged_transfers"] == plan.staged_transfers
+                == chunks
+                and dict(entry.staged).get("chunk_stage") == chunks
+                and dict(entry.dispatches).get("drain", 0) == int(overlap)):
+            raise AssertionError(f"clustered2d fd {label}: plan "
+                                 f"{plan.explain()} vs {stats}")
+        if put_calls["all_gather"] or put_calls["all_reduce"] \
+                or not put_calls["collective_permute"]:
+            raise AssertionError(f"clustered2d fd {label}: the put path's "
+                                 f"collectives {put_calls}")
+        table = res.server.checkout("field")
+        if type(table.slab) is not S.GridSlab:
+            raise AssertionError(f"clustered2d fd: a {type(table.slab)}")
+        if overlap:
+            chunk = dict(entry.collectives)
+            if entry.tier != "capture_scan_sharded" \
+                    or any(v for k, v in chunk.items()
+                           if k != "collective-permute"):
+                raise AssertionError(f"clustered2d fd: a chunk's "
+                                     f"collectives {chunk}")
+            line["chunk_collectives"] = chunk
+            for k in counters:
+                k.launches = 0
+            with C.counted() as calls:
+                values, found = res.server.get_many("field", keys)
+            torch.cuda.synchronize()
+            launches = {k.symbol: k.launches for k in counters}
+            want = {k.symbol: 0 for k in counters}
+            want.update({"probe_slots": 1, "gather_rows": db})
+            if launches != want or calls["all_gather"] != 1 \
+                    or calls["all_reduce"] != 1 or not bool(found.all()):
+                raise AssertionError(f"clustered2d fd: the read {launches} "
+                                     f"{calls}")
+            if not torch.equal(values, colocated_ring):
+                raise AssertionError("clustered2d fd: the ring differs from "
+                                     "[colocated fd]'s")
+            sharded = fd.make_step(cfg, d.client_mesh)
+            a, bad = s0, []
+            for t in range(FD_STEPS):
+                a = sharded(a)
+                if t >= FD_STEPS - FD_CAP and not torch.equal(
+                        values[t - (FD_STEPS - FD_CAP)], fd.snapshot(a)):
+                    bad.append(t)
+            if bad:
+                raise AssertionError(f"clustered2d fd: snapshots {bad} "
+                                     f"differ from the solver's state")
+            del a
+            # the gather kernel on a grid shard, against its plain version
+            shard = table.slab.shards[db - 1]
+            local = torch.arange(shard.shape[0] - 1, -1, -1, dtype=torch.int32,
+                                 device=dev)
+            if not torch.equal(sops.gather_rows(shard, local),
+                               sref.gather_rows_ref(shard, local)):
+                raise AssertionError("clustered2d fd: the gather kernel "
+                                     "differs from its plain version on a "
+                                     "grid shard")
+            # the control: a read that drops column 1's blocks
+            real = C.all_gather
+
+            def skip_one(blocks, mesh, dim=0, axis=None):
+                if axis == "space":
+                    blocks = [torch.zeros_like(b)
+                              if mesh.coord(r, "space") == 1 else b
+                              for r, b in enumerate(blocks)]
+                return real(blocks, mesh, dim=dim, axis=axis)
+
+            C.all_gather = skip_one
+            try:
+                broken, _ = res.server.get_many("field", keys)
+            finally:
+                C.all_gather = real
+            if torch.equal(broken, colocated_ring):
+                raise AssertionError("clustered2d fd: the read without one "
+                                     "column's all-gather passed")
+            del values, broken
+            line["read_launches"] = launches
+            line["read_collectives"] = {k: v for k, v in calls.items() if v}
+            line["slab_bytes_per_rank"] = stats["slab_bytes"]["field"]
+            first = table
+        elif not equal_tables(first, table):
+            raise AssertionError("clustered2d fd: the serial run's table "
+                                 "differs from the overlapped run's")
+        runs[label] = {
+            "op_count": stats["op_count"],
+            "plan_store_dispatches": plan.store_dispatches,
+            "staged_transfers": stats["staged_transfers"],
+            "plan_staged": dict(entry.staged),
+            "dispatch_detail": dict(entry.dispatches),
+            "put_path_collectives": {k: v for k, v in put_calls.items()
+                                     if v},
+            "wall_s": wall,
+            "ms_per_step": res.run.components["producer"].wall_s * 1e3
+            / FD_STEPS,
+            "peak_mem_gb": peak / 1e9}
+        del res, sess, plan, table
+    del first
+    torch.cuda.empty_cache()
+
+    # the control: the element layout's axes swapped in the staging
+    class Swapped(Clustered):
+        def _place(self, x, layout, lead, copier):
+            if layout.axis == "space":
+                layout = ElemSharding(self.db_mesh, tuple(
+                    "slab" if e == "space" else e for e in layout.spec))
+            return super()._place(x, layout, lead, copier)
+
+    d = make_clustered_2d((None, "space", None), db_fraction=2 / 3,
+                          devices=[dev] * (3 * SHARDS))
+    swapped = Swapped(client_mesh=d.client_mesh, db_mesh=d.db_mesh,
+                      elem_spec=d.elem_spec, slab_axis=d.slab_axis)
+    sess, *_ = clustered_2d_session(dev, steps=FD_CHUNK, warmup=False,
+                                    deployment=swapped)
+    with C.counted() as ctl_calls:
+        res = sess.run(sequential=True, max_wall_s=600)
+    if not res.ok or not ctl_calls["all_gather"]:
+        raise AssertionError(f"clustered2d fd: the swapped-layout control "
+                             f"kept the put path collective-free "
+                             f"({ctl_calls}, ok={res.ok})")
+    line["swapped_layout_control"] = {"put_path_all_gathers":
+                                      ctl_calls["all_gather"],
+                                      "failed": True}
+    line["skipped_column_control"] = {"failed": True}
+    del res, sess
+    torch.cuda.empty_cache()
+    # one staged chunk, alone: each db rank copies the half of the 16
+    # snapshots its space coordinate names (read once a rank, written once)
+    sess, s0, cfg, d = clustered_2d_session(dev)
+    spec = sess.tables[0]
+    layout = ElemSharding(d.client_mesh, (None, "space", None))
+    blocks = tuple(torch.randn(FD_CHUNK, 2, FD_N // SHARDS, FD_N,
+                               device=dev) for _ in range(SHARDS))
+    chunk_v = ElemShards(blocks, layout)
+    k = torch.arange(FD_CHUNK, device=dev)
+    m = torch.ones(FD_CHUNK, dtype=torch.bool, device=dev)
+    staged = d.stage_chunk(k, chunk_v, m, spec)
+    grid = staged.values.placement
+    if not all(torch.equal(b, blocks[grid.block_of(r)])
+               for r, b in enumerate(staged.values.blocks)):
+        raise AssertionError("clustered2d fd: a staged chunk differs")
+    moved = sum(b.numel() * 4 for b in staged.values.blocks)
+    del staged
+    serial_ms = time_ms(lambda: d.stage_chunk(k, chunk_v, m, spec), 10)
+    b, by = bound(2 * moved)
+    del blocks, chunk_v, sess
+    torch.cuda.empty_cache()
+    line.update({
+        "grid": f"{FD_N}^2", "client_ranks": SHARDS,
+        "db_grid": d.db_mesh.shape, "deployment": d.describe(),
+        "steps": FD_STEPS, "chunk": FD_CHUNK, "runs": runs,
+        "ring_equal_to_colocated_fd": True,
+        "snapshots_bit_identical": FD_CAP,
+        "staged_chunk": {"bytes_copied": moved, "ms": serial_ms,
+                         "bound_ms": b, "bound_by": by,
+                         "share_of_bound": b / serial_ms}})
+    return line
+
+
+def consumers_phase(dev, cfg, fcfg, counters, sharded: dict,
+                    fused: dict) -> dict:
+    """16b. ``[consumers]``: phase 8's workflow with
+    ``TrainerConsumer(count=2)`` on a pool of 4 ranks of this card
+    (``devices=[card] * 4``): two ``sharded_fused`` replicas on disjoint
+    2-rank meshes, seeds ``SEED`` and ``SEED + 1``.  Checks, each hard:
+    the plan's names, tiers and mesh sizes; op_count == the plan and each
+    entry's ``op_delta`` == its prediction; each replica's sample, gather
+    and QuadConv launches exactly (epochs + the warm-up + replica 0's
+    bootstrap; 4 QuadConv forwards a rank a microstep and 4 a
+    validation); the replicas' params differ; replica 0 (seed and draws
+    of ``[sharded]``'s run, the same mesh shape) ``torch.equal`` to that
+    run.  Control: the replicas given replica 0's mesh (``cfg.mesh`` set
+    with ``count=2``) raise, as the reference does.  Then the launcher
+    with ``consumers=2`` on its default pool of one card: two ``fused``
+    replicas, plan == ``stats()``.  Prints each replica's epoch ms beside
+    phase 8's."""
+    from repro_torch.core import TableSpec
+    from repro_torch.core import store as S
+    from repro_torch.insitu import (InferenceConsumer, InSituSession,
+                                    Producer, TrainerConsumer)
+    from repro_torch.launch import insitu as launcher
+    from repro_torch.ml import trainer as tr
+    from repro_torch.parallel.sharding import disjoint_data_meshes
+    from repro_torch.sim import flatplate as fp
+    from repro_torch.tree import tree_leaves
+    gen = torch.Generator().manual_seed(SEED)
+    modes = fp.draw_modes(fcfg, gen, dev)
+    inf_modes = fp.draw_modes(fcfg, gen, dev)
+    coords = fp.grid_coords(fcfg, dev)
+    tcfg = tr.TrainerConfig(ae=cfg, epochs=EPOCHS, gather=GATHER,
+                            batch_size=BATCH, lr=1e-3, seed=SEED)
+    pool = [dev] * (2 * SHARDS)
+    marks, events = [], []
+
+    def timed(epochs):
+        for d in epochs:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append([ev])
+            yield d
+
+    def on_epoch(r):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[-1].append(ev)
+        marks.append({k.symbol: k.launches for k in counters})
+
+    draws = []
+    for i in range(2):
+        d = tr.default_draws(replace(tcfg, seed=SEED + i), dev)
+        draws.append(tr.TrainDraws(d.bootstrap, timed(d.epochs)))
+
+    def step_fn(carry, rank, t):
+        return carry, S.make_key(rank, t), fp.snapshot(fcfg, modes, t,
+                                                       coords)
+
+    def feed(client, step):
+        mu, sd = client.get_metadata("norm_stats")
+        return (fp.snapshot(fcfg, inf_modes, SIM_STEPS + step, coords).T
+                - mu) / sd
+
+    def build(mesh=None):
+        return InSituSession(
+            tables=[TableSpec("field", shape=(4, fcfg.n_points),
+                              capacity=RING)],
+            components=[
+                Producer(step_fn, table="field", steps=SIM_STEPS,
+                         carry=torch.zeros((), device=dev),
+                         emit_every=EMIT_EVERY),
+                TrainerConsumer(replace(tcfg, mesh=mesh), coords, count=2,
+                                model_key="encoder", on_epoch=on_epoch,
+                                draws=draws),
+                InferenceConsumer("encoder", feed, steps=N_INF)],
+            device=dev, devices=pool)
+
+    sess = build()
+    plan = sess.plan()
+    got = [(c.name, c.tier, c.mesh_devices) for c in plan.components]
+    if got != [("producer", "capture_scan", 1),
+               ("trainer0", "sharded_fused", SHARDS),
+               ("trainer1", "sharded_fused", SHARDS),
+               ("inference", "fused_registry", 1)]:
+        raise AssertionError(f"consumers: the plan {got}")
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sess.run(plan=plan, sequential=True, max_wall_s=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not res.ok:
+        raise AssertionError({n: c.error for n, c in
+                              res.run.components.items() if c.error})
+    stats = res.server.stats()
+    deltas = {e.name: res.op_delta(e.name) for e in plan.components}
+    if stats["op_count"] != plan.store_dispatches or any(
+            deltas[e.name] != e.store_dispatches for e in plan.components):
+        raise AssertionError(f"consumers: op deltas {deltas} vs "
+                             f"{plan.explain()}")
+    micro = -(-(GATHER - 1) // BATCH)
+    r0 = marks[EPOCHS - 1]
+    per = {"trainer0": r0,
+           "trainer1": {k: v - r0[k] for k, v in marks[2 * EPOCHS - 1]
+                        .items()}}
+    for i, (name, seen) in enumerate(per.items()):
+        gathers = EPOCHS + 1 + (i == 0)         # epochs, warm-up, bootstrap
+        want = {k.symbol: 0 for k in counters}
+        want.update({"sample_slots": gathers, "gather_rows": gathers,
+                     "quadconv_contract":
+                         (EPOCHS + 1) * (4 * micro * SHARDS + 4)})
+        if seen != want:
+            raise AssertionError(f"consumers {name}: launches {seen}, "
+                                 f"expected {want}")
+    a = tree_leaves(res.output("trainer0").state.params)
+    b = tree_leaves(res.output("trainer1").state.params)
+    if all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("consumers: the replicas' params are equal")
+    if not all(torch.equal(x, y) for x, y in
+               zip(a, tree_leaves(sharded["state"].params))):
+        raise AssertionError("consumers: replica 0 differs from [sharded]'s "
+                             "run on the same seed, draws and mesh shape")
+    epoch_ms = {name: [e[0].elapsed_time(e[1])
+                       for e in events[i * EPOCHS:(i + 1) * EPOCHS]]
+                for i, name in enumerate(("trainer0", "trainer1"))}
+    meshes = disjoint_data_meshes(2, devices=pool)
+    try:
+        build(mesh=meshes[0])
+    except ValueError as exc:
+        control = str(exc)
+    else:
+        raise AssertionError("consumers: replicas given one mesh did not "
+                             "raise")
+    del res, sess
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lres = launcher.run(points="medium", epochs=4, sim_steps=40, consumers=2,
+                        device=dev, verbose=False)
+    torch.cuda.synchronize()
+    lwall = time.perf_counter() - t0
+    ltiers = [(c.name, c.tier) for c in lres.plan.components]
+    if ltiers != [("producer", "capture_scan"), ("trainer0", "fused"),
+                  ("trainer1", "fused"), ("inference", "fused_registry")] \
+            or lres.server.stats()["op_count"] \
+            != lres.plan.store_dispatches:
+        raise AssertionError(f"consumers launcher: {ltiers} "
+                             f"{lres.server.stats()} vs "
+                             f"{lres.plan.explain()}")
+    del lres
+    return {"plan": got, "op_count": stats["op_count"],
+            "predicted": plan.store_dispatches, "op_delta": deltas,
+            "launches": per, "replicas_differ": True,
+            "replica0_equal_to_sharded": True,
+            "epoch_ms": epoch_ms,
+            "phase8_fused_epoch_ms": fused["epoch_ms"],
+            "sharded_fused_epoch_ms": sharded["epoch_ms"],
+            "wall_s": wall,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "one_mesh_control": control,
+            "launcher": {"consumers": 2, "tiers": ltiers, "wall_s": lwall}}
+
+
+def int8_phase(dev, cfg, fcfg, counters, slab: dict) -> dict:
+    """16c. ``[int8 ddp]``: phase 8's workflow in ``sharded_fused`` on 2
+    ranks of this card with ``ddp="psum"``, ``"int8"`` without and with
+    error feedback, and the last again.  Checks, each hard: the
+    reference's own 2% check at its own config
+    (:func:`int8_reference_check`); at this width every run's losses
+    finite and falling, each int8 run's first-epoch train loss within
+    ``INT8_EPOCH_RTOL`` of psum's and one microstep showing where that gap
+    comes from (:func:`int8_microstep_witness`); feedback changes the params; the rerun is bit for bit; an epoch's
+    counted all-reduce calls (``plan(hlo=True)``) equal
+    ``plan.ddp_all_reduces`` (2 a microstep, 3 over the int8 wire);
+    ``compression_ratio`` over the trained gradient tree > 3.5, and over
+    each leaf of a block or more.  Then ``slab_sharded`` and
+    ``slab_sharded_clustered`` (2 client + 2 db ranks) with ``ddp="int8"``
+    (feedback on): ``torch.equal`` to each other and to ``sharded_fused``'s.
+    Prints every mode's epoch ms in this one call (one card: no wire is
+    saved, so the int8 wire adds its quantization)."""
+    from repro_torch.core import make_clustered_1d
+    from repro_torch.core import store as S
+    from repro_torch.insitu import plan as P
+    from repro_torch.ml import autoencoder as ae
+    from repro_torch.parallel import compress as CP
+    from repro_torch.parallel.sharding import data_mesh
+    from repro_torch.tree import tree_leaves, value_and_grad
+    mesh = data_mesh(SHARDS, devices=[dev] * SHARDS)
+    micro = -(-(GATHER - 1) // BATCH)
+    runs = {}
+    for label, kw in (("psum", {"ddp": "psum"}),
+                      ("int8", {"ddp": "int8", "ddp_error_feedback": False}),
+                      ("int8 feedback", {"ddp": "int8"}),
+                      ("int8 feedback rerun", {"ddp": "int8"})):
+        run = train_session(dev, cfg, fcfg, True, counters,
+                            label=f"int8 ddp {label}", mesh=mesh,
+                            hlo="rerun" not in label, **kw)
+        if "rerun" not in label:
+            coll = dict(run["plan"].component("trainer").collectives)
+            want = P.ddp_all_reduces(kw["ddp"], micro)
+            if coll["all-reduce"] != want or coll["all-gather"]:
+                raise AssertionError(f"int8 ddp {label}: an epoch's "
+                                     f"collectives {coll}, expected "
+                                     f"{want} all-reduce calls")
+            run["epoch_collectives"] = coll
+        runs[label] = run
+    exact = [h.train_loss for h in runs["psum"]["history"]]
+    deviation = {k: [(h.train_loss - e) / e
+                     for h, e in zip(r["history"], exact)]
+                 for k, r in runs.items() if k != "psum"}
+    reference_config = int8_reference_check(dev)
+    witness = int8_microstep_witness(cfg, runs["psum"], runs["int8"])
+    if any(abs(d[0]) > INT8_EPOCH_RTOL for d in deviation.values()):
+        raise AssertionError(f"int8 ddp: first-epoch train loss vs psum "
+                             f"{deviation}, limit {INT8_EPOCH_RTOL}")
+    fb = tree_leaves(runs["int8 feedback"]["state"].params)
+    if all(torch.equal(a, b) for a, b in
+           zip(fb, tree_leaves(runs["int8"]["state"].params))):
+        raise AssertionError("int8 ddp: feedback left the params as they "
+                             "were")
+    if not all(torch.equal(a, b) for a, b in zip(
+            fb, tree_leaves(runs["int8 feedback rerun"]["state"].params))):
+        raise AssertionError("int8 ddp: the rerun is not bit-identical")
+    # the wire's ratio on the trained model's gradient tree
+    run = runs["int8 feedback"]
+    mu, sd = run["norm_stats"]
+    batch = (S.whole_slab(run["table"].slab)[:BATCH].transpose(1, 2)
+             - mu) / sd
+    _, grads = value_and_grad(
+        lambda p: ae.loss_fn(p, cfg, run["levels"], batch),
+        run["state"].params)
+    leaves = tree_leaves(grads)
+    raw = sum(g.numel() * 4 for g in leaves)
+    wire = sum(g.numel() + (g.numel() // 256 + 1) * 4 for g in leaves)
+    big = [CP.compression_ratio(g) for g in leaves if g.numel() >= 256]
+    if not (raw / wire > 3.5 and min(big) > 3.5):
+        raise AssertionError(f"int8 ddp: compression ratio {raw / wire}, "
+                             f"leaves {big}")
+    # the slab-sharded and clustered tiers over the int8 wire
+    d = make_clustered_1d(db_fraction=0.5, devices=[dev] * (2 * SHARDS),
+                          slab_axis="data")
+    runs["slab_sharded int8"] = train_session(
+        dev, cfg, fcfg, True, counters, label="int8 ddp slab_sharded",
+        mesh=mesh, slab_sharded=True, ddp="int8")
+    runs["slab_sharded_clustered int8"] = train_session(
+        dev, cfg, fcfg, True, counters, label="int8 ddp clustered",
+        mesh=d.client_mesh, slab_sharded=True, deployment=d, ddp="int8")
+    for label in ("slab_sharded int8", "slab_sharded_clustered int8"):
+        if not all(torch.equal(a, b) for a, b in zip(
+                fb, tree_leaves(runs[label]["state"].params))):
+            raise AssertionError(f"int8 ddp: {label}'s params differ from "
+                                 f"sharded_fused's")
+    return {"mesh": SHARDS,
+            "train_loss": {k: [h.train_loss for h in r["history"]]
+                           for k, r in runs.items()},
+            "train_loss_rel_to_psum": deviation,
+            "reference_config_first_epoch": reference_config,
+            "first_microstep_witness": witness,
+            "feedback_changes_params": True, "rerun_bit_identical": True,
+            "slab_and_clustered_equal_to_sharded_fused": True,
+            "epoch_collectives": {k: r["epoch_collectives"]
+                                  for k, r in runs.items()
+                                  if "epoch_collectives" in r},
+            "compression_ratio": {"tree": raw / wire,
+                                  "min_leaf_of_a_block_or_more": min(big),
+                                  "leaves": len(leaves)},
+            "epoch_ms": {k: r["epoch_ms"] for k, r in runs.items()},
+            "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+            "launches": {k: r["launches"] for k, r in runs.items()}}
+
+
+def int8_microstep_witness(cfg, psum: dict, int8: dict) -> dict:
+    """Where the int8 wire's first-epoch loss gap comes from, at full
+    width.  The first epoch of phase 8's ``sharded_fused`` trainer on 2
+    ranks is two microsteps; the second one's loss is the first that the
+    wire can move.  Rebuilt here from the sessions' own inputs (the
+    trainer's initial state and first draws from its seed, ``psum``'s
+    ring and norm stats): microstep 1's ranks' gradients, averaged
+    exactly (psum / 2) and over the int8 wire; one Adam step with each;
+    microstep 2's loss after each.  The int8 mean is 0 on some entries
+    where the exact one is not ("zeroed") and has the other sign on some
+    ("flipped"); a hybrid gradient takes the int8 mean there and the
+    exact mean everywhere else.  Adam's first step moves an entry by
+    ``lr * g / (|g| + eps)``: by its sign alone, up to ``eps``.  Held:
+    the rebuilt first-epoch losses equal both sessions' (1e-5 relative);
+    the int8 step leaves the zeroed entries exactly where they were and
+    equals the hybrid's step on every entry within ``lr * eps * |g - q| /
+    ((|g| + eps) (|q| + eps))`` and the fp32 rounding of the update; the
+    int8 step's microstep-2 loss differs from the hybrid's by under 5% of
+    its gap to psum's.  So the zeroed and flipped entries carry the first
+    epoch's gap."""
+    from repro_torch.ml import autoencoder as ae
+    from repro_torch.ml import trainer as tr
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import compress as CP
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+    tcfg = psum["cfg"]
+    mesh, ndev = tcfg.mesh, tcfg.mesh.size
+    dev = mesh.devices[0]
+    tx = opt.adam(tcfg.scaled_lr)
+    state = tr.init_state(tcfg, torch.Generator().manual_seed(tcfg.seed),
+                          tx, dev)
+    draws = next(iter(tr.default_draws(tcfg, dev).epochs))
+    mu, sd = psum["norm_stats"]
+    train, _, _ = tr._epoch_data(tcfg, psum["spec"], psum["table"], draws,
+                                 mu, sd)
+    bs, starts = tr._windows(tcfg)
+    bl = bs // ndev
+
+    def rank_loss(p, s, r):
+        return ae.loss_fn(p, cfg, psum["levels"],
+                          train[s + r * bl:s + (r + 1) * bl])
+
+    def loss(p, s):
+        with torch.no_grad():
+            return float(torch.stack([rank_loss(p, s, r)
+                                      for r in range(ndev)]).sum() / ndev)
+
+    def flat(tree):
+        return torch.cat([x.reshape(-1) for x in tree_leaves(tree)])
+
+    local = [value_and_grad(lambda p, r=r: rank_loss(p, starts[0], r),
+                            state.params)[1] for r in range(ndev)]
+    exact = tree_map(lambda x: x / ndev, C.psum(local, mesh)[dev])
+    wire = CP.compressed_psum_mean(local, mesh)[dev]
+    g_e, g_q = flat(exact), flat(wire)
+    zeroed = (g_q == 0) & (g_e != 0)
+    flipped = g_q * g_e < 0
+
+    def mix(e, q, zero=True, flip=True):
+        take = (zero & (q == 0)) | (flip & (q * e < 0))
+        return torch.where(take, q, e)
+
+    def step(g):
+        updates, _ = tx.update(g, state.opt_state, state.params)
+        return opt.apply_updates(state.params, updates)
+
+    after = {"psum": step(exact), "int8": step(wire),
+             "hybrid": step(tree_map(mix, exact, wire)),
+             "zeroed_only": step(tree_map(
+                 lambda e, q: mix(e, q, flip=False), exact, wire)),
+             "flipped_only": step(tree_map(
+                 lambda e, q: mix(e, q, zero=False), exact, wire))}
+    p0, pq, ph = flat(state.params), flat(after["int8"]), \
+        flat(after["hybrid"])
+    lr, eps = tcfg.scaled_lr, 1e-8
+    e64, q64 = g_e.double().abs(), g_q.double().abs()
+    bound = lr * (eps * (g_e - g_q).double().abs()
+                  / ((e64 + eps) * (q64 + eps)) + 2.0 ** -20) \
+        + 2.0 ** -22 * p0.double().abs()
+    dev_qh = (pq - ph).double().abs()
+    first = loss(state.params, starts[0])
+    second = {k: loss(p, starts[1]) for k, p in after.items()}
+    epoch = {k: (first + second[k]) / len(starts) for k in ("psum", "int8")}
+    session = {"psum": psum["history"][0].train_loss,
+               "int8": int8["history"][0].train_loss}
+    out = {"entries": int(g_e.numel()), "zeroed": int(zeroed.sum()),
+           "flipped": int(flipped.sum()),
+           "max_int8_vs_hybrid_over_bound": float((dev_qh / bound).max()),
+           "microstep1_loss": first, "microstep2_loss": second,
+           "first_epoch_rebuilt": epoch, "first_epoch_session": session,
+           "microstep2_int8_vs_psum_rel": (second["int8"] - second["psum"])
+           / second["psum"],
+           "hybrid_share_of_gap": (second["hybrid"] - second["psum"])
+           / (second["int8"] - second["psum"])}
+    if len(starts) != 2 or not out["zeroed"] \
+            or any(abs(epoch[k] - session[k]) > 1e-5 * abs(session[k])
+                   for k in epoch) \
+            or not torch.equal(pq[zeroed], p0[zeroed]) \
+            or not bool((dev_qh <= bound).all()) \
+            or abs(second["int8"] - second["hybrid"]) \
+            > 0.05 * abs(second["int8"] - second["psum"]):
+        raise AssertionError(f"int8 ddp witness: {out}")
+    return out
+
+
+def int8_reference_check(dev) -> dict:
+    """The reference's own int8 check (``tests/test_sharded_epoch.py:
+    109-131``) at its own config on this card: ONE ``sharded_fused``
+    epoch on 2 ranks from the same state, table (10 flat-plate snapshots
+    of 256 points) and draws with ``ddp`` psum, int8 and int8 with
+    feedback; each int8 train loss within 2% of psum's (the reference's
+    limit for that config).  At phase 8's full width the first int8
+    epoch reads ~4% below psum's (PERF.md), held by ``INT8_EPOCH_RTOL``
+    and :func:`int8_microstep_witness`."""
+    from repro_torch.core import TableSpec
+    from repro_torch.core import store as S
+    from repro_torch.ml import autoencoder as ae
+    from repro_torch.ml import trainer as tr
+    from repro_torch.parallel.sharding import data_mesh
+    from repro_torch.sim import flatplate as fp
+    from repro_torch.train import optimizer as opt
+    fcfg = fp.FlatPlateConfig(nx=8, ny=8, nz=4)
+    n = fcfg.n_points
+    gen = torch.Generator().manual_seed(SEED)
+    modes = fp.draw_modes(fcfg, gen, dev)
+    coords = fp.grid_coords(fcfg, dev)
+    spec = TableSpec("field", shape=(4, n), capacity=16)
+    table = S.init_table(spec, device=dev)
+    for i in range(10):
+        table = S.put(spec, table, S.make_key(0, i),
+                      fp.snapshot(fcfg, modes, i, coords))
+    aecfg = ae.AEConfig(n_points=n, latent=16, mlp_width=16)
+    levels = ae.coords_pyramid(aecfg, coords)
+    tx = opt.adam(1e-3)
+    mu = torch.zeros(4, device=dev)
+    sd = torch.ones(4, device=dev)
+    mesh = data_mesh(SHARDS, devices=[dev] * SHARDS)
+    out = {}
+    for ddp, ef in (("psum", False), ("int8", False), ("int8", True)):
+        cfg = tr.TrainerConfig(ae=aecfg, gather=6, batch_size=4, lr=1e-3,
+                               mesh=mesh, ddp=ddp, ddp_error_feedback=ef)
+        state = tr.init_state(cfg, torch.Generator().manual_seed(SEED), tx,
+                              dev)
+        draws = tr.draw_epoch(cfg, torch.Generator(device=dev)
+                              .manual_seed(7), dev)
+        epoch = tr.make_sharded_fused_epoch(cfg, levels, tx, spec)
+        _, m = epoch(table, state, draws, mu, sd)
+        out[f"{ddp}{' feedback' if ef else ''}"] = float(m[0])
+    exact = out["psum"]
+    rel = {k: (v - exact) / exact for k, v in out.items() if k != "psum"}
+    if not all(math.isfinite(v) for v in out.values()) \
+            or max(abs(v) for v in rel.values()) > 0.02:
+        raise AssertionError(f"int8 ddp at the reference's config: {out}")
+    return {"train_loss": out, "rel_to_psum": rel}
+
+
+def capacity_phase(dev, cfg, fcfg, counters, slab: dict, session, preload,
+                   local: dict, kernels) -> dict:
+    """16d. ``[colocated capacity]``: ``Colocated(data_mesh(2),
+    elem_spec=(None, None), capacity_axis="data")``, the ring's slots cut
+    over 2 ranks of this card.  Phase 8's ``sharded_fused`` trainer on it:
+    the trainer predicted to all-gather the table and measured to
+    (``plan(hlo=True)``), every entry's ``check_collectives`` passing,
+    op_count == the plan, params ``torch.equal`` to ``[sharded]``'s run on
+    a local table; a prediction with the all-gather removed must raise.
+    Phase 4's serving on it (both tiers): predicted and measured to
+    all-reduce its reads, responses ``torch.equal`` to phase 4's, the
+    sharded gather once per rank per read and the probe and QuadConv
+    launches phase 4's."""
+    from repro_torch.core import Colocated
+    from repro_torch.insitu import plan as P
+    from repro_torch.parallel.sharding import data_mesh
+    from repro_torch.tree import tree_leaves
+    mesh = data_mesh(SHARDS, devices=[dev] * SHARDS)
+    cap = Colocated(mesh, elem_spec=(None, None), capacity_axis="data")
+    run = train_session(dev, cfg, fcfg, True, counters,
+                        label="colocated capacity", mesh=mesh,
+                        deployment=cap, hlo=True)
+    plan = run["plan"]
+    for e in plan.components:
+        e.check_collectives()
+    trainer = plan.component("trainer")
+    pred, coll = dict(trainer.predicted_collectives), \
+        dict(trainer.collectives)
+    if trainer.tier != "sharded_fused" or pred["all-gather"] is not True \
+            or not coll["all-gather"] > 0:
+        raise AssertionError(f"colocated capacity: {trainer.tier} "
+                             f"{pred} {coll}")
+    try:
+        replace(trainer, predicted_collectives=P._pred(
+            all_reduce=True)).check_collectives()
+    except AssertionError as exc:
+        control = str(exc)
+    else:
+        raise AssertionError("colocated capacity: a prediction without the "
+                             "all-gather passed")
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(run["state"]), tree_leaves(slab["state"]))):
+        raise AssertionError("colocated capacity: params differ from the "
+                             "local table's run")
+    reads = CLIENTS * REQUESTS
+    serve = {}
+    for tier, (want, local_launches) in local.items():
+        sess = session(tier, deployment=cap)
+        splan = sess.plan(hlo=True)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sess.run(plan=splan, sequential=True, preload=preload,
+                       max_wall_s=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.symbol: k.launches for k in kernels}
+        if not res.ok:
+            raise AssertionError({n: c.error
+                                  for n, c in res.run.components.items()})
+        entry = splan.component("serving")
+        entry.check_collectives()
+        scoll = dict(entry.collectives)
+        stats = res.server.stats()
+        resp = res.output("readers").responses
+        if stats["op_count"] != splan.store_dispatches \
+                or not scoll["all-reduce"] > 0 or scoll["all-gather"]:
+            raise AssertionError(f"colocated capacity serve {tier}: "
+                                 f"{stats} {scoll}")
+        if sorted(resp) != sorted(want) \
+                or not all(torch.equal(resp[k], want[k]) for k in want):
+            raise AssertionError(f"colocated capacity serve {tier}: "
+                                 f"responses differ from phase 4's")
+        drains = res.output("serving").batches \
+            if tier == "continuous_batch" else reads
+        expect = {k.symbol: 0 for k in kernels}
+        expect.update({"probe_slots": local_launches["probe_slots"],
+                       "gather_rows_sharded": SHARDS * (drains + reads),
+                       "quadconv_contract":
+                           local_launches["quadconv_contract"]})
+        if launches != expect:
+            raise AssertionError(f"colocated capacity serve {tier}: "
+                                 f"launches {launches}, expected {expect}")
+        serve[tier] = {"launches": launches, "drain_collectives":
+                       {k: v for k, v in scoll.items() if v},
+                       "op_count": stats["op_count"],
+                       "requests_per_s": len(resp) / wall,
+                       "responses_equal_phase4": True}
+        del res, sess
+    return {"deployment": plan.deployment,
+            "trainer_predicted": {k: v for k, v in pred.items() if v},
+            "trainer_epoch_collectives": {k: v for k, v in coll.items() if v},
+            "no_all_gather_prediction_control": control,
+            "params_equal_local": True, "op_count": run["op_count"],
+            "train_launches": run["launches"],
+            "epoch_ms": run["epoch_ms"], "serve": serve}
+
+
 def launch_floor(lib) -> dict:
     """``[launch floor]``: one empty kernel's device time per launch
     (``torch.profiler``) and its CUDA-event time over back-to-back
@@ -3798,7 +4569,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     clu_fd = clustered_fd_phase(dev, counters, colo_ring)
-    del colo_ring
     clu_fd["seconds"] = time.perf_counter() - t0
     print(f"[clustered fd] {smi} {json.dumps(clu_fd)}", flush=True)
     torch.cuda.empty_cache()
@@ -3819,6 +4589,36 @@ def main() -> int:
     fan_in = fan_in_scenario(dev)
     fan_in["seconds"] = time.perf_counter() - t0
     print(f"[fan-in] {smi} {json.dumps(fan_in)}", flush=True)
+
+    # 16a-d. the rest of the multi-device tiers: ranks on this card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c2d = clustered_2d_phase(dev, counters, colo_ring)
+    del colo_ring
+    c2d["seconds"] = time.perf_counter() - t0
+    print(f"[clustered2d fd] {smi} {json.dumps(c2d)}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    consumers = consumers_phase(dev, tcfg, tfcfg, counters, slab_run,
+                                trained)
+    consumers["seconds"] = time.perf_counter() - t0
+    print(f"[consumers] {smi} {json.dumps(consumers)}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    int8 = int8_phase(dev, tcfg, tfcfg, [
+        sops.PROBE, sops.SAMPLE, sops.GATHER, sops.GATHER_SHARDED,
+        qops.QUADCONV], slab_run)
+    int8["seconds"] = time.perf_counter() - t0
+    print(f"[int8 ddp] {smi} {json.dumps(int8)}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    capacity = capacity_phase(
+        dev, tcfg, tfcfg, counters, slab_run, session, preload,
+        {"continuous_batch": (batched, launches),
+         "three_step": (single, single_launches)},
+        [sops.PROBE, sops.GATHER, sops.GATHER_SHARDED, qops.QUADCONV])
+    capacity["seconds"] = time.perf_counter() - t0
+    print(f"[colocated capacity] {smi} {json.dumps(capacity)}", flush=True)
 
     # 16. checkpoints: in memory on the card, and the launcher's resume
     torch.cuda.empty_cache()
@@ -3850,7 +4650,17 @@ def main() -> int:
                 name, 0),
             "clustered train": clu_train["launches"].get(name, 0),
             "clustered serve": clu_serve["continuous_batch"][
-                "launches"].get(name, 0)}
+                "launches"].get(name, 0),
+            "clustered2d fd (the ring's read)": c2d["read_launches"].get(
+                name, 0),
+            "consumers (2 replicas)": sum(
+                r.get(name, 0) for r in consumers["launches"].values()),
+            "int8 ddp (sharded_fused, feedback)": int8["launches"][
+                "int8 feedback"].get(name, 0),
+            "colocated capacity train": capacity["train_launches"].get(
+                name, 0),
+            "colocated capacity serve": capacity["serve"][
+                "continuous_batch"]["launches"].get(name, 0)}
         if row["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
         row["kernel_ms"] = row["ms"]
@@ -3903,7 +4713,13 @@ def main() -> int:
             "slab_sharded": sharded["slab_sharded"]["launches"][
                 "gather_rows_sharded"],
             "clustered train (2 db ranks)": clu_train["launches"][
-                "gather_rows_sharded"]},
+                "gather_rows_sharded"],
+            "int8 ddp slab_sharded": int8["launches"]["slab_sharded int8"][
+                "gather_rows_sharded"],
+            "int8 ddp slab_sharded_clustered": int8["launches"][
+                "slab_sharded_clustered int8"]["gather_rows_sharded"],
+            "colocated capacity serve": capacity["serve"][
+                "continuous_batch"]["launches"]["gather_rows_sharded"]},
         kernel_ms=sharded_row["ms"]))
     print(json.dumps({"kernels": rows}))
     print(smi)

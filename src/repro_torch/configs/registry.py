@@ -10,7 +10,7 @@ and the Mamba-2 configs; every other id of ``ARCH_IDS`` (MoE, hybrid,
 encoder-decoder, vision) raises ``NotImplementedError`` naming
 ``ROADMAP.md`` A7, and an unknown id ``ModuleNotFoundError``.  The
 reference's input-shape table and cell rules serve its mesh dry-run
-(A5, A7) and are not carried.
+(A7) and are not carried.
 """
 
 from __future__ import annotations

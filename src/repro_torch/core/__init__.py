@@ -1,8 +1,7 @@
 """Core in-situ coupling layer — port of ``src/repro/core``: the store,
 server, client, driver, telemetry and fault taxonomy, and the deployments
-(``deployment``: co-located and clustered; the 2-D clustered db grid,
-``make_clustered_2d``, raises naming ``ROADMAP.md`` A5), with the
-reference's names."""
+(``deployment``: co-located, clustered and the 2-D clustered db grid,
+``make_clustered_2d``), with the reference's names."""
 
 from . import store
 from .client import Client

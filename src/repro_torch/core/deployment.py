@@ -10,15 +10,19 @@ every transfer across the interconnect.
   producer's output, one block of every element per rank of the
   producer's mesh, so a ``put`` of a domain-decomposed emission is a
   rank-local slab update: no collective and no staged transfer.
+  ``capacity_axis`` cuts the slot axis over a mesh axis as well: a
+  ``SlabSharding`` when the elements stay whole on a 1-D mesh, a
+  ``GridSharding`` when they are cut over the other axis of a 2-D one.
 * :class:`Clustered` — the store lives on a dedicated db mesh.  Every
   write stages its payload onto that mesh first (``stage``,
   ``stage_batch``, ``stage_chunk``) and every staged read leaves it again
   (``stage_to_clients``); the server counts one staged transfer a hop.
   ``slab_axis`` cuts the slab's slot axis over the db mesh (a
   ``parallel.sharding.SlabSharding``); ``elem_spec`` lays each element
-  out over it instead (an ``ElemSharding``).  The port's meshes are 1-D,
-  so a table is one or the other, never both.  ``overlap`` turns on the
-  two-slot staging pipeline of the fused put (:class:`StagingPipeline`).
+  out over it (an ``ElemSharding``).  On a 1-D db mesh a table is one or
+  the other; :func:`make_clustered_2d` builds a 2-D ``(slab, element)``
+  db grid on which it is both (a ``GridSharding``).  ``overlap`` turns on
+  the two-slot staging pipeline of the fused put (:class:`StagingPipeline`).
 
 The port has no ``PartitionSpec``: an element's layout is a tuple with an
 axis name or ``None`` for each element dim, and ``elem_sharding(spec)``
@@ -41,9 +45,12 @@ would keep each 2 GB block from reuse until the host saw the event,
 costing a fresh allocation a chunk).  On the CPU the copies run in order
 and ``ready`` is ``None``.
 
-The reference's ``capacity_axis`` (a co-located slot axis cut as well)
-and ``make_clustered_2d`` (a 2-D ``(slab, element)`` db grid) have no
-path or cell that needs them yet and raise naming ``ROADMAP.md`` A5.
+On a 2-D db grid a staged element is copied once to every db rank, each
+rank taking the block of its element-axis coordinate (the reference
+stages onto ``P(None, *elem_spec)``, replicated along the slab axis): the
+ranks of a slab row then insert the rows they own without a collective.
+Every grid read goes through the plain gather kernel once per shard
+(``Clustered.gather_shards`` is 1 on a 2-D grid).
 """
 
 from __future__ import annotations
@@ -54,8 +61,8 @@ from typing import Sequence
 
 import torch
 
-from ..parallel.sharding import (ElemSharding, ElemShards, Mesh, SlabSharding,
-                                 data_mesh)
+from ..parallel.sharding import (ElemSharding, ElemShards, GridSharding, Mesh,
+                                 SlabSharding, data_mesh)
 from ..tree import tree_map
 from .faults import FaultPlan
 from .store import TableSpec
@@ -137,10 +144,14 @@ class Colocated(Deployment):
 
     ``elem_spec`` is the layout of one stored element (an axis name or
     ``None`` per element dim); it must match the layout the producer emits
-    so that puts are rank-local.  ``capacity_axis`` keeps the reference's
-    signature; setting it raises (``ROADMAP.md`` A5).  Nothing crosses a
-    mesh: ``fan_in`` is 1, ``crosses_mesh`` False (class constants) and
-    the staging verbs return what they are given.
+    so that puts are rank-local.  ``capacity_axis`` cuts the slot axis
+    over that mesh axis too (``capacity / D`` slots a rank): with whole
+    elements on a 1-D mesh a ``SlabSharding`` (reads gather each rank's
+    own rows and ``psum`` them; a replicated-entry mesh trainer
+    all-gathers the slab), with elements cut over the other axis of a 2-D
+    mesh a ``GridSharding``.  Nothing crosses a mesh: ``fan_in`` is 1,
+    ``crosses_mesh`` False (class constants) and the staging verbs return
+    what they are given.
     """
 
     mesh: Mesh
@@ -150,15 +161,33 @@ class Colocated(Deployment):
 
     def __post_init__(self):
         self.elem_spec = tuple(self.elem_spec)
-        ElemSharding(self.mesh, self.elem_spec)   # checks the axes
+        layout = ElemSharding(self.mesh, self.elem_spec)   # checks the axes
         if self.capacity_axis is not None:
-            raise NotImplementedError(
-                f"Colocated(capacity_axis={self.capacity_axis!r}): a "
-                f"co-located table with its slot axis cut over the mesh "
-                f"(no path or cell needs it yet): ROADMAP.md A5")
+            if self.capacity_axis not in self.mesh.axis_names:
+                raise ValueError(f"capacity_axis {self.capacity_axis!r} is "
+                                 f"not an axis of the mesh "
+                                 f"{self.mesh.axis_names}")
+            if layout.axis == self.capacity_axis:
+                raise ValueError(
+                    f"capacity_axis {self.capacity_axis!r} also appears in "
+                    f"elem_spec {self.elem_spec}: the slot and element cuts "
+                    f"need disjoint mesh axes")
 
-    def slab_sharding(self, spec: TableSpec | None = None) -> ElemSharding:
-        return self.elem_sharding(spec)
+    def slab_sharding(self, spec: TableSpec | None = None):
+        layout = self.elem_sharding(spec)
+        if self.capacity_axis is None:
+            return layout
+        if spec is None:
+            raise ValueError("a capacity-cut placement needs the table spec")
+        d = self.mesh.shape[self.capacity_axis]
+        if spec.capacity % d:
+            raise ValueError(f"table {spec.name!r}: capacity "
+                             f"{spec.capacity} does not divide over the "
+                             f"{d}-rank {self.capacity_axis!r} axis")
+        if self.mesh.ndim == 1:
+            return SlabSharding(self.mesh, spec.capacity // d)
+        return GridSharding(self.mesh, self.capacity_axis,
+                            spec.capacity // d, layout)
 
     def elem_sharding(self, spec: TableSpec | None = None) -> ElemSharding:
         return ElemSharding(self.mesh, self.elem_spec)
@@ -178,7 +207,9 @@ class Colocated(Deployment):
 
     def describe(self) -> str:
         return (f"colocated(mesh={tuple(self.mesh.shape.items())}, "
-                f"elem_spec={self.elem_spec})")
+                f"elem_spec={self.elem_spec}"
+                + (f", capacity_axis={self.capacity_axis!r}"
+                   if self.capacity_axis else "") + ")")
 
 
 def _fit_spec(parts: Sequence, shape: Sequence[int], mesh: Mesh) -> tuple:
@@ -315,9 +346,10 @@ class Clustered(Deployment):
                     f"elem_spec {self.elem_spec}: a slot-partitioned "
                     f"slab keeps each element whole on its owning shard "
                     f"— use disjoint mesh axes")
-            if self.slab_axis != self.db_mesh.axis:
-                raise ValueError(f"slab_axis {self.slab_axis!r} is not the "
-                                 f"db mesh's axis {self.db_mesh.axis!r}")
+            if self.slab_axis not in self.db_mesh.axis_names:
+                raise ValueError(f"slab_axis {self.slab_axis!r} is not an "
+                                 f"axis of the db mesh "
+                                 f"{self.db_mesh.axis_names}")
         self._streams: dict = {}
 
     @property
@@ -335,7 +367,7 @@ class Clustered(Deployment):
         ``slab_axis`` is unset or capacity does not divide)."""
         if self.slab_axis is None:
             return 1
-        d = self.db_mesh.size
+        d = self.db_mesh.shape[self.slab_axis]
         return d if spec.capacity % d == 0 else 1
 
     def gather_shards(self, spec: TableSpec) -> int:
@@ -343,16 +375,23 @@ class Clustered(Deployment):
         (``store.make_clustered_gather``): the slot-partition factor, but
         only where the element dims are whole on the db mesh.  THE rule
         both the server's gather and the plan's ``plan(hlo=True)``
-        consult."""
-        if any(e is not None for e in self._elem_spec_for(spec)):
+        consult.  On a 2-D db grid it is 1: the grid read takes the plain
+        gather kernel once per shard, cut elements or not."""
+        if any(e is not None for e in self._elem_spec_for(spec)) \
+                or self.db_mesh.ndim > 1:
             return 1
         return self.slab_shards(spec)
 
-    def slab_sharding(self, spec: TableSpec) -> SlabSharding | ElemSharding:
-        """A ``SlabSharding`` over the db mesh when the slot axis is cut,
-        else the fitted ``ElemSharding`` (which, cutting nothing, leaves
-        the slab whole on the server's device, one of the db mesh's)."""
+    def slab_sharding(self, spec: TableSpec):
+        """A ``SlabSharding`` over the db mesh when the slot axis is cut (a
+        ``GridSharding`` on a 2-D db grid, the elements laid out by the
+        fitted ``elem_spec`` along its other axis), else the fitted
+        ``ElemSharding`` (which, cutting nothing, leaves the slab whole on
+        the server's device, one of the db mesh's)."""
         d = self.slab_shards(spec)
+        if d > 1 and self.db_mesh.ndim > 1:
+            return GridSharding(self.db_mesh, self.slab_axis,
+                                spec.capacity // d, self.elem_sharding(spec))
         if d > 1:
             return SlabSharding(self.db_mesh, spec.capacity // d)
         return self.elem_sharding(spec)
@@ -374,29 +413,34 @@ class Clustered(Deployment):
         if not isinstance(x, ElemShards):
             return torch.as_tensor(x)
         src = x.placement
-        if src.dim is None or src.mesh.size == 1:
+        if src.is_fully_replicated:
             return x.blocks[0]
-        return torch.cat([b.to(self.home) for b in x.blocks],
+        first = {src.block_of(r): b for r, b in
+                 reversed(list(enumerate(x.blocks)))}
+        return torch.cat([first[i].to(self.home) for i in range(src.blocks)],
                          dim=lead + src.dim)
 
     def _place(self, x, layout: ElemSharding, lead: int, copier: _Copier):
         """``x`` (a tensor or an ``ElemShards``; ``lead`` batch dims)
         copied into fresh tensors laid out by ``layout`` on the db mesh:
-        one block a db rank when it cuts a dim, else whole on ``home``.
-        Blocks already cut like ``layout`` are copied block for block."""
-        if layout.dim is None or layout.mesh.size == 1:
+        one block a db rank when it cuts a dim (rank ``r`` the block of
+        its coordinate along the cut axis), else whole on ``home``.
+        Blocks of a 1-D emission already cut like ``layout`` are copied
+        block for block."""
+        if layout.is_fully_replicated:
             return copier.copy(self._whole_value(x, lead), self.home)
-        d = layout.mesh.size
+        d = layout.blocks
         if isinstance(x, ElemShards) and x.placement.dim == layout.dim \
-                and len(x.blocks) == d:
+                and x.placement.mesh.ndim == 1 and len(x.blocks) == d:
             blocks = x.blocks
         else:
             x = self._whole_value(x, lead)
             axis = lead + layout.dim
             blk = x.shape[axis] // d
-            blocks = [x.narrow(axis, r * blk, blk) for r in range(d)]
-        return ElemShards(tuple(copier.copy(b, dev) for b, dev in
-                                zip(blocks, layout.mesh.devices)), layout)
+            blocks = [x.narrow(axis, i * blk, blk) for i in range(d)]
+        return ElemShards(tuple(
+            copier.copy(blocks[layout.block_of(r)], dev)
+            for r, dev in enumerate(layout.mesh.devices)), layout)
 
     def stage(self, x, spec: TableSpec | None = None):
         """The hop of one element onto the db mesh, in the table's fitted
@@ -513,20 +557,52 @@ def make_clustered_1d(db_fraction: float = 0.25, axis: str = "data",
         faults=faults)
 
 
-def make_clustered_2d(*args, **kwargs) -> Clustered:
-    """A clustered deployment over a 2-D ``(slab, element)`` db grid: the
-    port's meshes are 1-D, so this raises (``ROADMAP.md`` A5)."""
-    raise NotImplementedError(
-        "make_clustered_2d (a 2-D (slab, element) db grid; the port's "
-        "meshes are 1-D): ROADMAP.md A5")
+def make_clustered_2d(elem_spec: tuple, db_fraction: float = 0.5,
+                      slab_axis: str = "slab", elem_axis: str = "space",
+                      client_axis: str = "space", devices=None,
+                      slab_shards: int | None = None, overlap: bool = True,
+                      faults: FaultPlan | None = None) -> Clustered:
+    """A clustered deployment over a 2-D ``(slab, element)`` db grid.
+
+    ``Clustered`` keeps the slot cut and the element cut on disjoint mesh
+    axes, so a 1-D db mesh must choose; this factory reshapes the db ranks
+    (``split_devices``; ``devices`` may repeat one card) into a
+    ``(slab_shards, n_db / slab_shards)`` grid: slots cut over
+    ``slab_axis`` (rows), each element laid out over ``elem_axis``
+    (columns) by ``elem_spec``.  The client mesh is 1-D over
+    ``client_axis``; name it after the producer's axis (default
+    ``"space"``) so one ``elem_spec`` reads the same on both sides.
+    ``slab_shards=None`` takes 2 when the db pool is even, else 1."""
+    used = {a for entry in elem_spec if entry is not None
+            for a in ((entry,) if isinstance(entry, str) else entry)}
+    if slab_axis in used:
+        raise ValueError(
+            f"slab_axis {slab_axis!r} also appears in elem_spec "
+            f"{tuple(elem_spec)}: the 2-D db mesh gives the slot and element "
+            f"partitions their own axes — put the element layout on "
+            f"{elem_axis!r}")
+    client_devs, db_devs = split_devices(devices, db_fraction)
+    n_db = len(db_devs)
+    if slab_shards is None:
+        slab_shards = 2 if n_db % 2 == 0 and n_db >= 2 else 1
+    if slab_shards < 1 or n_db % slab_shards != 0:
+        raise ValueError(
+            f"slab_shards={slab_shards} does not divide the {n_db}-device "
+            f"db pool: the (slab, element) grid needs equal rows")
+    db_grid = Mesh(data_mesh(devices=db_devs).devices, (slab_axis, elem_axis),
+                   (slab_shards, n_db // slab_shards))
+    return Clustered(
+        client_mesh=data_mesh(axis=client_axis, devices=client_devs),
+        db_mesh=db_grid, elem_spec=tuple(elem_spec), slab_axis=slab_axis,
+        overlap=overlap, faults=faults)
 
 
 def check_deployment(deployment):
     """``deployment`` when the port runs it (``None``, the local store,
     :class:`Colocated` or :class:`Clustered`); any other raises
-    ``NotImplementedError`` naming ``ROADMAP.md`` A5."""
+    ``NotImplementedError``."""
     if deployment is None or isinstance(deployment, (Colocated, Clustered)):
         return deployment
     raise NotImplementedError(
         f"deployment {type(deployment).__name__}: the port runs the local "
-        f"store, Colocated and Clustered (ROADMAP.md A5)")
+        f"store, Colocated and Clustered")

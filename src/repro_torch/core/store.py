@@ -43,6 +43,16 @@ a caller that needs whole elements gets them through ONE counted
 ``collectives.all_gather`` along the cut dim, decided in one place,
 :func:`_gather` — every read verb here returns whole elements.
 
+**Grid tables** (a clustered deployment's 2-D ``(slab, element)`` db
+grid, ``core.deployment.make_clustered_2d``, or ``Colocated(
+capacity_axis=)`` on a 2-D mesh).  Given a ``parallel.sharding.
+GridSharding``, the slab is cut both ways: a :class:`GridSlab` whose rank
+``r`` holds, for the slots its slab row owns, its element block.  A write
+puts each rank's block of the rows its slab row owns into its shard (no
+collective); a read launches the plain gather kernel once per shard and
+assembles whole rows with one grouped ``all_gather`` along the element
+axis and one grouped ``psum`` along the slab axis (:func:`_gather_grid`).
+
 Differences from the reference, all deliberate:
 
 * Keys are int64 tensors carrying the uint32 key value (torch has no
@@ -90,12 +100,13 @@ from ..device import resolve_device
 from ..kernels.store import ops as _kops
 from ..kernels.store.ref import EMPTY_KEY, KEY_DTYPE
 from ..parallel import collectives as C
-from ..parallel.sharding import ElemSharding, ElemShards, SlabSharding
+from ..parallel.sharding import (ElemSharding, ElemShards, GridSharding,
+                                 SlabSharding)
 from ..tree import tree_map
 
 __all__ = [
     "TableSpec", "TableState", "ShardedSlab", "ElemShardedSlab",
-    "ElemShards", "make_key", "name_key",
+    "GridSlab", "ElemShards", "make_key", "name_key",
     "init_table", "put", "put_many", "put_masked", "put_stream", "get",
     "get_many", "serve_batch", "sample", "sample_and_step",
     "sample_sharded_impl", "whole_slab",
@@ -165,7 +176,17 @@ class ElemShardedSlab(NamedTuple):
     placement: ElemSharding
 
 
-Slab = torch.Tensor | ShardedSlab | ElemShardedSlab
+class GridSlab(NamedTuple):
+    """A slab cut both ways on a 2-D mesh (``placement``, a
+    ``GridSharding``): ``shards[r]`` holds rank ``r``'s block of every
+    slot its slab row owns, ``[local_cap, *placement.elem.local_shape(
+    shape)]``, on rank ``r``'s device, a separate allocation per rank."""
+
+    shards: tuple[torch.Tensor, ...]
+    placement: GridSharding
+
+
+Slab = torch.Tensor | ShardedSlab | ElemShardedSlab | GridSlab
 
 
 class TableState(NamedTuple):
@@ -194,6 +215,16 @@ def init_table(spec: TableSpec,
         slab_sharding = None
     if slab_sharding is None:
         slab = torch.zeros(shape, dtype=spec.dtype, device=dev)
+    elif isinstance(slab_sharding, GridSharding):
+        grid = slab_sharding
+        if grid.local_cap * grid.slab_shards != spec.capacity:
+            raise ValueError(f"table {spec.name!r}: {grid.slab_shards} slab "
+                             f"rows of {grid.local_cap} slots != capacity "
+                             f"{spec.capacity}")
+        local = grid.elem.local_shape(spec.shape)
+        slab = GridSlab(tuple(
+            torch.zeros((grid.local_cap, *local), dtype=spec.dtype, device=d)
+            for d in grid.mesh.devices), grid)
     elif isinstance(slab_sharding, ElemSharding):
         local = slab_sharding.local_shape(spec.shape)
         slab = ElemShardedSlab(tuple(
@@ -279,6 +310,9 @@ def _whole(values, lead: int):
     if layout.dim is None:
         return values.blocks[0]
     mesh = layout.mesh
+    if mesh.ndim > 1:
+        return C.all_gather(list(values.blocks), mesh, dim=lead + layout.dim,
+                            axis=layout.axis)[0]
     return C.all_gather(list(values.blocks), mesh,
                         dim=lead + layout.dim)[mesh.devices[0]]
 
@@ -292,9 +326,17 @@ def whole_slab(slab: Slab) -> torch.Tensor:
     if isinstance(slab, torch.Tensor):
         return slab
     layout = slab.placement
-    dim = 0 if isinstance(slab, ShardedSlab) else 1 + layout.dim
+    if isinstance(slab, GridSlab):
+        rows = list(slab.shards)
+        if not layout.elem.is_fully_replicated:
+            rows = C.all_gather(rows, layout.mesh, dim=1 + layout.elem.dim,
+                                axis=layout.elem_axis)
+        return C.all_gather(rows, layout.mesh, dim=0,
+                            axis=layout.slab_axis)[0]
+    if isinstance(slab, ElemShardedSlab):
+        return _whole(ElemShards(slab.shards, layout), 1)
     return C.all_gather(list(slab.shards), layout.mesh,
-                        dim=dim)[layout.mesh.devices[0]]
+                        dim=0)[layout.mesh.devices[0]]
 
 
 def slab_bytes(slab: Slab) -> dict[str, int]:
@@ -325,7 +367,11 @@ def _scatter_rows(slab: Slab, idx: torch.Tensor, rows) -> None:
     element-sharded one each rank's block of every row into that rank's
     shard.  ``rows`` is a tensor ``[n, *shape]`` or an ``ElemShards`` of
     the ranks' ``[n, *block]``: laid out like the slab, each block is
-    written as it is; otherwise it is assembled first (one all-gather)."""
+    written as it is; otherwise it is assembled first (one all-gather).
+    A grid slab takes each rank's block of the rows its slab row owns."""
+    if isinstance(slab, GridSlab):
+        _scatter_grid(slab, idx, rows)
+        return
     if isinstance(slab, ElemShardedSlab):
         layout = slab.placement
         if isinstance(rows, ElemShards) and rows.placement.mesh \
@@ -342,14 +388,73 @@ def _scatter_rows(slab: Slab, idx: torch.Tensor, rows) -> None:
         return
     # one stable sort by owner keeps each shard's rows in order; one host
     # read of the per-owner counts splits them
-    owner = idx // slab.placement.local_cap
-    order = torch.argsort(owner, stable=True)
-    counts = torch.bincount(owner, minlength=len(slab.shards)).tolist()
+    order, counts = _split_by_owner(idx, slab.placement.local_cap,
+                                    len(slab.shards))
     for r, (shard, i, v) in enumerate(zip(
             slab.shards, idx.index_select(0, order).split(counts),
             rows.index_select(0, order).split(counts))):
         shard.index_copy_(0, (i - slab.placement.offset(r)).to(shard.device),
                           v.to(shard.device))
+
+
+def _split_by_owner(idx: torch.Tensor, local_cap: int, owners: int):
+    """``(order, counts)``: a stable sort of ``idx`` by owning shard and
+    the per-owner counts (one host read), so ``order.split(counts)[i]``
+    are owner ``i``'s positions, in row order."""
+    owner = idx // local_cap
+    order = torch.argsort(owner, stable=True)
+    return order, torch.bincount(owner, minlength=owners).tolist()
+
+
+def _scatter_grid(slab: GridSlab, idx: torch.Tensor, rows) -> None:
+    """:func:`_scatter_rows` on a grid slab: rows already laid out like
+    the slab's elements (a staged chunk's ``ElemShards``) are written
+    block by block, others cut first; each rank writes its block of the
+    rows its slab row owns, at ``slot - offset``.  No collective."""
+    layout = slab.placement
+    elem = layout.elem
+    if isinstance(rows, ElemShards) and rows.placement == elem:
+        blocks = rows.blocks
+    else:
+        blocks = elem.split(_whole(rows, 1).to(idx.device), lead=1)
+    order, counts = _split_by_owner(idx, layout.local_cap,
+                                    layout.slab_shards)
+    positions = order.split(counts)
+    for r, (shard, block) in enumerate(zip(slab.shards, blocks)):
+        i = layout.slab_index(r)
+        dev = shard.device
+        pos = positions[i]
+        shard.index_copy_(0, (idx.index_select(0, pos)
+                              - layout.offset(r)).to(dev),
+                          block.index_select(0, pos.to(block.device))
+                          .to(dev))
+
+
+def _gather_grid(slab: GridSlab, slots: torch.Tensor) -> torch.Tensor:
+    """Whole rows ``slab[slots]`` from a grid slab, on ``slots``' device:
+    each rank launches the plain gather kernel once on its own shard at
+    its slots clamped into range and zeroes the rows its slab row does
+    not own; one grouped ``all_gather`` along the element axis assembles
+    whole elements within each slab row, one grouped ``psum`` along the
+    slab axis adds the rows' disjoint parts (the reference's rule: an
+    element-cut slab reads through the plain gather, never the sharded
+    one)."""
+    layout = slab.placement
+    cap = layout.local_cap
+    blocks = []
+    for r, shard in enumerate(slab.shards):
+        s = slots.to(shard.device)
+        off = layout.offset(r)
+        rows = _kops.gather_rows(shard, (s - off).clamp(0, cap - 1)
+                                 .contiguous())
+        owned = ((s >= off) & (s < off + cap)).reshape(
+            (-1,) + (1,) * (rows.dim() - 1))
+        blocks.append(_zero_unless(owned, rows))
+    mesh = layout.mesh
+    if not layout.elem.is_fully_replicated:
+        blocks = C.all_gather(blocks, mesh, dim=1 + layout.elem.dim,
+                              axis=layout.elem_axis)
+    return C.psum(blocks, mesh, axis=layout.slab_axis)[0].to(slots.device)
 
 
 def _gather_sharded(slab: ShardedSlab, slots: dict) -> dict:
@@ -379,6 +484,8 @@ def _gather(slab: Slab, slots: torch.Tensor) -> torch.Tensor:
     verb returns whole elements)."""
     if isinstance(slab, ElemShardedSlab):
         return _whole(_gather_blocks(slab, slots), 1).to(slots.device)
+    if isinstance(slab, GridSlab):
+        return _gather_grid(slab, slots)
     if not isinstance(slab, ShardedSlab):
         return _kops.gather_rows(slab, slots)
     mesh = slab.placement.mesh
@@ -909,9 +1016,9 @@ def make_clustered_gather(spec: TableSpec, n: int, db_mesh=None,
     table's device.  ``mode`` keeps the reference's signature (the port's
     kernels choose their route by device)."""
     if shards > 1 and db_mesh is not None and axis is not None \
-            and axis != db_mesh.axis:
-        raise ValueError(f"make_clustered_gather: axis {axis!r} is not the "
-                         f"db mesh's {db_mesh.axis!r}")
+            and axis not in db_mesh.axis_names:
+        raise ValueError(f"make_clustered_gather: axis {axis!r} is not an "
+                         f"axis of the db mesh {db_mesh.axis_names}")
 
     def gather(state: TableState, draw: torch.Tensor):
         if draw.shape != (n,):

@@ -4,21 +4,21 @@ Port of ``src/repro/insitu/components.py``: the simulation
 ``Producer``, the ``TrainerConsumer`` (on one device or, through its
 config's mesh, data-parallel), the ``InferenceConsumer`` and the serving
 plane's two components, each with its typed output.  Multi-consumer
-training (``count > 1``) raises ``NotImplementedError`` naming
-``ROADMAP.md`` A5.
+training is ``TrainerConsumer(count > 1)``.
 
-Two contracts differ from the reference: ``TrainerConsumer`` takes the
+Three contracts differ from the reference: ``TrainerConsumer`` takes the
 trainer's random ``draws`` (see ``ml.trainer``), and an inference
 ``feed`` returns ONE element, ``[N, C]`` — the registry adds the batch
 axis (``StoreServer.run_model``), where the reference's feed returns
 ``[1, N, C]`` itself.  ``InferenceOutput`` keeps every output, not only
-the last.
+the last.  A ``TrainerConsumer(count > 1)`` takes one ``draws`` a
+replica; ``InSituSession`` expands it into its replicas.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 from ..ml.trainer import EpochResult, TrainDraws, TrainerConfig, TrainState
 
@@ -87,8 +87,11 @@ class TrainerConsumer:
     :class:`InferenceConsumer`\\ s; ``publish_every`` also publishes a
     versioned checkpoint every that many epochs.  ``draws`` are the
     trainer's random draws (``ml.trainer.TrainDraws``; default: from
-    ``cfg.seed``).  ``count > 1`` (multi-consumer training) is
-    ``ROADMAP.md`` A5.
+    ``cfg.seed``).  ``count > 1`` is multi-consumer training: the session
+    runs ``count`` replicas ``<name>0 ..``, replica ``i`` with seed
+    ``cfg.seed + i`` on its own disjoint mesh, carved by the session from
+    its device pool (so ``cfg.mesh`` stays unset); ``draws`` is then one
+    ``TrainDraws`` a replica (or ``None``).
     """
 
     cfg: TrainerConfig
@@ -98,21 +101,21 @@ class TrainerConsumer:
     model_key: str | None = None
     on_epoch: Callable[[EpochResult], None] | None = None
     publish_every: int | None = None
-    draws: TrainDraws | None = None
+    draws: TrainDraws | Sequence[TrainDraws | None] | None = None
     name: str = "trainer"
 
     def __post_init__(self):
         if self.count < 1:
             raise ValueError("count must be >= 1")
-        if self.count > 1:
-            raise NotImplementedError(
-                "TrainerConsumer(count > 1), multi-consumer training: "
-                "ROADMAP.md A5")
         if self.publish_every is not None:
             if self.publish_every < 1:
                 raise ValueError("publish_every must be >= 1")
             if self.model_key is None:
                 raise ValueError("publish_every requires model_key")
+        if self.count > 1 and self.cfg.mesh is not None:
+            raise ValueError(
+                "multi-consumer sessions own the device slicing: leave "
+                "cfg.mesh unset and let the plan assign disjoint slices")
 
 
 @dataclass

@@ -26,11 +26,17 @@ HLO: a mesh's collectives are explicit calls
 epoch of a tier makes, under the reference's five op names
 (:data:`COLLECTIVE_OPS`).
 
-One prediction deliberately differs from the reference's: a serving
-drain on a request table whose elements are cut over a mesh (a
-co-located deployment) all-gathers the requests it reads, because the
-registered model takes whole elements (:func:`serving_collective_prediction`);
-the reference claims every drain collective-free.
+The predictions follow the calls the port makes, and some deliberately
+differ from the reference's: a serving drain on a request table whose
+elements are cut over a mesh all-gathers the requests it reads, because
+the registered model takes whole elements, and one on a table whose slots
+are cut (``Colocated(capacity_axis=)``, a slot-cut clustered table)
+all-reduces its reads (:func:`serving_collective_prediction`; the
+reference claims every drain collective-free); the clustered staged
+trainer all-gathers on the db side when the table's elements are cut
+(:func:`trainer_collective_prediction`).  :func:`ddp_all_reduces` counts
+the all-reduce calls of a DDP epoch's microsteps (two a microstep with
+``ddp="psum"``, three over the int8 wire).
 
 Clustered deployments also get *staged-transfer* predictions
 (``ComponentPlan.staged``, ``staged_transfers``): one hop per put verb on
@@ -61,7 +67,7 @@ __all__ = [
     "serving_staged", "COLLECTIVE_OPS",
     "COLLECTIVE_FREE", "TRAINER_COLLECTIVE_PREDICTIONS",
     "trainer_collective_prediction", "sharded_producer_prediction",
-    "serving_collective_prediction",
+    "serving_collective_prediction", "ddp_all_reduces",
 ]
 
 #: the collective op names of the reference's HLO accounting
@@ -312,16 +318,22 @@ TRAINER_COLLECTIVE_PREDICTIONS: dict[str, tuple[tuple[str, bool], ...]] = {
 }
 
 
-def trainer_collective_prediction(tier: str, table_sharded: bool = False
+def trainer_collective_prediction(tier: str, table_sharded: bool = False,
+                                  elems_cut: bool = False
                                   ) -> tuple[tuple[str, bool], ...] | None:
     """One trainer entry's collective structure.  ``table_sharded``: the
     table it reads is split over more than one rank (a slab-sharded
-    trainer's placement).  Then ``sharded_fused`` all-gathers the slab on
-    entry, the anti-pattern ``slab_sharded`` removes; the single-device
-    ``fused`` tier gets no claim (``None``), as in the reference.  The
-    clustered staged tier never takes the table into its epoch, so its
-    claim is the same on any placement."""
+    trainer's placement, or a capacity-cut co-located one).  Then
+    ``sharded_fused`` all-gathers the slab on entry, the anti-pattern
+    ``slab_sharded`` removes; the single-device ``fused`` tier gets no
+    claim (``None``), as in the reference.  The clustered staged tier
+    never takes the table into its epoch; its db-side gather all-gathers
+    only where the table's elements are cut (``elems_cut``: the port's
+    reads return whole elements; the reference makes this claim on no
+    placement)."""
     if tier == "slab_sharded_clustered":
+        if elems_cut:
+            return _pred(all_reduce=True, all_gather=True)
         return TRAINER_COLLECTIVE_PREDICTIONS[tier]
     if table_sharded and tier == "sharded_fused":
         return _pred(all_reduce=True, all_gather=True)
@@ -330,7 +342,8 @@ def trainer_collective_prediction(tier: str, table_sharded: bool = False
     return TRAINER_COLLECTIVE_PREDICTIONS[tier]
 
 
-def sharded_producer_prediction(elem_sharding, colocated: bool
+def sharded_producer_prediction(elem_sharding, colocated: bool,
+                                slots_cut: bool = False
                                 ) -> tuple[tuple[str, bool], ...] | None:
     """The collective structure of one ``capture_scan_sharded`` chunk: the
     rank-local put adds **no cross-rank collective beyond the producer's
@@ -338,8 +351,10 @@ def sharded_producer_prediction(elem_sharding, colocated: bool
     faces), everything else, ``all_gather`` above all, zero.  Claimed only
     where it is structural: co-located over more than one rank (the slab
     carries the emission's layout).  Elsewhere ``None``: a local table
-    holds whole elements, so the emission is assembled into it."""
-    if not colocated or elem_sharding is None:
+    holds whole elements, so the emission is assembled into it, and a
+    co-located table whose slots are cut too (``slots_cut``,
+    ``capacity_axis``) is laid out unlike the emission."""
+    if not colocated or elem_sharding is None or slots_cut:
         return None
     if getattr(elem_sharding, "num_devices", 1) <= 1 \
             or getattr(elem_sharding, "is_fully_replicated", False):
@@ -347,16 +362,25 @@ def sharded_producer_prediction(elem_sharding, colocated: bool
     return _pred(collective_permute=True)
 
 
-def serving_collective_prediction(req_sharded: bool
+def serving_collective_prediction(req_sharded: bool, slots_cut: bool = False
                                   ) -> tuple[tuple[str, bool], ...]:
     """The collective structure of one serving drain (either tier): the
     store plumbing makes none on a whole request table; on one whose
-    elements are cut over a mesh (``req_sharded``, a co-located
-    deployment) each read assembles its requests with one all-gather, the
-    registered model taking whole elements, and the response write stays
+    elements are cut over a mesh (``req_sharded``) each read assembles
+    its requests with one all-gather, the registered model taking whole
+    elements; on one whose slots are cut (``slots_cut``) each read sums
+    the shards' own rows with one all-reduce.  The response write stays
     rank-local.  (The reference claims the drain collective-free on every
     deployment.)"""
-    return _pred(all_gather=True) if req_sharded else COLLECTIVE_FREE
+    return _pred(all_gather=req_sharded, all_reduce=slots_cut)
+
+
+def ddp_all_reduces(ddp: str, microsteps: int) -> int:
+    """The all-reduce calls of ``microsteps`` DDP microsteps: the loss and
+    the gradient tree (``"psum"``), or the loss, the int8 payload tree and
+    the scale tree (``"int8"``).  An epoch's gather adds its own (the
+    slab-sharded gather's ``psum``)."""
+    return microsteps * (3 if ddp == "int8" else 2)
 
 
 @dataclass(frozen=True)

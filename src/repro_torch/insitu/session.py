@@ -31,6 +31,18 @@ producer chunk comes from the deployment's ``cost_model``
 pipeline adds one ``drain`` op per fused producer, and
 ``SessionResult.staged_delta`` attributes the hops to components.
 
+Multi-consumer training: a ``TrainerConsumer(count=N)`` expands, when the
+session is built, into N replicas named ``<name>0 .. <name>N-1``, replica
+``i`` with ``cfg.seed + i``, its own draws (``draws[i]``, or drawn from
+its seed) and its own disjoint mesh (``parallel.sharding.disjoint_data_meshes`` over
+the session's device pool; under ``Clustered``, over the client mesh
+only).  The pool is
+``devices=`` (a list, repeats allowed: ``["cuda:0"] * 4`` is four ranks
+of one card), else every visible card when the session's device is a
+card, else the session's device alone.  A slice of fewer than 2 ranks
+trains in the single-device ``fused`` tier, as in the reference.  The plan
+has one entry per replica, the first taking the norm-stats bootstrap.
+
 ``faults=`` arms a ``FaultPlan``: the producer survives crashes at
 declared steps or chunks (resuming from the table watermark), the
 trainer resumes from a ``MemoryCheckpoint`` parked after every epoch,
@@ -64,7 +76,9 @@ from ..device import resolve_device
 from ..ml import autoencoder as ae
 from ..ml import trainer as tr
 from ..parallel import collectives as C
-from ..parallel.sharding import ElemSharding, slab_sharding
+from ..parallel.sharding import (ElemSharding, GridSharding, SlabSharding,
+                                 data_mesh, disjoint_data_meshes,
+                                 slab_sharding)
 from ..serve.engine import ServeLoop, request_key, submitted_meta
 from ..train import optimizer as opt
 from ..train.checkpoint import MemoryCheckpoint
@@ -142,7 +156,8 @@ class InSituSession:
                  tables: Sequence[S.TableSpec] = (),
                  deployment=None,
                  straggler: StragglerPolicy | None = None,
-                 faults: FaultPlan | None = None, device=None):
+                 faults: FaultPlan | None = None, device=None,
+                 devices: Sequence | None = None):
         if not components:
             raise ValueError("a session needs at least one component")
         self.deployment = check_deployment(deployment)
@@ -152,7 +167,9 @@ class InSituSession:
         self.faults = faults if faults is not None \
             else getattr(deployment, "faults", None)
         self.device = resolve_device(device)
-        self.components = self._normalize(components)
+        self.devices = tuple(devices) if devices is not None else None
+        self.components = self._normalize(
+            [r for comp in components for r in self._replicas(comp)])
         table_names = {t.name for t in self.tables}
         for comp in self.components:
             if isinstance(comp, Producer) and comp.table not in table_names:
@@ -207,6 +224,51 @@ class InSituSession:
                         f"{comp.clients}x{comp.requests} requests but "
                         f"{subs[0].name!r} submits "
                         f"{subs[0].clients}x{subs[0].requests}")
+
+    def _pool(self) -> list:
+        """The device pool replicas are carved from: ``devices=``, else
+        every visible card (a session on a card), else the session's
+        device."""
+        if self.devices is not None:
+            return list(self.devices)
+        if self.device.type == "cuda":
+            return list(data_mesh().devices)
+        return [self.device]
+
+    def _replicas(self, comp) -> list:
+        """A ``TrainerConsumer(count=N)`` as its N replicas (each
+        ``count=1``, named ``<name><i>``, seed ``+ i``, its own mesh and
+        draws); any other component as itself."""
+        if not isinstance(comp, TrainerConsumer) or comp.count == 1:
+            return [comp]
+        if comp.cfg.slab_sharded \
+                and not isinstance(self.deployment, Clustered):
+            raise ValueError(
+                f"trainer {comp.name!r}: slab_sharded replicas would each "
+                f"need the table split over their own mesh (use a "
+                f"Clustered deployment, whose db mesh holds the table)")
+        # the replicas never claim the store's dedicated devices: under
+        # Clustered they are carved out of the client mesh only
+        pool = list(self.deployment.client_mesh.devices) \
+            if isinstance(self.deployment, Clustered) else self._pool()
+        meshes = disjoint_data_meshes(comp.count, axis=comp.cfg.mesh_axis,
+                                      devices=pool)
+        draws = comp.draws
+        if draws is None or isinstance(draws, tr.TrainDraws):
+            if draws is not None:
+                raise ValueError(f"trainer {comp.name!r}: one TrainDraws "
+                                 f"for {comp.count} replicas; pass one a "
+                                 f"replica")
+            draws = [None] * comp.count
+        draws = list(draws)
+        if len(draws) != comp.count:
+            raise ValueError(f"trainer {comp.name!r}: {len(draws)} draws "
+                             f"for {comp.count} replicas")
+        return [_dc_replace(comp, cfg=_dc_replace(comp.cfg, mesh=mesh,
+                                                  seed=comp.cfg.seed + i),
+                            count=1, draws=draws[i],
+                            name=f"{comp.name}{i}")
+                for i, mesh in enumerate(meshes)]
 
     @staticmethod
     def _normalize(components) -> tuple[Any, ...]:
@@ -269,8 +331,10 @@ class InSituSession:
                 # claim exactly that where the placement makes it
                 # structural (co-located); every other put path makes no
                 # collective (a clustered hop is a staged copy)
+                slots_cut, _ = self._table_cuts(comp.table)
                 pred = P.sharded_producer_prediction(
-                    comp.elem_sharding, dep is not None and not crosses) \
+                    comp.elem_sharding, dep is not None and not crosses,
+                    slots_cut) \
                     if tier == "capture_scan_sharded" else P.COLLECTIVE_FREE
                 predicted_sps = None
                 if cost_model is not None and tier != "per_verb":
@@ -298,6 +362,7 @@ class InSituSession:
                 cfg = self._trainer_cfg(comp)
                 tier = P.trainer_tier(cfg, comp.tier)
                 mesh = cfg.mesh
+                slots_cut, elems_cut = self._table_cuts(cfg.table)
                 schedule.append({
                     "kind": "trainer", "name": comp.name, "tier": tier,
                     "table": cfg.table, "epochs": cfg.epochs,
@@ -310,7 +375,7 @@ class InSituSession:
                         tier, cfg.epochs, bootstrap=first_trainer),
                     staged=P.trainer_staged(tier, cfg.epochs, crosses),
                     predicted_collectives=P.trainer_collective_prediction(
-                        tier, self._table_is_sharded(cfg.table)),
+                        tier, slots_cut or elems_cut, elems_cut),
                     collectives=self._trainer_collectives(comp, cfg, tier)
                     if hlo else None))
                 first_trainer = False
@@ -343,6 +408,7 @@ class InSituSession:
             else:
                 total = comp.clients * comp.requests
                 tier = P.serving_tier(comp)
+                slots_cut, elems_cut = self._table_cuts(comp.table)
                 schedule.append({
                     "kind": "serving", "name": comp.name, "tier": tier,
                     "table": comp.table, "results": comp.results,
@@ -356,7 +422,7 @@ class InSituSession:
                     staged=P.serving_staged(tier, total, crosses),
                     swaps=P.serving_swaps(tier),
                     predicted_collectives=P.serving_collective_prediction(
-                        self._table_is_sharded(comp.table)),
+                        elems_cut, slots_cut),
                     collectives=self._serving_collectives(comp, tier)
                     if hlo else None))
         fault_totals: tuple[tuple[str, int], ...] = ()
@@ -531,13 +597,18 @@ class InSituSession:
                               db_axis=self.deployment.slab_axis)
         return cfg
 
-    def _table_is_sharded(self, table: str) -> bool:
-        """Is ``table``'s slab split over more than one rank (slots or
-        element blocks)?"""
+    def _table_cuts(self, table: str) -> tuple[bool, bool]:
+        """``(slots_cut, elems_cut)``: is ``table``'s slot axis split over
+        more than one rank, and are its elements?"""
         placement = self._table_placement(self._spec(table))
         if isinstance(placement, ElemSharding):
-            return not placement.is_fully_replicated
-        return placement is not None and placement.mesh.size > 1
+            return False, not placement.is_fully_replicated
+        if isinstance(placement, GridSharding):
+            return (placement.slab_shards > 1,
+                    not placement.elem.is_fully_replicated)
+        if isinstance(placement, SlabSharding):
+            return placement.mesh.size > 1, False
+        return False, False
 
     def _spec(self, table: str) -> S.TableSpec:
         for t in self.tables:

@@ -111,7 +111,9 @@ def run(epochs: int = 40, sim_steps: int = 200, points: str = "small",
 
     ``compute_s``: emulated PDE-integration cost per step (pins the
     per-verb producer and trainer).  ``producers``: simulation ranks
-    sharing the fused capture; ``consumers > 1`` is ``ROADMAP.md`` A5.
+    sharing the fused capture; ``consumers``: trainer replicas, each on its
+    own disjoint slice of the visible cards (``disjoint_data_meshes``; a
+    slice of one card trains in the ``fused`` tier).
     ``points``: ``"small"`` (8×8×4 = 256 points) or ``"medium"``
     (16×16×8 = 2,048).
     """
@@ -200,7 +202,8 @@ def main() -> None:
     ap.add_argument("--producers", type=int, default=1,
                     help="simulation ranks sharing the fused capture")
     ap.add_argument("--consumers", type=int, default=1,
-                    help="trainer replicas (more than 1: ROADMAP.md A5)")
+                    help="trainer replicas, each on its own slice of the "
+                    "visible cards (one card: fused replicas)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args()

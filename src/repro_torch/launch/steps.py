@@ -12,7 +12,7 @@ the step with its state donated; here the state is updated IN PLACE
 (params, μ, ν) and the returned state holds the same tensors.
 
 The prefill / decode step builders and the abstract sharded inputs serve
-the reference's dry-run and mesh launchers (``ROADMAP.md`` A5, A7); the
+the reference's dry-run and mesh launchers (``ROADMAP.md`` A7); the
 port serves through ``serve/decode.py``.
 """
 

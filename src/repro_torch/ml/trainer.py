@@ -20,7 +20,10 @@ Five tiers (``EPOCH_BUILDERS``), all on the same data stream:
   ``cfg.mesh`` (:func:`make_sharded_fused_epoch`): each rank of each
   microstep takes its ``batch_size / D`` slice, the gradients and loss are
   summed with ``collectives.psum`` and divided by D, and one Adam update
-  runs per distinct device of the mesh.  ``sharded_fused`` enters with the
+  runs per distinct device of the mesh.  ``cfg.ddp="int8"`` sends the
+  gradients over the int8 wire instead (``parallel.compress``), with
+  ``cfg.ddp_error_feedback`` a per-rank residual carried from microstep
+  to microstep and reset at each epoch.  ``sharded_fused`` enters with the
   table whole on every device (a slab-sharded table is all-gathered);
   ``slab_sharded`` gathers each rank's own rows from the sharded slab
   (``store.sample_sharded_impl``) and equals ``sharded_fused`` bit for bit.
@@ -50,8 +53,6 @@ Differences from the reference, all deliberate:
   "draws", "history"}``, where ``draws`` is the run's epoch-draw
   iterator, positioned at the next epoch, so a resumed run takes the
   same draws from the same epoch.
-* ``ddp="int8"`` raises ``NotImplementedError`` naming ``ROADMAP.md``
-  A5.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ from ..core.client import Client
 from ..core.telemetry import block_until_ready
 from ..device import resolve_device
 from ..parallel import collectives as C
+from ..parallel import compress as CP
 from ..parallel.sharding import slab_sharding
 from ..train import optimizer as opt
 from ..tree import tree_map, value_and_grad
@@ -92,14 +94,15 @@ class TrainerConfig:
 
     ``fused`` picks the one-capture epoch (default) over the per-verb
     loop.  ``mesh`` (a ``parallel.sharding.Mesh``) trains data-parallel
-    over its ``mesh_axis`` with the exact ``ddp="psum"``; ``slab_sharded``
-    has the table enter the epoch split over that mesh.  ``db_mesh`` /
-    ``db_axis`` are the slab-sharded *clustered* data plane (tier
-    ``slab_sharded_clustered``): the table lives slot-partitioned on that
+    over its ``mesh_axis``, its gradients summed exactly (``ddp="psum"``)
+    or over the int8 wire (``ddp="int8"``; ``ddp_error_feedback`` carries
+    each rank's quantization residual through the epoch's microsteps);
+    ``slab_sharded`` has the table enter the epoch split over that mesh.
+    ``db_mesh`` / ``db_axis`` are the slab-sharded *clustered* data plane
+    (tier ``slab_sharded_clustered``): the table lives slot-partitioned on that
     dedicated mesh (a ``Clustered`` deployment's db ranks; a session wires
     them from the deployment) while the DDP epoch runs on ``mesh``;
-    ``db_mesh`` needs ``slab_sharded=True``.  ``ddp="int8"`` raises
-    (``ROADMAP.md`` A5).
+    ``db_mesh`` needs ``slab_sharded=True``.
     """
 
     ae: ae.AEConfig
@@ -115,7 +118,8 @@ class TrainerConfig:
     fused: bool = True           # one-capture epochs via Client.capture_epoch
     mesh: Any = None             # parallel.sharding.Mesh -> DDP tiers
     mesh_axis: str = "data"      # mesh axis the batch shards over
-    ddp: str = "psum"            # "psum" (exact); "int8" is A5
+    ddp: str = "psum"            # "psum" (exact) | "int8" (compressed wire)
+    ddp_error_feedback: bool = True   # int8: residual rides the microsteps
     slab_sharded: bool = False   # table enters the epoch pre-sharded
     db_mesh: Any = None          # clustered: the store's dedicated mesh
     db_axis: str | None = None   # clustered: slot-partition axis on db_mesh
@@ -123,10 +127,6 @@ class TrainerConfig:
     def __post_init__(self):
         if self.ddp not in ("psum", "int8"):
             raise ValueError(f"unknown ddp mode {self.ddp!r}")
-        if self.ddp == "int8":
-            raise NotImplementedError(
-                "TrainerConfig.ddp='int8' (parallel/compress.py): "
-                "ROADMAP.md A5")
         if self.mesh is not None and not self.fused:
             raise ValueError("mesh-sharded training requires fused=True")
         if self.slab_sharded and self.mesh is None:
@@ -136,9 +136,9 @@ class TrainerConfig:
             raise ValueError("db_mesh is the slab-sharded clustered data "
                              "plane; it needs slab_sharded=True")
         if self.db_mesh is not None and self.db_axis is not None \
-                and self.db_axis != self.db_mesh.axis:
-            raise ValueError(f"db_axis {self.db_axis!r} is not the db "
-                             f"mesh's axis {self.db_mesh.axis!r}")
+                and self.db_axis not in self.db_mesh.axis_names:
+            raise ValueError(f"db_axis {self.db_axis!r} is not an axis of "
+                             f"the db mesh {self.db_mesh.axis_names}")
         if self.mesh is not None and self.mesh_axis != self.mesh.axis:
             # the port's mesh is 1-D: its one axis is the only one to shard
             raise ValueError(f"mesh_axis {self.mesh_axis!r} is not the "
@@ -365,11 +365,14 @@ def _ddp_epoch(cfg: TrainerConfig, levels, tx: opt.GradientTransformation):
     ``run(vals {device: [G, *shape]}, ok, state, draws, mu, sd) ->
     (state, metrics)``.  The data step runs once per distinct device of
     the mesh (replicated compute); each microstep's ranks take their
-    ``batch_size / D`` slices of the mini-batch, the gradients and the
-    loss are ``psum``-ed and divided by D, and each distinct device
-    applies one Adam update to its replica of the state (so ranks sharing
-    a card share one).  Validation runs on rank 0's device, which holds
-    the returned state and metrics."""
+    ``batch_size / D`` slices of the mini-batch, the loss is ``psum``-ed
+    and divided by D, the gradients are too (``ddp="psum"``) or cross the
+    int8 wire (``ddp="int8"``: ``compress.compressed_psum_mean``, or its
+    ``_ef`` form with one residual a rank, zeros at the epoch's start, the
+    reference's scan carry), and each distinct device applies one Adam
+    update to its replica of the state (so ranks sharing a card share
+    one).  Validation runs on rank 0's device, which holds the returned
+    state and metrics."""
     mesh = cfg.mesh
     axis, ndev = mesh.axis, mesh.size
     bs, starts = _windows(cfg)
@@ -380,6 +383,8 @@ def _ddp_epoch(cfg: TrainerConfig, levels, tx: opt.GradientTransformation):
     home = mesh.devices[0]
     devices = mesh.distinct_devices
     lv = {d: tree_map(lambda t: t.to(d), levels) for d in devices}
+    int8 = cfg.ddp == "int8"
+    feedback = int8 and cfg.ddp_error_feedback
 
     def grads_of(params, dev, batch):
         return value_and_grad(
@@ -389,16 +394,25 @@ def _ddp_epoch(cfg: TrainerConfig, levels, tx: opt.GradientTransformation):
         data = {d: _prep(cfg, v, draws, mu.to(d), sd.to(d))
                 for d, v in vals.items()}
         states = {d: tree_map(lambda t: t.to(d), state) for d in devices}
+        resid = [tree_map(torch.zeros_like, states[d].params)
+                 for d in mesh.devices] if feedback else None
         losses = []
         for s in starts:
             per_rank = [grads_of(states[d].params, d,
                                  data[d][0][s + r * bl:s + (r + 1) * bl])
                         for r, d in enumerate(mesh.devices)]
             loss = C.psum([lo for lo, _ in per_rank], mesh)
-            grads = C.psum([g for _, g in per_rank], mesh)
+            local = [g for _, g in per_rank]
+            if feedback:
+                grads, resid = CP.compressed_psum_mean_ef(local, resid, mesh)
+            elif int8:
+                grads = CP.compressed_psum_mean(local, mesh)
+            else:
+                grads = C.psum(local, mesh)
             with torch.no_grad():
                 for d in devices:
-                    g = tree_map(lambda x: x / ndev, grads[d])
+                    g = grads[d] if int8 \
+                        else tree_map(lambda x: x / ndev, grads[d])
                     updates, opt_state = tx.update(g, states[d].opt_state,
                                                    states[d].params)
                     states[d] = TrainState(
@@ -553,10 +567,11 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
     Waits (at most ``cfg.wait_timeout_s``) for the first snapshots, then
     publishes per-channel standardisation stats as ``"norm_stats"``
     metadata from one bootstrap gather (unless another trainer already
-    did), warms the epoch up off the clock on an empty table, and runs
-    ``cfg.epochs`` epochs of ``tier`` (default: ``plan.trainer_tier(cfg)``)
-    on the server's device (the mesh tiers: on ``cfg.mesh``, whose rank 0
-    should be that device).  ``draws`` defaults to :func:`default_draws`.
+    did; the check holds the table's lock, so concurrent trainers
+    bootstrap once), warms the epoch up off the clock on an empty table,
+    and runs ``cfg.epochs`` epochs of ``tier`` (default:
+    ``plan.trainer_tier(cfg)``) on the server's device (the mesh tiers: on
+    ``cfg.mesh``, whose rank 0 should be that device).  ``draws`` defaults to :func:`default_draws`.
     ``on_checkpoint(epoch, state)`` fires at the end of every epoch (the
     hot-swap publication hook); ``component`` names the declared crash
     point each epoch opens with.
@@ -609,12 +624,16 @@ def insitu_train(client: Client, coords: torch.Tensor, cfg: TrainerConfig,
         # while waiting for the first training snapshot".
         client.wait_for_data(cfg.table, minimum=cfg.min_snapshots,
                              timeout=cfg.wait_timeout_s)
-        mu_sd = client.get_metadata("norm_stats")
-        if mu_sd is None:
-            first, _, _ok = client.sample_batch(cfg.table, cfg.gather,
-                                                draws.bootstrap)
-            mu_sd = _standardize_stats(first.transpose(1, 2))
-            client.put_metadata("norm_stats", mu_sd)
+        # the check and the publication under the table's lock: trainers
+        # starting together (multi-consumer replicas on threads) bootstrap
+        # once, as the plan predicts
+        with client.server.table_lock(cfg.table):
+            mu_sd = client.get_metadata("norm_stats")
+            if mu_sd is None:
+                first, _, _ok = client.sample_batch(cfg.table, cfg.gather,
+                                                    draws.bootstrap)
+                mu_sd = _standardize_stats(first.transpose(1, 2))
+                client.put_metadata("norm_stats", mu_sd)
         mu, sd = (t.to(dev) for t in mu_sd)
 
         with client.timers.time("warmup"):

@@ -70,7 +70,7 @@ class ModelConfig:
     ce_fp32: bool = True
     bf16_grads: bool = False
     remat_policy: str = "full"         # full | dots | none
-    pad_heads: bool = False            # TP head padding (ROADMAP A5)
+    pad_heads: bool = False            # TP head padding (ROADMAP A7)
     attn_impl: str = "xla"             # "flash": the hand-written kernels
     #                                    on CUDA, mha_ref on the CPU;
     #                                    "flash_interpret": the kernels'

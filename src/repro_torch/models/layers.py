@@ -26,7 +26,7 @@ tensor's dtype, so in the port it pins what the reference has to pin by
 hand, and changes no number.
 
 Not ported (``ROADMAP.md``): the int8 ``QuantKVCache`` (A7), the TP head
-padding ``_maybe_pad_heads`` (``cfg.pad_heads``, A5) and cross-attention
+padding ``_maybe_pad_heads`` (``cfg.pad_heads``, A7) and cross-attention
 (Whisper, A7).
 """
 
@@ -225,7 +225,7 @@ def _attention_core(q, k, v, causal, cfg):
     """Dispatch the attention plan: flash kernel / chunked / full."""
     if cfg.pad_heads:
         raise NotImplementedError(
-            "pad_heads (TP head padding) is a mesh lever: ROADMAP.md A5")
+            "pad_heads (TP head padding) is a mesh lever: ROADMAP.md A7")
     S, T = q.shape[1], k.shape[1]
     if cfg.attn_impl in ("flash", "flash_interpret"):
         from ..kernels.attention import mha

@@ -1,13 +1,14 @@
-"""Meshes, collectives and parameter specs — port of
-``src/repro/parallel`` (single-controller: a mesh is a list of devices;
-pipelines and compression are ``ROADMAP.md`` A5)."""
+"""Meshes, collectives, gradient compression and parameter specs — port
+of ``src/repro/parallel`` (single-controller: a mesh is a grid of
+devices; pipelines are ``ROADMAP.md`` A, item 4)."""
 
-from . import collectives, sharding
-from .sharding import (ElemSharding, ElemShards, Mesh, ParamSpec,
-                       SlabSharding, data_mesh, init_params,
+from . import collectives, compress, sharding
+from .sharding import (ElemSharding, ElemShards, GridSharding, Mesh,
+                       ParamSpec, SlabSharding, data_mesh,
+                       disjoint_data_meshes, init_params,
                        lm_params_from_numpy, slab_sharding, space_mesh)
 
-__all__ = ["collectives", "sharding", "Mesh", "SlabSharding",
-           "ElemSharding", "ElemShards", "data_mesh", "space_mesh",
-           "slab_sharding", "ParamSpec", "init_params",
-           "lm_params_from_numpy"]
+__all__ = ["collectives", "compress", "sharding", "Mesh", "SlabSharding",
+           "ElemSharding", "GridSharding", "ElemShards", "data_mesh",
+           "space_mesh", "disjoint_data_meshes", "slab_sharding",
+           "ParamSpec", "init_params", "lm_params_from_numpy"]

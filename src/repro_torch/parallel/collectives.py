@@ -8,6 +8,13 @@ its result.  The order of a sum is fixed (ascending rank), so every rank
 holds the same bits.  Where ranks sit on different devices the sum is
 taken on rank 0's device and then copied to the others.
 
+On an N-D mesh ``psum`` and ``all_gather`` take ``axis=``: the collective
+runs within each group of ranks that share every other coordinate
+(``Mesh.groups``), each group's sum in ascending rank order on its first
+rank's device, and the call returns one result per rank (``[rank]``, on
+its rank's device; the ranks of a group on one device share a tensor).
+A grouped call counts once, as a grouped HLO collective does.
+
 :func:`ppermute` is the
 exception: it moves one block per rank to another rank, so it takes and
 returns one value per rank (``[rank]``), each on its rank's device.
@@ -78,27 +85,55 @@ def _broadcast(value, mesh: Mesh) -> dict:
             for d in mesh.distinct_devices}
 
 
-def psum(per_rank: Sequence, mesh: Mesh) -> dict:
-    """Sum of one tensor (or tree of tensors) per rank, in ascending rank
-    order, on rank 0's device → ``{device: sum}``."""
+def _sum(values: Sequence, home):
+    total = values[0]
+    for value in values[1:]:
+        total = tree_map(lambda a, b: a + b.to(home), total, value)
+    return total
+
+
+def _per_group(values: Sequence, mesh: Mesh, axis: str, reduce) -> list:
+    """``reduce(group's values, its first device)`` within each group of
+    ``axis``, copied to every rank of the group → one result per rank."""
+    out: list = [None] * mesh.size
+    for group in mesh.groups(axis):
+        home = mesh.devices[group[0]]
+        result = reduce([values[r] for r in group], home)
+        placed = {home: result}
+        for r in group:
+            d = mesh.devices[r]
+            if d not in placed:
+                placed[d] = tree_map(lambda t: t.to(d), result)
+            out[r] = placed[d]
+    return out
+
+
+def psum(per_rank: Sequence, mesh: Mesh, axis: str | None = None):
+    """Sum of one tensor (or tree of tensors, any dtype) per rank, in
+    ascending rank order, on rank 0's device → ``{device: sum}``.  With
+    ``axis``: the sum within each group along that axis → ``[rank]``
+    (one result per rank)."""
     _per_rank(per_rank, mesh)
     _count("all_reduce")
-    home = mesh.devices[0]
-    total = per_rank[0]
-    for value in per_rank[1:]:
-        total = tree_map(lambda a, b: a + b.to(home), total, value)
-    return _broadcast(total, mesh)
+    if axis is not None:
+        return _per_group(per_rank, mesh, axis, _sum)
+    return _broadcast(_sum(per_rank, mesh.devices[0]), mesh)
 
 
 def all_gather(shards: Sequence[torch.Tensor], mesh: Mesh,
-               dim: int = 0) -> dict:
+               dim: int = 0, axis: str | None = None):
     """The ranks' blocks concatenated along ``dim`` (a slab's slot axis by
-    default) → ``{device: whole}``."""
+    default) → ``{device: whole}``.  With ``axis``: the blocks of each
+    group along that axis, in its order → ``[rank]``."""
     _per_rank(shards, mesh)
     _count("all_gather")
-    home = mesh.devices[0]
-    return _broadcast(torch.cat([s.to(home) for s in shards], dim=dim),
-                      mesh)
+
+    def cat(blocks, home):
+        return torch.cat([s.to(home) for s in blocks], dim=dim)
+
+    if axis is not None:
+        return _per_group(shards, mesh, axis, cat)
+    return _broadcast(cat(shards, mesh.devices[0]), mesh)
 
 
 def ppermute(per_rank: Sequence[torch.Tensor], mesh: Mesh,

@@ -1,21 +1,24 @@
 """Meshes, the slab placement rule, and parameter specs.
 
 Port of ``src/repro/parallel/sharding.py``: :func:`data_mesh`,
-:func:`space_mesh`, :func:`slab_sharding` and, from ``:254-301``,
-:class:`ParamSpec`, :func:`init_params` and :func:`lm_params_from_numpy`;
-and :class:`ElemSharding`, the port's stand-in for the ``NamedSharding``
-of one stored element (the co-located deployment's layout).
+:func:`space_mesh`, :func:`disjoint_data_meshes`, :func:`slab_sharding`
+and, from ``:254-301``, :class:`ParamSpec`, :func:`init_params` and
+:func:`lm_params_from_numpy`; and :class:`ElemSharding`, the port's
+stand-in for the ``NamedSharding`` of one stored element (the co-located
+deployment's layout), and :class:`GridSharding`, a table cut both ways on
+a 2-D ``(slab, element)`` grid (``core.deployment.make_clustered_2d``).
 
 The port is single-controller, as the reference is: one process holds the
 store, the producer and the trainer, and a mesh is an ordered list of
-``torch.device`` values, with an axis name, one entry per rank.  The
+``torch.device`` values, one entry per rank, laid out over a grid of
+named axes (1-D by default).  The
 reference's ``shard_map`` over the mesh becomes a loop over its ranks and
 its collectives become the explicit functions of
 :mod:`~repro_torch.parallel.collectives`.  Ranks may share a device when
 the caller lists it twice (``data_mesh(2, devices=["cuda:0"] * 2)``): the
 port's counterpart of the reference's forced host devices, and how one
 card runs a 2-rank mesh.  Multi-host ``torch.distributed`` is a later
-slice (``ROADMAP.md`` A5.4).  The logical axes of a :class:`ParamSpec` are
+slice (``ROADMAP.md`` A, item 4).  The logical axes of a :class:`ParamSpec` are
 kept so a spec tree reads like the reference's; they place nothing.
 """
 
@@ -30,8 +33,9 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["Mesh", "SlabSharding", "ElemSharding", "ElemShards", "data_mesh",
-           "space_mesh", "slab_sharding", "ParamSpec", "init_params",
+__all__ = ["Mesh", "SlabSharding", "ElemSharding", "GridSharding",
+           "ElemShards", "data_mesh", "space_mesh", "disjoint_data_meshes",
+           "slab_sharding", "ParamSpec", "init_params",
            "lm_params_from_numpy"]
 
 
@@ -44,26 +48,79 @@ def _canonical(device) -> torch.device:
     return dev
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, init=False)
 class Mesh:
-    """A 1-D mesh: ``devices[r]`` is rank ``r``'s device (repeats allowed)."""
+    """A grid of ranks: ``devices[r]`` is rank ``r``'s device (repeats
+    allowed), the ranks laid out row-major over ``grid`` with one name a
+    grid axis.  ``Mesh(devices, "data")`` is the 1-D mesh the port has
+    always had; ``Mesh(devices, ("slab", "space"), (2, 2))`` a 2-D one."""
 
     devices: tuple[torch.device, ...]
-    axis: str = "data"
+    axis_names: tuple[str, ...]
+    grid: tuple[int, ...]
+
+    def __init__(self, devices, axis="data", grid=None):
+        devices = tuple(devices)
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        grid = (len(devices),) if grid is None else tuple(int(g)
+                                                          for g in grid)
+        if len(names) != len(grid) or len(set(names)) != len(names):
+            raise ValueError(f"mesh axes {names} for a grid {grid}")
+        if math.prod(grid) != len(devices):
+            raise ValueError(f"a {grid} grid of {len(devices)} devices")
+        object.__setattr__(self, "devices", devices)
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "grid", grid)
+
+    @property
+    def axis(self) -> str:
+        """The one axis of a 1-D mesh (an N-D mesh raises: name one)."""
+        if len(self.axis_names) != 1:
+            raise ValueError(f"a {self.grid} mesh has axes "
+                             f"{self.axis_names}: name one")
+        return self.axis_names[0]
 
     @property
     def shape(self) -> dict[str, int]:
-        return {self.axis: len(self.devices)}
+        return dict(zip(self.axis_names, self.grid))
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
     @property
+    def ndim(self) -> int:
+        return len(self.grid)
+
+    @property
     def distinct_devices(self) -> tuple[torch.device, ...]:
         """Each device once, in rank order: where replicated state and
         replicated compute live (once per device, whatever its ranks)."""
         return tuple(dict.fromkeys(self.devices))
+
+    def _axis_index(self, axis: str) -> int:
+        if axis not in self.axis_names:
+            raise ValueError(f"axis {axis!r} is not one of the mesh's "
+                             f"{self.axis_names}")
+        return self.axis_names.index(axis)
+
+    def coords(self, rank: int) -> tuple[int, ...]:
+        """Rank ``rank``'s grid coordinates (row-major)."""
+        return tuple(int(c) for c in np.unravel_index(rank, self.grid))
+
+    def coord(self, rank: int, axis: str) -> int:
+        """Rank ``rank``'s coordinate along ``axis``."""
+        return self.coords(rank)[self._axis_index(axis)]
+
+    def groups(self, axis: str) -> list[list[int]]:
+        """The ranks that share every coordinate but ``axis``'s, one list
+        a group, each ordered along ``axis``; the groups in row-major
+        order of the other coordinates.  A collective over ``axis`` runs
+        within each group."""
+        i = self._axis_index(axis)
+        order = np.moveaxis(np.arange(self.size).reshape(self.grid), i, -1)
+        return [[int(r) for r in row]
+                for row in order.reshape(-1, self.grid[i])]
 
 
 @dataclass(frozen=True)
@@ -81,11 +138,14 @@ class SlabSharding:
 @dataclass(frozen=True)
 class ElemSharding:
     """The layout of one stored element over a mesh: ``spec`` holds, for
-    each element dim, the mesh's axis name (that dim is cut into
-    ``mesh.size`` equal blocks, block ``r`` on rank ``r``'s device) or
-    ``None`` (whole on every rank); missing trailing entries are ``None``.
-    The port's counterpart of ``NamedSharding(mesh, PartitionSpec(*spec))``
-    over the element dims; a 1-D mesh cuts at most one dim."""
+    each element dim, a mesh axis name (that dim is cut into the axis's
+    size of equal blocks, rank ``r`` holding the block of its coordinate
+    along that axis, on its own device) or ``None`` (whole on every
+    rank); missing trailing entries are ``None``.  The port's counterpart
+    of ``NamedSharding(mesh, PartitionSpec(*spec))`` over the element
+    dims; one dim at most is cut.  On a 2-D mesh the blocks repeat along
+    the other axis: ``(None, "space", None)`` on a ``(slab, space)`` grid
+    gives every rank of a ``space`` column the same block."""
 
     mesh: Mesh
     spec: tuple = ()
@@ -94,12 +154,16 @@ class ElemSharding:
         spec = tuple(self.spec)
         object.__setattr__(self, "spec", spec)
         for entry in spec:
-            if entry is not None and entry != self.mesh.axis:
+            if entry is not None and entry not in self.mesh.axis_names:
                 raise ValueError(f"elem spec {spec} names axis {entry!r}; "
-                                 f"the mesh has {self.mesh.axis!r}")
-        if sum(e is not None for e in spec) > 1:
-            raise ValueError(f"elem spec {spec} uses mesh axis "
-                             f"{self.mesh.axis!r} twice")
+                                 f"the mesh has {self.mesh.axis_names}")
+        cut = [e for e in spec if e is not None]
+        if len(cut) > 1:
+            raise ValueError(
+                f"elem spec {spec} uses mesh axis {cut[0]!r} twice"
+                if len(set(cut)) < len(cut) else
+                f"elem spec {spec} cuts more than one dim (the port cuts "
+                f"one)")
 
     @property
     def dim(self) -> int | None:
@@ -110,12 +174,27 @@ class ElemSharding:
         return None
 
     @property
+    def axis(self) -> str | None:
+        """The mesh axis the cut dim is laid over (``None``: none)."""
+        d = self.dim
+        return None if d is None else self.spec[d]
+
+    @property
+    def blocks(self) -> int:
+        """How many distinct blocks an element is cut into."""
+        return 1 if self.axis is None else self.mesh.shape[self.axis]
+
+    def block_of(self, rank: int) -> int:
+        """The block rank ``rank`` holds."""
+        return 0 if self.axis is None else self.mesh.coord(rank, self.axis)
+
+    @property
     def num_devices(self) -> int:
         return self.mesh.size
 
     @property
     def is_fully_replicated(self) -> bool:
-        return self.dim is None or self.mesh.size == 1
+        return self.blocks == 1
 
     def local_shape(self, shape) -> tuple[int, ...]:
         """One rank's block of an element of ``shape``."""
@@ -126,10 +205,10 @@ class ElemSharding:
                              f"{shape})")
         if self.dim is None:
             return shape
-        d = self.mesh.size
+        d = self.blocks
         if shape[self.dim] % d:
             raise ValueError(f"element dim {self.dim} of {shape} does not "
-                             f"divide over the {d}-rank {self.mesh.axis!r} "
+                             f"divide over the {d}-rank {self.axis!r} "
                              f"axis")
         return shape[:self.dim] + (shape[self.dim] // d,) \
             + shape[self.dim + 1:]
@@ -140,9 +219,45 @@ class ElemSharding:
         if self.dim is None:
             return [x.to(d) for d in self.mesh.devices]
         axis = lead + self.dim
-        blk = x.shape[axis] // self.mesh.size
-        return [x.narrow(axis, r * blk, blk).to(d).contiguous()
-                for r, d in enumerate(self.mesh.devices)]
+        blk = x.shape[axis] // self.blocks
+        return [x.narrow(axis, self.block_of(r) * blk, blk).to(d)
+                .contiguous() for r, d in enumerate(self.mesh.devices)]
+
+
+@dataclass(frozen=True)
+class GridSharding:
+    """A table cut both ways on a 2-D mesh: the slot axis over
+    ``slab_axis`` (rank ``r`` owns slots ``[i * local_cap, (i + 1) *
+    local_cap)``, ``i`` its ``slab_axis`` coordinate) and every element by
+    ``elem``, laid out over the other axis — the reference's
+    ``NamedSharding(db_mesh, P("slab", *elem_spec))``."""
+
+    mesh: Mesh
+    slab_axis: str
+    local_cap: int
+    elem: ElemSharding
+
+    def __post_init__(self):
+        if self.mesh.ndim != 2 or self.slab_axis not in self.mesh.axis_names:
+            raise ValueError(f"a grid placement needs a 2-D mesh with axis "
+                             f"{self.slab_axis!r}: {self.mesh.shape}")
+        if self.elem.mesh != self.mesh or self.elem.axis == self.slab_axis:
+            raise ValueError(f"the element layout {self.elem.spec} must lie "
+                             f"over the grid's other axis")
+
+    @property
+    def elem_axis(self) -> str:
+        return next(a for a in self.mesh.axis_names if a != self.slab_axis)
+
+    @property
+    def slab_shards(self) -> int:
+        return self.mesh.shape[self.slab_axis]
+
+    def slab_index(self, rank: int) -> int:
+        return self.mesh.coord(rank, self.slab_axis)
+
+    def offset(self, rank: int) -> int:
+        return self.slab_index(rank) * self.local_cap
 
 
 class ElemShards(NamedTuple):
@@ -188,6 +303,29 @@ def space_mesh(n_devices: int | None = None, axis: str = "space",
     layout carries into the store).  Ranks may share a device, as in
     :func:`data_mesh`: ``space_mesh(2, devices=["cuda:0"] * 2)``."""
     return data_mesh(n_devices, axis=axis, devices=devices)
+
+
+def disjoint_data_meshes(count: int, axis: str = "data",
+                         devices: Sequence | None = None
+                         ) -> list[Mesh | None]:
+    """Cut the device pool into ``count`` disjoint 1-D data meshes, one a
+    trainer replica (multi-consumer training).  ``devices`` is the pool
+    (default: every visible card; a list may repeat one, ``["cuda:0"] *
+    4`` is four ranks of one card); each replica takes ``len(devices) //
+    count`` consecutive positions (the remainder stays idle, so every
+    replica has the same shape).  A
+    slice of fewer than 2 ranks gives ``None``: that replica falls back
+    to the single-device ``fused`` tier."""
+    if count < 1:
+        raise ValueError("count must be >= 1")
+    if devices is None:
+        devices = data_mesh().devices
+    devices = list(devices)
+    per = len(devices) // count
+    if per < 2:
+        return [None] * count
+    return [Mesh([_canonical(d) for d in devices[i * per:(i + 1) * per]],
+                 axis) for i in range(count)]
 
 
 def slab_sharding(spec, mesh: Mesh | None) -> SlabSharding | None:

@@ -332,8 +332,8 @@ def test_staging_is_a_copy_in_the_fitted_layout():
         with pytest.raises(ValueError, match="disjoint mesh axes"):
             make(db_fraction=0.5, elem_spec=("data",), slab_axis="data",
                  **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        dep.make_clustered_2d(("space",))
+    with pytest.raises(ValueError, match="own axes"):
+        dep.make_clustered_2d((None, "slab"), devices=["cpu"] * 4)
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,7 @@ def setup_module():
     collection (every xdist worker collects every test file)."""
     global torch, TS, TServer, TClient, dep, C, fd, tplan, data_mesh
     global space_mesh, ElemSharding, ElemShards, TSession, TProducer
-    global TClients, TServing, TP
+    global TClients, TServing, TP, TSlabSharding
     import torch
     from repro_torch.core import Client as TClient
     from repro_torch.core import StoreServer as TServer
@@ -77,6 +77,7 @@ def setup_module():
     from repro_torch.parallel import collectives as C
     from repro_torch.parallel.sharding import (ElemSharding, ElemShards,
                                                data_mesh, space_mesh)
+    from repro_torch.parallel.sharding import SlabSharding as TSlabSharding
     from repro_torch.sim import distributed as fd
     from repro_torch.sim import reproducer as TP
     torch.set_num_threads(1)
@@ -216,26 +217,30 @@ def test_layout_errors():
                       ElemSharding(mesh, ("data",)), device="cpu")
     with pytest.raises(ValueError, match="more entries than the element"):
         ElemSharding(mesh, (None, None, "data")).local_shape((2, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
+    with pytest.raises(ValueError, match="disjoint mesh axes"):
         dep.Colocated(mesh=mesh, elem_spec=("data",), capacity_axis="data")
     spec = TS.TableSpec("t", shape=SHAPE, capacity=4)
     st = TS.init_table(spec, _colocated().slab_sharding(spec), device="cpu")
     with pytest.raises(ValueError, match="value shape"):
         TS.put(spec, st, 1, ElemShards((torch.zeros(2, 4),) * 2,
                                        st.slab.placement))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        dep.Colocated(mesh=mesh, capacity_axis="data")
+    capacity = dep.Colocated(mesh=mesh, capacity_axis="data")
+    assert capacity.slab_sharding(spec) == TSlabSharding(mesh, 2)
+    with pytest.raises(ValueError, match="does not divide"):
+        capacity.slab_sharding(TS.TableSpec("t", shape=SHAPE, capacity=3))
+    with pytest.raises(ValueError, match="not an axis"):
+        dep.Colocated(mesh=mesh, capacity_axis="slab")
     whole = dep.Colocated(mesh=mesh)
     assert whole.slab_sharding(spec).dim is None
     assert "colocated(mesh=(('data', 2),)" in whole.describe()
 
 
 def test_clustered_still_raises():
-    """What of the clustered deployment stays open raises naming
-    ``ROADMAP.md`` A5 (the 2-D db grid, a deployment the port does not
-    run); ``Clustered`` itself runs (``tests/test_torch_clustered.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        dep.make_clustered_2d()
+    """A deployment the port does not run raises; ``Clustered`` and its
+    2-D db grid run (``tests/test_torch_clustered.py``,
+    ``tests/test_torch_multidevice.py``)."""
+    grid = dep.make_clustered_2d((None, "space"), devices=["cpu"] * 4)
+    assert grid.db_mesh.shape == {"slab": 2, "space": 1}
     clustered = dep.make_clustered_1d(devices=["cpu"] * 2, db_fraction=0.5)
     assert isinstance(clustered, dep.Clustered) and clustered.fan_in == 1
     assert isinstance(dep.StagingPipeline(), dep.StagingPipeline)
@@ -243,9 +248,9 @@ def test_clustered_still_raises():
     class Other(dep.Deployment):
         """A deployment the port does not run."""
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
+    with pytest.raises(NotImplementedError, match="the port runs the local"):
         TServer(deployment=Other(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
+    with pytest.raises(NotImplementedError, match="the port runs the local"):
         TSession([TClients(lambda c, s: 0, table="t", collect=False)],
                  tables=[TS.TableSpec("t", shape=SHAPE)],
                  deployment=Other(), device="cpu")

@@ -39,7 +39,7 @@ def test_scan_sees_the_whole_port():
                    "sim/reproducer.py", "ml/resnet.py", "sim/spectral.py",
                    "core/locktrack.py", "configs/quadconv_ae.py",
                    "sim/halo.py", "sim/distributed.py",
-                   "core/deployment.py"):
+                   "core/deployment.py", "parallel/compress.py"):
         assert f"src/repro_torch/{module}" in names
     assert len([n for n in names if n.startswith("examples/torch_")]) == 5
     assert _imported_roots(REPO / "src" / "repro" / "core" / "store.py") \

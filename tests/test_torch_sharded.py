@@ -510,8 +510,8 @@ def test_trainer_tier_matrix_matches_reference(kind):
 
 def test_mesh_and_ddp_validation():
     """The epoch builder's divisibility errors (the reference's text), the
-    parts of the multi-device plane still open, and the entry points that
-    default to the card."""
+    ddp modes, a deployment the port does not run, and the entry points
+    that default to the card."""
     cfg_ae = tae.AEConfig(**_TINY)
     mesh3 = data_mesh(3, devices=["cpu"] * 3)
     spec = TS.TableSpec("field", shape=(4, 64), capacity=CAP)
@@ -527,15 +527,17 @@ def test_mesh_and_ddp_validation():
             ae=cfg_ae, batch_size=3, mesh=mesh3b, slab_sharded=True), None,
             tx, spec)
     assert slab_sharding(spec, mesh3) is None
-    with pytest.raises(NotImplementedError, match="A5"):
-        ttr.TrainerConfig(ae=cfg_ae, mesh=mesh3, ddp="int8")
+    int8 = ttr.TrainerConfig(ae=cfg_ae, mesh=mesh3, ddp="int8")
+    assert int8.ddp_error_feedback
+    with pytest.raises(ValueError, match="unknown ddp mode"):
+        ttr.TrainerConfig(ae=cfg_ae, mesh=mesh3, ddp="int4")
     clustered = ttr.TrainerConfig(ae=cfg_ae, batch_size=3, mesh=mesh3,
                                   slab_sharded=True, db_mesh=mesh3,
                                   db_axis="data")
     assert tplan.trainer_tier(clustered) == "slab_sharded_clustered"
     with pytest.raises(ValueError, match="needs slab_sharded=True"):
         ttr.TrainerConfig(ae=cfg_ae, mesh=mesh3, db_mesh=mesh3)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="the port runs the local"):
         StoreServer(device="cpu").create_table(spec, deployment="colocated")
     mesh = data_mesh(2, devices=["cpu", "cpu"])
     assert mesh.shape == {"data": 2} and mesh.distinct_devices == \
