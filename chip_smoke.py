@@ -16,10 +16,11 @@ Phases, each printing one line (or a few):
    the flash forward in bf16 (the tensor-core kernel, ``attention_tc.cu``)
    and fp32 (the FMA kernel, ``attention.cu``), each the kernel its route
    rule names, with a causal-mask-off control that must fail its limits,
-   at the prefill and at a training micro-batch (B = 1); ``ssd_intra`` at
+   at the prefill and at a training micro-batch (B = 1), and in bf16 at
+   the prefills of phase 17's four head layouts; ``ssd_intra`` at
    Mamba-2's prefill, its scores, y and state kernels timed apart,
    bit-identical on a rerun, with a control (two heads' decays swapped)
-   that must fail y's limit;
+   that must fail y's limit, and at Jamba's smoke prefill;
 4. serving — the port's serving plane end to end: 4 clients × 8 requests
    of flat-plate snapshots [4, 4096] through ``continuous_batch`` (max
    batch 8), served by the QuadConv encoder at the paper config's widths
@@ -212,7 +213,25 @@ Phases, each printing one line (or a few):
    4 steps saving every 2 under a temporary directory, then resumed from
    step 2 (the step-4 checkpoint removed), steps 3–4 bit for bit the
    uninterrupted run's (losses, gradient norms, every state leaf), with
-   the save and restore times.
+   the save and restore times;
+17. lm zoo — the LM zoo's decoder-only families at full width in bf16,
+   depth cut to fit the card (``ZOO_LAYERS``), each as phase 10 (greedy
+   generation of 32 tokens after 4 × 2,048 with ``attn_impl="flash"``:
+   exact tensor-core flash launches, one a layer, and none of the FMA
+   forward; each layer and the logits against the plain path): (a)
+   Qwen3-MoE, 8 of 94 layers; (b) ``[moe layer]``: each of its MoE
+   layers on the plain path's hidden state, the bf16 ``moe_apply``
+   against the same layer in fp32 (routing agreement, the dropped set
+   against an independent count, the output on agreeing tokens, the aux
+   term), with a k-major priority order and unnormalized gates as
+   controls that must fail; (c) Llama-4 Scout, 8 of 48 (top-1, the
+   shared expert); (d) StarCoder2-7B whole (gelu, layernorm); (e)
+   LLaVA-NeXT-34B, 16 of 60, with 1,152 random patch embeddings in front
+   of the prompt through ``make_prefill_step`` / ``make_decode_step``;
+   (f) ``[hybrid jamba]``: Jamba's smoke config in fp32, the FMA flash
+   forward once and ``ssd_intra`` 7 times a prefill, its logits and
+   caches against the CPU's, and ``launch.serve.run(smoke=True)`` for
+   Qwen3-MoE and Jamba.
 
 Kernel, plain and library times in the kernels line are device times per
 call (``torch.profiler``: the summed device time of every kernel and copy
@@ -225,8 +244,10 @@ launches a call (``timed_by`` counts the records lost).
 Then one JSON line with every kernel's numbers (the probe's and the
 gather's rows carry the reproducer's shapes, with their launches there,
 under ``"reproducer"``; the store and QuadConv rows' ``launches_by_path``
-add the faulted chaos runs and the spectral session), the ``nvidia-smi``
-line,
+add the faulted chaos runs and the spectral session; the flash row's
+``"zoo"`` and the SSD row's ``"jamba"`` carry phase 17's shapes, and
+every attention and SSD row's ``launches_by_path`` its launches), the
+``nvidia-smi`` line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 raises and the script exits non-zero; without a CUDA device it exits 1
 before doing anything.
@@ -264,6 +285,28 @@ LM_BATCH, PROMPT, NEW_TOKENS = 4, 2048, 32
 # random-weight layer (~1.17x a layer: 0.15 after Mamba-2's 48 layers)
 LAYER_LIMIT = 1e-2
 LM_LIMIT = 0.4
+# the LM zoo's decoder-only families at full width, depth cut to fit one
+# card (bf16 params: Qwen3-MoE 8 of 94 layers 42.3 GB, Llama-4 Scout 8 of
+# 48 39.4 GB, LLaVA-NeXT 16 of 60 19.7 GB; StarCoder2-7B whole 14.8 GB)
+ZOO_LAYERS = {"qwen3_moe_235b_a22b": 8, "llama4_scout_17b_a16e": 8,
+              "starcoder2_7b": 32, "llava_next_34b": 16}
+# each Qwen3-MoE layer's bf16 moe_apply against the same layer in fp32,
+# set from the readings of an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+# the share of routing pairs that agree (all of them: both route in fp32
+# from the same bf16 values), the output on the tokens whose routing
+# agrees (relative Frobenius; read 4.8e-3 in every layer, unnormalized
+# gates 0.71), the aux term (relative)
+MOE_ROUTING_FLOOR = 1.0
+MOE_Y_LIMIT = 1e-2
+MOE_AUX_RTOL = 1e-3
+# Jamba's smoke config on the card against the CPU, fp32, each leaf of the
+# prefill's logits and caches relative to its max|.|: the plain path
+# (attention "xla", SSD "xla") within JAMBA_CPU_RTOL, the kernel path
+# within JAMBA_KERNEL_RTOL: ssd_intra's two bf16 terms an operand (~1e-5
+# of max a call) grow through the 7 mamba blocks to 1.7e-4 at the last
+# state (NVIDIA H100 80GB HBM3 at 700 W; PERF.md)
+JAMBA_BATCH, JAMBA_SEQ = 2, 128
+JAMBA_CPU_RTOL, JAMBA_KERNEL_RTOL = 1e-4, 1e-3
 # LM training at Phi-4-mini's full width: 4 steps of 2 x 2,048 tokens
 # (grad_accum 2: micro-batches of 1 x 2,048).  Kernel path against plain
 # path in bf16 (PERF.md): each layer's attention gradients (input, wq,
@@ -1750,7 +1793,7 @@ def rel_frobenius(a: torch.Tensor, b: torch.Tensor) -> float:
                  / torch.linalg.vector_norm(b.float()))
 
 
-def layer_check(params, cfg_k, cfg_p, prompt) -> list[float]:
+def layer_check(params, cfg_k, cfg_p, prompt, patches=None) -> list[float]:
     """Each layer's mixer output (attention or SSD, after its output
     projection) through the kernel path and the plain path on the same
     input — the plain path's hidden state — as relative Frobenius
@@ -1758,7 +1801,7 @@ def layer_check(params, cfg_k, cfg_p, prompt) -> list[float]:
     from repro_torch.models import layers, lm
     from repro_torch.models import ssd as ssd_mod
     diffs = []
-    x, positions = lm._embed(params, cfg_p, prompt)
+    x, positions = lm._embed(params, cfg_p, prompt, patches)
     for bp in lm._periods(params["blocks"], cfg_p.n_periods):
         for i, (mixer, ffn) in enumerate(cfg_p.pattern):
             h = layers.apply_norm(bp[i]["norm1"], x, cfg_p.norm)
@@ -1769,24 +1812,53 @@ def layer_check(params, cfg_k, cfg_p, prompt) -> list[float]:
                 outs = [ssd_mod.ssd_apply(bp[i]["mamba"], c, h)
                         for c in (cfg_k, cfg_p)]
             diffs.append(rel_frobenius(*outs))
-            x, _ = lm._apply_block(cfg_p, mixer, ffn, bp[i], x, positions)
+            x = lm._apply_block(cfg_p, mixer, ffn, bp[i], x, positions)[0]
     return diffs
 
 
+def greedy_with_prefix(params, cfg, prompt, patches, max_new: int):
+    """Greedy generation through the serving steps a vision config takes
+    (``launch.steps.make_prefill_step`` with ``batch["patches"]`` as the
+    prefix, then ``make_decode_step`` from ``next_pos``): [B, max_new]
+    ids."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    t_max = patches.shape[1] + prompt.shape[1] + max_new
+    with torch.no_grad():
+        logits, caches, pos = make_prefill_step(cfg, t_max)(
+            params, {"tokens": prompt, "patches": patches})
+        decode = make_decode_step(cfg)
+        out = []
+        token = logits.argmax(-1)[:, None]
+        for i in range(max_new):
+            out.append(token)
+            logits, caches = decode(params, caches, token, pos + i)
+            token = logits.argmax(-1)[:, None]
+    return torch.cat(out, dim=1)
+
+
 def lm_phase(dev, arch: str, kernel_impl: dict, plain_impl: dict, kernel,
-             expect: int, control: bool = False, absent: tuple = ()) -> dict:
-    """Greedy generation at the config's full width through the kernel
-    path (``kernel`` launched exactly ``expect`` times, each of ``absent``
-    never); its prefill against the plain path's, layer by layer and at the
-    last-position logits (and, with ``control``, a causal-mask-off
-    attention that must fail both limits); where a prefill's and a
-    decode step's device time goes."""
+             expect: int, control: bool = False, absent: tuple = (),
+             n_layers: int | None = None, after=None) -> dict:
+    """Greedy generation at the config's full width (depth cut to
+    ``n_layers`` when given) through the kernel path (``kernel`` launched
+    exactly ``expect`` times, each of ``absent`` never); its prefill
+    against the plain path's, layer by layer and at the last-position
+    logits (and, with ``control``, a causal-mask-off attention that must
+    fail both limits); where a prefill's and a decode step's device time
+    goes.  A vision config puts ``frontend_tokens`` random patch
+    embeddings in front of the prompt and generates through the serving
+    steps (``greedy_with_prefix``).  ``after(params, cfg, cfg_p, prompt)``
+    runs on the same weights before they are freed; its result is
+    ``out["after"]``."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import model_specs
     from repro_torch.models import layers, lm
     from repro_torch.parallel.sharding import init_params
     from repro_torch.serve.decode import greedy_generate
     base = get_config(arch)
+    full_layers = base.n_layers
+    if n_layers is not None:
+        base = replace(base, n_layers=n_layers)
     cfg, cfg_p = replace(base, **kernel_impl), replace(base, **plain_impl)
     params = init_params(model_specs(cfg),
                          torch.Generator(device=dev).manual_seed(SEED),
@@ -1794,41 +1866,56 @@ def lm_phase(dev, arch: str, kernel_impl: dict, plain_impl: dict, kernel,
     prompt = torch.randint(0, cfg.vocab, (LM_BATCH, PROMPT),
                            generator=torch.Generator().manual_seed(SEED))
     prompt = prompt.to(dev)
+    patches = None
+    if cfg.frontend == "vision":
+        patches = torch.randn(
+            (LM_BATCH, cfg.frontend_tokens, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 1)) \
+            .mul(0.02).to(cfg.dtype)
+    prefix = 0 if patches is None else patches.shape[1]
     with torch.no_grad():
-        lm.prefill(params, cfg, prompt[:, :256])       # cuBLAS warm-up
+        lm.prefill(params, cfg, prompt[:, :256], patches)  # cuBLAS warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in (kernel, *absent):
         kern.launches = 0
     t0 = time.perf_counter()
-    ids = greedy_generate(params, cfg, prompt, NEW_TOKENS)
+    if patches is None:
+        ids = greedy_generate(params, cfg, prompt, NEW_TOKENS)
+    else:
+        ids = greedy_with_prefix(params, cfg, prompt, patches, NEW_TOKENS)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = kernel.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
     if launches != expect or any(kern.launches for kern in absent):
         raise AssertionError(f"{arch}: {kernel.symbol} launched {launches} "
-                             f"times in one greedy_generate, expected "
+                             f"times in one generation, expected "
                              f"{expect} (one prefill); "
                              f"{[(k.symbol, k.launches) for k in absent]}")
     if ids.shape != (LM_BATCH, NEW_TOKENS) or int(ids.min()) < 0 \
             or int(ids.max()) >= cfg.vocab:
         raise AssertionError(f"{arch}: generated ids {ids.shape}")
     with torch.no_grad():
-        prefill_ms = time_ms(lambda: lm.prefill(params, cfg, prompt), 2,
-                             warmup=0)
-        logits_k, caches, pos = lm.prefill(params, cfg, prompt,
-                                           t_max=PROMPT + NEW_TOKENS)
+        prefill_ms = time_ms(lambda: lm.prefill(params, cfg, prompt,
+                                                patches), 2, warmup=0)
+        logits_k, caches, pos = lm.prefill(
+            params, cfg, prompt, patches,
+            t_max=prefix + PROMPT + NEW_TOKENS)
+        if pos != prefix + PROMPT:
+            raise AssertionError(f"{arch}: next_pos {pos}, expected "
+                                 f"{prefix + PROMPT}")
         token = logits_k.argmax(-1)[:, None]
         decode_ms = time_ms(lambda: lm.decode_step(params, cfg, caches,
                                                    token, pos), 8)
-        prefill_profile = profile(lambda: lm.prefill(params, cfg, prompt))
+        prefill_profile = profile(lambda: lm.prefill(params, cfg, prompt,
+                                                     patches), top=6)
         decode_profile = profile(lambda: [lm.decode_step(
             params, cfg, caches, token, pos) for _ in range(4)])
         del caches
-        logits_p = lm.prefill(params, cfg_p, prompt)[0]
+        logits_p = lm.prefill(params, cfg_p, prompt, patches)[0]
         err = rel_frobenius(logits_k, logits_p)
-        layer_errs = layer_check(params, cfg, cfg_p, prompt)
+        layer_errs = layer_check(params, cfg, cfg_p, prompt, patches)
         same_argmax = float((logits_k.argmax(-1) == logits_p.argmax(-1))
                             .float().mean())
         if not (bool(torch.isfinite(logits_k).all()) and err <= LM_LIMIT
@@ -1840,6 +1927,8 @@ def lm_phase(dev, arch: str, kernel_impl: dict, plain_impl: dict, kernel,
         out = {"arch": arch, "impl": kernel_impl, "kernel": kernel.symbol,
                "launches": launches,
                "absent": {kern.symbol: kern.launches for kern in absent},
+               "n_layers": cfg.n_layers, "full_n_layers": full_layers,
+               "prefix_tokens": prefix,
                "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
                "generate_s": gen_s,
                "decode_tokens_per_s": LM_BATCH * NEW_TOKENS
@@ -1851,6 +1940,7 @@ def lm_phase(dev, arch: str, kernel_impl: dict, plain_impl: dict, kernel,
                "layer_limit": LAYER_LIMIT,
                "first_token_argmax_agreement": same_argmax,
                "params": cfg.param_count(),
+               "active_params": cfg.active_param_count(),
                "prefill_profile": prefill_profile,
                "decode_4_steps_profile": decode_profile}
         if control:
@@ -1862,8 +1952,8 @@ def lm_phase(dev, arch: str, kernel_impl: dict, plain_impl: dict, kernel,
 
             layers._attention_core = non_causal
             try:
-                logits_c = lm.prefill(params, cfg, prompt)[0]
-                layer_c = layer_check(params, cfg, cfg_p, prompt)
+                logits_c = lm.prefill(params, cfg, prompt, patches)[0]
+                layer_c = layer_check(params, cfg, cfg_p, prompt, patches)
             finally:
                 layers._attention_core = core
             err_c = rel_frobenius(logits_c, logits_p)
@@ -1874,9 +1964,216 @@ def lm_phase(dev, arch: str, kernel_impl: dict, plain_impl: dict, kernel,
             out["control_non_causal_rel_frobenius"] = err_c
             out["control_layer_rel_frobenius_min"] = min(layer_c)
             out["control_layer_rel_frobenius_max"] = max(layer_c)
+        if after is not None:
+            out["after"] = after(params, cfg, cfg_p, prompt)
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def priority_keep(expert_idx: torch.Tensor, E: int, C: int,
+                  k_major: bool = False) -> torch.Tensor:
+    """The kept (token, choice) pairs [B, S·k] by an independent count:
+    in each batch row, the pairs in priority order (token-major, the k
+    choices inner, as the reference; ``k_major`` the other way round, a
+    control), each expert keeping its first C.  A stable sort by expert
+    ranks each pair within its expert, no cumulative one-hot."""
+    B, S, k = expert_idx.shape
+    order_idx = expert_idx.transpose(1, 2) if k_major else expert_idx
+    flat = order_idx.reshape(B, S * k).cpu()
+    keep = torch.zeros(flat.shape, dtype=torch.bool)
+    for b in range(B):
+        sorted_e, order = torch.sort(flat[b], stable=True)
+        first = torch.searchsorted(sorted_e, sorted_e, side="left")
+        rank = torch.arange(S * k) - first
+        keep[b, order] = rank < C
+    if k_major:
+        keep = keep.reshape(B, k, S).transpose(1, 2).reshape(B, S * k)
+    return keep
+
+
+def moe_layer_check(params, cfg, cfg_p, prompt) -> dict:
+    """Each MoE layer of the model on the plain path's hidden state: the
+    bf16 ``moe_apply`` against the same layer recomputed in fp32 (the
+    same bf16 input and weights, upcast).  Holds the share of (token,
+    choice) routing pairs that agree, the bf16 run's dropped set against
+    ``priority_keep``, the output on the tokens whose routing (experts
+    and kept flags) agrees, and the aux term; and two controls that must
+    fail: a k-major priority order (the dropped-set check) and gates left
+    unnormalized (the output limit)."""
+    from repro_torch.models import layers, lm, moe
+    from repro_torch.tree import tree_map
+    cfg32 = replace(cfg_p, dtype=torch.float32)
+    rows, drops = [], 0
+    with torch.no_grad():
+        x, positions = lm._embed(params, cfg_p, prompt)
+        for bp in lm._periods(params["blocks"], cfg_p.n_periods):
+            for i, (mixer, ffn) in enumerate(cfg_p.pattern):
+                p = bp[i]
+                if ffn != "moe":
+                    x = lm._apply_block(cfg_p, mixer, ffn, p, x,
+                                        positions)[0]
+                    continue
+                h = layers.apply_norm(p["norm1"], x, cfg_p.norm)
+                x = x + layers.attention(p["attn"], cfg_p, h, positions)
+                h2 = layers.apply_norm(p["norm2"], x, cfg_p.norm)
+                r16 = moe.route(p["ffn"], cfg_p, h2)
+                y16, aux16 = moe.moe_apply(p["ffn"], cfg_p, h2, r16)
+                p32 = tree_map(lambda a: a.float(), p["ffn"])
+                r32 = moe.route(p32, cfg32, h2.float())
+                y32, aux32 = moe.moe_apply(p32, cfg32, h2.float(), r32)
+                del p32
+                C = r16.capacity
+                want = priority_keep(r16.expert_idx, cfg.n_experts, C)
+                k_major = priority_keep(r16.expert_idx, cfg.n_experts, C,
+                                        k_major=True)
+                keep16 = r16.keep.cpu()
+                pairs = r16.expert_idx == r32.expert_idx          # [B,S,k]
+                B, S, k = pairs.shape
+                same = (pairs & (r16.keep == r32.keep).view(B, S, k)) \
+                    .all(-1)                                      # [B,S]
+                err = rel_frobenius(y16[same], y32[same])
+                # the control: gates left at their router probabilities
+                r_nr = r16._replace(gates=torch.gather(r16.probs, -1,
+                                                       r16.expert_idx))
+                y_nr, _ = moe.moe_apply(p["ffn"], cfg_p, h2, r_nr)
+                err_nr = rel_frobenius(y_nr[same], y32[same])
+                rows.append({
+                    "capacity": C,
+                    "dropped_pairs": int((~keep16).sum()),
+                    "dropped_pairs_fp32": int((~r32.keep).sum()),
+                    "dropped_equal_independent_count": bool(
+                        torch.equal(keep16, want)),
+                    "control_k_major_equal": bool(
+                        torch.equal(keep16, k_major)),
+                    "control_k_major_pairs_differing": int(
+                        (keep16 != k_major).sum()),
+                    "routing_pair_agreement": float(
+                        pairs.float().mean()),
+                    "tokens_agreeing": float(same.float().mean()),
+                    "y_rel_frobenius_agreeing": err,
+                    "control_unnormalized_rel_frobenius": err_nr,
+                    "aux_bf16": float(aux16), "aux_fp32": float(aux32),
+                    "aux_rel": abs(float(aux16) - float(aux32))
+                    / abs(float(aux32))})
+                drops += rows[-1]["dropped_pairs"]
+                x = x + y16
+                del r16, r32, y16, y32, r_nr, y_nr, h2
+    out = {"layers": rows, "dropped_pairs_total": drops,
+           "routing_floor": MOE_ROUTING_FLOOR, "y_limit": MOE_Y_LIMIT,
+           "aux_limit": MOE_AUX_RTOL,
+           "routing_pair_agreement_min": min(
+               r["routing_pair_agreement"] for r in rows),
+           "y_rel_frobenius_max": max(
+               r["y_rel_frobenius_agreeing"] for r in rows),
+           "control_unnormalized_min": min(
+               r["control_unnormalized_rel_frobenius"] for r in rows),
+           "control_k_major_layers_differing": sum(
+               not r["control_k_major_equal"] for r in rows)}
+    bad = [i for i, r in enumerate(rows) if not (
+        r["dropped_equal_independent_count"]
+        and r["routing_pair_agreement"] >= MOE_ROUTING_FLOOR
+        and r["y_rel_frobenius_agreeing"] <= MOE_Y_LIMIT
+        and r["aux_rel"] <= MOE_AUX_RTOL)]
+    if bad:
+        raise AssertionError(f"moe layer: layers {bad} miss a limit: "
+                             f"{json.dumps(out)}")
+    # the controls: k-major must change the dropped set wherever a pair
+    # drops, and the unnormalized gates must miss the output limit
+    if any(r["dropped_pairs"] and r["control_k_major_equal"]
+           for r in rows) or not drops \
+            or out["control_unnormalized_min"] <= MOE_Y_LIMIT:
+        raise AssertionError(f"moe layer: a control passed: "
+                             f"{json.dumps(out)}")
+    return out
+
+
+def rel_leaf_errors(got, want) -> dict:
+    """Each leaf of a prefill's (logits, caches) on the card against the
+    CPU's, as max|difference| over the leaf's max|.|."""
+    from repro_torch.tree import tree_leaves
+    errs = {}
+    for i, (g, w) in enumerate(zip(tree_leaves(list(got[:2])),
+                                   tree_leaves(list(want[:2])))):
+        g = g.cpu()
+        if not (g.shape == w.shape and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"jamba: leaf {i} {tuple(g.shape)}")
+        errs["logits" if i == 0 else f"cache{i - 1}"] = float(
+            (g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+    return errs
+
+
+def jamba_phase(dev, flash, ssd) -> dict:
+    """Jamba's smoke config (one period: 7 mamba blocks, 1 attention
+    block, MoE every other block) in fp32 on the card, B = 2 × S = 128,
+    from the same weights as the same config on the CPU (the plain
+    versions there): through the kernels (``attn_impl="flash"``: the FMA
+    forward at dh 16; ``ssd_impl="kernel"``) one prefill launches
+    ``flash`` once and ``ssd`` 7 times, and its logits and every cache
+    leaf lie within ``JAMBA_KERNEL_RTOL`` · max|·| of the CPU's; the
+    card's plain path within ``JAMBA_CPU_RTOL``; then greedy generation
+    on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import model_specs
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.serve.decode import greedy_generate
+    from repro_torch.tree import tree_map
+    cfg = replace(get_smoke_config("jamba_1_5_large_398b"),
+                  attn_impl="flash", ssd_impl="kernel")
+    cfg_p = replace(cfg, attn_impl="xla", ssd_impl="xla")
+    cpu = init_params(model_specs(cfg), torch.Generator().manual_seed(SEED),
+                      cfg.dtype, "cpu")
+    params = tree_map(lambda a: a.to(dev), cpu)
+    tokens = torch.randint(0, cfg.vocab, (JAMBA_BATCH, JAMBA_SEQ),
+                           generator=torch.Generator().manual_seed(SEED))
+    t_max = JAMBA_SEQ + 8
+    with torch.no_grad():
+        want = lm.prefill(cpu, cfg, tokens, t_max=t_max)
+        for kern in (flash, ssd):
+            kern.launches = 0
+        got = lm.prefill(params, cfg, tokens.to(dev), t_max=t_max)
+        torch.cuda.synchronize()
+        launches = {flash.symbol: flash.launches, ssd.symbol: ssd.launches}
+        errs = rel_leaf_errors(got, want)
+        plain = rel_leaf_errors(
+            lm.prefill(params, cfg_p, tokens.to(dev), t_max=t_max), want)
+        ids = greedy_generate(params, cfg, tokens.to(dev), 8)
+        torch.cuda.synchronize()
+    n_attn = sum(m == "attn" for m, _ in cfg.pattern) * cfg.n_periods
+    n_mamba = sum(m == "mamba" for m, _ in cfg.pattern) * cfg.n_periods
+    if launches != {flash.symbol: n_attn, ssd.symbol: n_mamba} \
+            or max(errs.values()) > JAMBA_KERNEL_RTOL \
+            or max(plain.values()) > JAMBA_CPU_RTOL \
+            or got[2] != JAMBA_SEQ or int(ids.min()) < 0 \
+            or int(ids.max()) >= cfg.vocab:
+        raise AssertionError(f"jamba: launches {launches} (want {n_attn} / "
+                             f"{n_mamba}), kernel path {errs}, plain path "
+                             f"{plain}, next_pos {got[2]}")
+    worst = max(errs, key=errs.get)
+    return {"config": cfg.name, "B": JAMBA_BATCH, "S": JAMBA_SEQ,
+            "pattern": [list(p) for p in cfg.pattern],
+            "launches": launches, "kernel_rel_err_vs_cpu": errs,
+            "kernel_rel_err_max": errs[worst], "kernel_worst_leaf": worst,
+            "kernel_limit": JAMBA_KERNEL_RTOL,
+            "plain_rel_err_max": max(plain.values()),
+            "plain_limit": JAMBA_CPU_RTOL, "generated": list(ids.shape)}
+
+
+def serve_smoke(dev, arch: str) -> dict:
+    """``launch.serve.run`` at ``arch``'s smoke config on the card: 8
+    requests of 16 tokens, every id in range."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as serve_launcher
+    res = serve_launcher.run(arch, smoke=True, device=dev)
+    vocab = get_smoke_config(arch).vocab
+    if len(res.completed) != 8 or any(
+            len(r.tokens) != 16 or not all(0 <= t < vocab for t in r.tokens)
+            for r in res.completed):
+        raise AssertionError(f"serve {arch}: {len(res.completed)} requests")
+    return {"arch": arch, "requests": len(res.completed),
+            "steps": res.steps, "tokens_per_s": res.tokens_per_s,
+            "wall_s": res.wall_s}
 
 
 def serve_loop_phase(dev) -> dict:
@@ -2042,7 +2339,7 @@ def layer_grad_check(params, cfg_k, cfg_p, tokens) -> list[dict]:
         diffs.append({n: rel_frobenius(a, b) for n, a, b in
                       zip(("x", "wq", "wk", "wv", "wo"), got, want)})
         with torch.no_grad():
-            x, _ = lm._apply_block(cfg_p, "attn", "mlp", bp, x, positions)
+            x = lm._apply_block(cfg_p, "attn", "mlp", bp, x, positions)[0]
     return diffs
 
 
@@ -4252,10 +4549,24 @@ def main() -> int:
                           iters=3)
     flash_edge = check_flash(dev, LM_BATCH, 128, 24, 8, 128, torch.bfloat16)
     ssd = check_ssd(dev, LM_BATCH * PROMPT // 256, 256, 64, 64, 128)
+    # the LM zoo's prefills (phases 17a, c, d, e): the four head layouts,
+    # LLaVA's 1,152 patches in front of the prompt; Jamba's smoke prefill
+    # (17f: B = 2, S = 128, chunks of 16, 8 heads of 16, state 16)
+    from repro_torch.configs import get_config
+    flash_zoo = {}
+    for arch in ZOO_LAYERS:
+        zc = get_config(arch)
+        torch.cuda.empty_cache()
+        flash_zoo[arch] = check_flash(
+            dev, LM_BATCH, PROMPT + zc.frontend_tokens, zc.n_heads,
+            zc.n_kv_heads, zc.head_dim, torch.bfloat16)
+    ssd_jamba = check_ssd(dev, JAMBA_BATCH * JAMBA_SEQ // 16, 16, 8, 16, 16)
+    ssd_jamba["shape"] = ssd_jamba["shape"].replace(
+        "B=4, S=2048", f"B={JAMBA_BATCH}, S={JAMBA_SEQ}")
     torch.cuda.empty_cache()
     for row in (probe, sample, gather_serving, gather, *serve_blocks,
                 enc0, mid, dec1, *mesh_blocks, flash, flash32, flash_edge,
-                flash_micro, ssd):
+                flash_micro, *flash_zoo.values(), ssd, ssd_jamba):
         print(f"[kernels] {json.dumps(row)}", flush=True)
     print(f"[launch floor] {smi} {json.dumps(launch_floor(floor_lib))}",
           flush=True)
@@ -4625,6 +4936,33 @@ def main() -> int:
     print(f"[checkpoint] {smi} {json.dumps(checkpoint_phase(dev))}",
           flush=True)
 
+    # 17. the LM zoo's decoder-only families at full width, depth cut
+    torch.cuda.empty_cache()
+    print(f"[lm zoo] device memory held before: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    zoo = {}
+    for tag, arch in (("lm qwen3_moe", "qwen3_moe_235b_a22b"),
+                      ("lm llama4_scout", "llama4_scout_17b_a16e"),
+                      ("lm starcoder2", "starcoder2_7b"),
+                      ("lm llava", "llava_next_34b")):
+        t0 = time.perf_counter()
+        zoo[arch] = lm_phase(
+            dev, arch, {"attn_impl": "flash"}, {"attn_impl": "xla"},
+            aops.FLASH_TC, ZOO_LAYERS[arch], absent=(aops.FLASH,),
+            n_layers=ZOO_LAYERS[arch],
+            after=moe_layer_check if arch == "qwen3_moe_235b_a22b" else None)
+        zoo[arch]["seconds"] = time.perf_counter() - t0
+        moe_layer = zoo[arch].pop("after", None)
+        print(f"[{tag}] {smi} {json.dumps(zoo[arch])}", flush=True)
+        if moe_layer is not None:
+            print(f"[moe layer] {smi} {json.dumps(moe_layer)}", flush=True)
+    t0 = time.perf_counter()
+    jamba = jamba_phase(dev, aops.FLASH, dops.SSD_INTRA)
+    jamba["serve"] = [serve_smoke(dev, arch) for arch in (
+        "qwen3_moe_235b_a22b", "jamba_1_5_large_398b")]
+    jamba["seconds"] = time.perf_counter() - t0
+    print(f"[hybrid jamba] {smi} {json.dumps(jamba)}", flush=True)
+
     serving_launches = launches
     rows = []
     for row, path in ((probe, "serving"), (sample, "training"),
@@ -4666,8 +5004,9 @@ def main() -> int:
         row["kernel_ms"] = row["ms"]
         rows.append(row)
     # the attention rows are the main path's bf16 tensor-core kernels; the
-    # fp32 FMA kernels of the same TPU kernels run on no main path and sit
-    # under "fp32" (forward) and "edge" (dq and dk/dv at one tile in fp32)
+    # fp32 FMA kernels of the same TPU kernels sit under "fp32" (forward:
+    # Jamba's fp32 smoke prefill runs it) and "edge" (dq and dk/dv at one
+    # tile in fp32)
     fma_fwd = "src/repro_torch/kernels/attention/csrc/attention.cu"
     for row, name, src, tpu, lm_run in (
             (flash, "flash_attention", "attention/csrc/attention_tc.cu",
@@ -4680,7 +5019,6 @@ def main() -> int:
                    launches=lm_run["launches"], kernel_ms=row["ms"])
         if name == "flash_attention":
             row["fp32"] = {"source": fma_fwd, "kernel": flash32["kernel"],
-                           "launches_on_main_paths": 0,
                            **{k: flash32[k] for k in (
                                "shape", "max_abs_err", *timing_keys)}}
             row["edge"] = {k: flash_edge[k] for k in (
@@ -4690,7 +5028,23 @@ def main() -> int:
             row["launches_by_path"] = {
                 "lm phi4 prefill": lm_run["launches"],
                 "lm phi4 train (4 steps)":
-                    trained_lm["launches"]["flash_attention_fwd_tc"]}
+                    trained_lm["launches"]["flash_attention_fwd_tc"],
+                **{f"lm {arch} prefill ({ZOO_LAYERS[arch]} layers)":
+                   zoo[arch]["launches"] for arch in ZOO_LAYERS}}
+            row["fp32"]["launches"] = jamba["launches"][aops.FLASH.symbol]
+            row["fp32"]["launches_by_path"] = {
+                "hybrid jamba prefill (smoke, dh 16)":
+                    jamba["launches"][aops.FLASH.symbol]}
+            row["zoo"] = {arch: {k: flash_zoo[arch][k] for k in (
+                "kernel", "shape", "max_abs_err", "tol", *timing_keys,
+                "bound_by")} for arch in ZOO_LAYERS}
+        else:
+            row["launches_by_path"] = {
+                "lm mamba2 prefill": lm_run["launches"],
+                "hybrid jamba prefill (smoke)":
+                    jamba["launches"][dops.SSD_INTRA.symbol]}
+            row["jamba"] = {k: ssd_jamba[k] for k in (
+                "shape", "max_abs_err", *timing_keys, "bound_by")}
         rows.append(row)
     for row, name, src, tpu, symbol in (
             (bwd_dq, "flash_attention_bwd_dq", "attention_bwd_tc.cu",

@@ -1,6 +1,5 @@
-"""Architecture configs — port of ``src/repro/configs`` (the dense
-Phi-4-mini and Mamba-2 configs; the rest of the zoo is ``ROADMAP.md``
-A7)."""
+"""Architecture configs — port of ``src/repro/configs`` (the decoder-only
+configs of the zoo; Whisper and Nemotron-4 are ``ROADMAP.md`` A7)."""
 
 from .registry import ARCH_IDS, get_config, get_smoke_config
 

@@ -5,9 +5,11 @@ Port of ``src/repro/configs/registry.py``.  Each ported
 configuration) and ``smoke_config()`` (a reduced same-family config for
 the CPU tests).  As in the reference, any id resolves to the module
 ``repro_torch.configs.<id>``, a module a caller registered under that
-name in ``sys.modules`` included.  The port carries the dense Phi-4-mini
-and the Mamba-2 configs; every other id of ``ARCH_IDS`` (MoE, hybrid,
-encoder-decoder, vision) raises ``NotImplementedError`` naming
+name in ``sys.modules`` included.  The port carries the decoder-only
+configs: dense (Phi-4-mini, StarCoder2-3B and -7B), MoE (Qwen3-MoE,
+Llama-4 Scout), SSM (Mamba-2), the Jamba hybrid and the LLaVA backbone
+with its patch prefix.  The encoder-decoder Whisper and Nemotron-4 (its
+head dim of 192 and its Adafactor) raise ``NotImplementedError`` naming
 ``ROADMAP.md`` A7, and an unknown id ``ModuleNotFoundError``.  The
 reference's input-shape table and cell rules serve its mesh dry-run
 (A7) and are not carried.
@@ -33,7 +35,9 @@ ARCH_IDS = (
     "whisper_large_v3",
     "llava_next_34b",
 )
-_PORTED = ("phi4_mini_3_8b", "mamba2_1_3b")
+_PORTED = ("llama4_scout_17b_a16e", "qwen3_moe_235b_a22b", "starcoder2_7b",
+           "phi4_mini_3_8b", "starcoder2_3b", "mamba2_1_3b",
+           "jamba_1_5_large_398b", "llava_next_34b")
 
 # canonical external ids (assignment spelling) -> module name
 _ALIASES = {

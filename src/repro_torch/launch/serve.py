@@ -2,7 +2,10 @@
 
 Port of ``src/repro/launch/serve.py``: the continuous-batching serve loop
 (``serve.decode.serve_loop``) over random prompts, with weights made from
-``seed`` by ``init_params`` on the device.  Runs on the card by default
+``seed`` by ``init_params`` on the device, for every id the registry
+carries (dense, MoE, Mamba-2, the Jamba hybrid; a vision config serves
+its text backbone, as the reference's launcher does: the loop feeds
+tokens only).  Runs on the card by default
 (``--device cpu`` for the plain PyTorch path) and at the config's full
 width; ``--smoke`` takes the reduced same-family config (the reference's
 launcher runs only that one: its full-width path lowers the production

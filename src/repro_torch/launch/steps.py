@@ -1,5 +1,5 @@
-"""Model specs and the LM train step — the single-device part of
-``src/repro/launch/steps.py``.
+"""Model specs, the LM train step and the serving steps — the
+single-device part of ``src/repro/launch/steps.py``.
 
 ``make_train_step(cfg)`` returns ``train_step(state, batch) -> (state,
 metrics)``: the loss and its gradients by autograd, micro-batched over
@@ -11,9 +11,14 @@ averaged gradients, as 0-d tensors on the device.  The reference jits
 the step with its state donated; here the state is updated IN PLACE
 (params, μ, ν) and the returned state holds the same tensors.
 
-The prefill / decode step builders and the abstract sharded inputs serve
-the reference's dry-run and mesh launchers (``ROADMAP.md`` A7); the
-port serves through ``serve/decode.py``.
+``make_prefill_step(cfg, t_max)`` and ``make_decode_step(cfg)`` return
+the serving steps: ``prefill_step(params, batch) -> (logits, caches,
+next_pos)``, with a vision config's ``batch["patches"]`` as the prefix
+embeds, and ``decode_step(params, caches, token, pos) -> (logits,
+caches)``, which updates the caches IN PLACE (``lm.decode_step``).
+Encoder-decoder models (Whisper), MoE and vision training, and the
+abstract sharded inputs of the reference's dry-run are ``ROADMAP.md``
+A7.
 """
 
 from __future__ import annotations
@@ -27,21 +32,35 @@ from ..train import optimizer as opt
 from ..train.train_state import TrainState, make_tx
 from ..tree import tree_leaves, tree_map, value_and_grad
 
-__all__ = ["model_specs", "make_train_step"]
+__all__ = ["model_specs", "make_train_step", "make_prefill_step",
+           "make_decode_step"]
 
 
-def model_specs(cfg):
+def _no_encdec(cfg) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models (Whisper) are ROADMAP.md A7")
+
+
+def model_specs(cfg):
+    _no_encdec(cfg)
     return lm.lm_specs(cfg)
 
 
-def _loss_fn(cfg) -> Callable:
+def untrainable(cfg) -> str | None:
+    """Why the port does not train ``cfg`` yet (``ROADMAP.md`` A7), or
+    None."""
     if cfg.is_encdec or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training with a {cfg.frontend or 'encoder'} "
-            "frontend is ROADMAP.md A7")
+        return f"training with a {cfg.frontend or 'encoder'} frontend"
+    if any(ffn == "moe" for _, ffn in cfg.pattern):
+        return "training MoE blocks"
+    return None
+
+
+def _loss_fn(cfg) -> Callable:
+    why = untrainable(cfg)
+    if why:
+        raise NotImplementedError(f"{cfg.name}: {why} is ROADMAP.md A7")
 
     def loss(params, batch):
         return lm.lm_loss(params, cfg, batch["tokens"], batch["labels"])
@@ -82,3 +101,23 @@ def make_train_step(cfg) -> Callable:
         return TrainState(params, opt_state, state.step + 1), metrics
 
     return train_step
+
+
+def make_prefill_step(cfg, t_max: int | None = None) -> Callable:
+    _no_encdec(cfg)
+    if cfg.frontend == "vision":
+        def prefill_step(params, batch):
+            return lm.prefill(params, cfg, batch["tokens"],
+                              batch["patches"], t_max=t_max)
+    else:
+        def prefill_step(params, batch):
+            return lm.prefill(params, cfg, batch["tokens"], t_max=t_max)
+    return prefill_step
+
+
+def make_decode_step(cfg) -> Callable:
+    _no_encdec(cfg)
+
+    def decode_step(params, caches, token, pos):
+        return lm.decode_step(params, cfg, caches, token, pos)
+    return decode_step

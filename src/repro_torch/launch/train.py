@@ -17,7 +17,8 @@ and at the config's full width (``--full`` spells that default out);
 ``--smoke`` takes the reduced same-family config (the reference's
 launcher defaults to it and takes ``--full`` for the other).  ``attn_impl`` overrides the config's
 attention plan (``"flash"``: the hand-written forward and backward
-kernels).  Vision and encoder-decoder models are ``ROADMAP.md`` A7.
+kernels).  Training MoE, vision and encoder-decoder models is
+``ROADMAP.md`` A7 (``steps.untrainable``).
 
 Durable checkpoints go through ``train.checkpoint.Checkpointer``, in the
 reference's on-disk layout: with ``--ckpt-dir`` the state is saved every
@@ -48,7 +49,7 @@ from ..data.pipeline import PrefetchIterator, TokenStream
 from ..device import resolve_device
 from ..train import checkpoint as ckpt
 from ..train.train_state import TrainState, init_train_state, make_tx
-from .steps import make_train_step, model_specs
+from .steps import make_train_step, model_specs, untrainable
 
 __all__ = ["TrainRun", "run", "parser", "main"]
 
@@ -72,9 +73,9 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if attn_impl is not None:
         cfg = replace(cfg, attn_impl=attn_impl)
-    if cfg.is_encdec or cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: vision and encoder-decoder "
-                                  "training are ROADMAP.md A7")
+    why = untrainable(cfg)
+    if why:
+        raise NotImplementedError(f"{cfg.name}: {why} is ROADMAP.md A7")
     specs = model_specs(cfg)
     tx = make_tx(cfg, total_steps=steps)
     state = init_train_state(torch.Generator(device=dev).manual_seed(seed),

@@ -1,9 +1,9 @@
 """Model zoo — port of ``src/repro/models`` for LM serving and training:
-the generic pattern-based decoder LM (dense GQA and Mamba-2 SSD blocks)
-and its shared layers.  MoE, Whisper and the hybrid patterns are
+the generic pattern-based decoder LM (dense GQA, MoE and Mamba-2 SSD
+blocks, any pattern of them) and its shared layers.  Whisper is
 ``ROADMAP.md`` A7."""
 
-from . import layers, lm, ssd
+from . import layers, lm, moe, ssd
 from .config import ModelConfig
 
-__all__ = ["layers", "lm", "ssd", "ModelConfig"]
+__all__ = ["layers", "lm", "moe", "ssd", "ModelConfig"]

@@ -2,12 +2,13 @@
 
 Port of ``src/repro/models/config.py``.  A model is a stack of
 ``n_layers`` blocks following a repeating ``pattern`` of (mixer, ffn)
-pairs — e.g. dense GQA = ``(("attn","mlp"),)``, Mamba-2 =
-``(("mamba","none"),)``.  The fields are the reference's, so a config
-carries across field for field; ``dtype`` is a ``torch.dtype``.  The
-port runs the dense and Mamba-2 serving path; the fields of the other
-families (MoE, encoder-decoder, frontends) and the mesh levers are kept
-so configs stay comparable, and the modules that would read them raise
+pairs — e.g. dense GQA = ``(("attn","mlp"),)``, Qwen3-MoE =
+``(("attn","moe"),)``, Mamba-2 = ``(("mamba","none"),)``, Jamba's period-8
+hybrid = 7 mamba + 1 attention with MoE every other layer.  The fields
+are the reference's, so a config carries across field for field;
+``dtype`` is a ``torch.dtype``.  The port runs every decoder-only
+family; the encoder-decoder fields and the mesh levers are kept so
+configs stay comparable, and the modules that would read them raise
 (``ROADMAP.md`` A7).
 """
 
@@ -168,3 +169,14 @@ class ModelConfig:
                 + self.n_heads * dh * D)
             total += enc + cross + D
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k + shared experts only)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        Fm = self.d_ff_moe or self.d_ff
+        mult = 3 if self.mlp_act == "swiglu" else 2
+        moe_layers = sum(1 for _, f in self.pattern if f == "moe") \
+            * self.n_periods
+        inactive = (self.n_experts - self.top_k) * mult * self.d_model * Fm
+        return int(self.param_count() - moe_layers * inactive)

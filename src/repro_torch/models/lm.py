@@ -1,25 +1,30 @@
 """Generic decoder LM over a repeating block pattern.
 
 Port of ``src/repro/models/lm.py`` on one device.  One code path covers
-dense GQA (Phi-4-mini) and pure SSM (Mamba-2): the pattern (tuple of
-(mixer, ffn) pairs) is data, not code.  Parameters keep the reference's
-layout, stacked ``[n_periods, ...]`` per pattern position, so weights
-carry across leaf for leaf (``parallel.sharding.lm_params_from_numpy``);
-where the reference scans over periods, a Python loop walks them.
+dense GQA (Phi-4-mini, StarCoder2, the LLaVA backbone), MoE (Qwen3-MoE,
+Llama-4 Scout), pure SSM (Mamba-2) and the Jamba hybrid: the pattern
+(tuple of (mixer, ffn) pairs) is data, not code.  Parameters keep the
+reference's layout, stacked ``[n_periods, ...]`` per pattern position, so
+weights carry across leaf for leaf
+(``parallel.sharding.lm_params_from_numpy``); where the reference scans
+over periods, a Python loop walks them.
 
 Entry points:
-  forward      — forward to final hidden states (+ the MoE aux term, 0),
-                 each period rematerialized in the backward when
-                 ``cfg.remat`` (``torch.utils.checkpoint``, non-reentrant:
-                 the reference's ``jax.checkpoint`` policy ``"full"``)
+  forward      — forward to final hidden states (+ the MoE aux term,
+                 summed over the MoE blocks; 0 without them), each
+                 period rematerialized in the backward when ``cfg.remat``
+                 (``torch.utils.checkpoint``, non-reentrant: the
+                 reference's ``jax.checkpoint`` policy ``"full"``)
   lm_logits    — hidden states → logits
   lm_loss      — causal cross-entropy, full or chunked over the sequence
   prefill      — forward + per-layer KV/Mamba caches for serving
   decode_step  — one-token serve step against the caches (IN PLACE)
   init_caches  — zeroed caches for the continuous-batching loop
 
-MoE blocks (``ffn == "moe"``), multimodal prefixes and the ``"dots"``
-remat policy are ``ROADMAP.md`` A7.
+Multimodal prefix (the LLaVA stub): ``extra_embeds`` [B, P, D] is cast
+to ``cfg.dtype`` and concatenated in front of the token embeddings;
+positions run over the whole sequence, and ``prefill`` returns its length
+as ``next_pos``.  The ``"dots"`` remat policy is ``ROADMAP.md`` A7.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
+from . import moe as moe_mod
 from . import ssd as ssd_mod
 from .layers import (KVCache, apply_norm, attention, attention_specs,
                      ct_cast, decode_attention, embed_specs, mlp_apply,
@@ -38,10 +44,6 @@ from .layers import (KVCache, apply_norm, attention, attention_specs,
 
 __all__ = ["lm_specs", "forward", "lm_logits", "lm_loss", "prefill",
            "decode_step", "init_caches"]
-
-
-def _no_moe() -> NotImplementedError:
-    return NotImplementedError("MoE blocks (ffn='moe') are ROADMAP.md A7")
 
 
 # ---------------------------------------------------------------------------
@@ -57,12 +59,12 @@ def _block_specs(cfg, mixer: str, ffn: str) -> dict:
         p["mamba"] = ssd_mod.ssd_specs(cfg, stacked)
     else:
         raise ValueError(f"unknown mixer {mixer!r}")
-    if ffn == "moe":
-        raise _no_moe()
     if ffn != "none":
         p["norm2"] = norm_spec(cfg.d_model, cfg.norm, stacked)
     if ffn == "mlp":
         p["ffn"] = mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_act, stacked)
+    elif ffn == "moe":
+        p["ffn"] = moe_mod.moe_specs(cfg, stacked)
     return p
 
 
@@ -80,7 +82,7 @@ def lm_specs(cfg) -> dict:
 
 def _apply_block(cfg, mixer: str, ffn: str, p: dict, x, positions,
                  mode: str = "full", cache=None, pos=None):
-    """One block.  Returns (x, new_cache)."""
+    """One block.  Returns (x, new_cache, aux)."""
     h = apply_norm(p["norm1"], x, cfg.norm)
     new_cache = None
     if mixer == "attn":
@@ -99,17 +101,22 @@ def _apply_block(cfg, mixer: str, ffn: str, p: dict, x, positions,
         else:
             att, new_cache = ssd_mod.ssd_decode(p["mamba"], cfg, h, cache)
     x = x + att
-    if ffn == "moe":
-        raise _no_moe()
-    if ffn == "mlp":
-        x = x + mlp_apply(p["ffn"], apply_norm(p["norm2"], x, cfg.norm),
-                          cfg.mlp_act)
-    return x, new_cache
+    aux = None
+    if ffn != "none":
+        h2 = apply_norm(p["norm2"], x, cfg.norm)
+        if ffn == "mlp":
+            y = mlp_apply(p["ffn"], h2, cfg.mlp_act)
+        else:
+            y, aux = moe_mod.moe_apply(p["ffn"], cfg, h2)
+        x = x + y
+    return x, new_cache, aux
 
 
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens, extra_embeds=None):
     x = params["embed"][tokens].to(cfg.dtype)
-    B, S = tokens.shape
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(cfg.dtype), x], dim=1)
+    B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     return x, positions
@@ -138,24 +145,30 @@ def _unembed_matrix(params, cfg):
 # Forward
 # ---------------------------------------------------------------------------
 
-def forward(params: dict, cfg, tokens: torch.Tensor):
-    """tokens [B,S] → (hidden [B,S,D], aux).  ``aux`` is the reference's
-    MoE auxiliary loss: 0 for the dense and SSM patterns.
+def forward(params: dict, cfg, tokens: torch.Tensor,
+            extra_embeds: torch.Tensor | None = None):
+    """tokens [B,S] (+ prefix embeds [B,P,D]) → (hidden [B,P+S,D], aux).
+    ``aux`` is the reference's MoE auxiliary loss summed over the blocks
+    (fp32): 0 for the dense and SSM patterns.
 
     Under autograd with ``cfg.remat``, each period runs inside a
     non-reentrant checkpoint: only its input is kept, and the backward
     runs the period's forward again (so the flash kernel launches twice
     per layer and step).  ``cfg.bf16_grads`` puts ``ct_cast`` at each
     period's input, as the reference does."""
-    x, positions = _embed(params, cfg, tokens)
+    x, positions = _embed(params, cfg, tokens, extra_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def inner(x, block_params):
+        a = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.bf16_grads:
             x = ct_cast(x)
         for i, (mixer, ffn) in enumerate(cfg.pattern):
-            x, _ = _apply_block(cfg, mixer, ffn, block_params[i], x,
-                                positions)
-        return x
+            x, _, ai = _apply_block(cfg, mixer, ffn, block_params[i], x,
+                                    positions)
+            if ai is not None:
+                a = a + ai
+        return x, a
 
     remat = cfg.remat and torch.is_grad_enabled()
     if remat and cfg.remat_policy == "dots":
@@ -163,12 +176,13 @@ def forward(params: dict, cfg, tokens: torch.Tensor):
                                   "matmul outputs) is ROADMAP.md A7")
     for block_params in _periods(params["blocks"], cfg.n_periods):
         if remat:
-            x = checkpoint(inner, x, block_params, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(inner, x, block_params, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = inner(x, block_params)
+            x, a = inner(x, block_params)
+        aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def lm_logits(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
@@ -211,10 +225,12 @@ def _ce_chunked(hidden, w, labels, mask, chunk: int, fp32_gemm: bool = True):
     return nll, cnt
 
 
-def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor):
-    """Causal LM loss.  labels [B,S] aligned to the sequence (positions
-    < 0 are masked).  Returns (loss, {"ce", "aux", "tokens"})."""
-    hidden, aux = forward(params, cfg, tokens)
+def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
+            extra_embeds: torch.Tensor | None = None):
+    """Causal LM loss.  labels [B,S_total] aligned to the *full* sequence
+    (prefix positions < 0 are masked).  Returns (loss, {"ce", "aux",
+    "tokens"})."""
+    hidden, aux = forward(params, cfg, tokens, extra_embeds)
     w = _unembed_matrix(params, cfg)
     # predict token t+1 from hidden t
     h = hidden[:, :-1]
@@ -259,20 +275,22 @@ def init_caches(cfg, batch: int, t_max: int, device=None):
 
 
 def prefill(params: dict, cfg, tokens: torch.Tensor,
+            extra_embeds: torch.Tensor | None = None,
             t_max: int | None = None):
-    """Process the prompt; returns (last-position logits, caches, next_pos).
+    """Process the prompt (after the prefix embeds [B,P,D], if any);
+    returns (last-position logits, caches, next_pos = P + S).
 
     ``t_max`` pads attention KV caches to a serving budget (default: the
-    prompt length).
+    sequence length).
     """
-    x, positions = _embed(params, cfg, tokens)
-    B, S = tokens.shape
+    x, positions = _embed(params, cfg, tokens, extra_embeds)
+    B, S = x.shape[0], x.shape[1]
     per_period = []
     for block_params in _periods(params["blocks"], cfg.n_periods):
         made = []
         for i, (mixer, ffn) in enumerate(cfg.pattern):
-            x, cache = _apply_block(cfg, mixer, ffn, block_params[i], x,
-                                    positions, mode="prefill")
+            x, cache, _ = _apply_block(cfg, mixer, ffn, block_params[i],
+                                       x, positions, mode="prefill")
             made.append(cache)
         per_period.append(made)
     caches = []
@@ -309,8 +327,9 @@ def decode_step(params: dict, cfg, caches, token: torch.Tensor, pos):
             _periods(params["blocks"], cfg.n_periods)):
         for i, (mixer, ffn) in enumerate(cfg.pattern):
             cache = cache_periods[i][period]
-            x, new = _apply_block(cfg, mixer, ffn, block_params[i], x, None,
-                                  mode="decode", cache=cache, pos=pos)
+            x, new, _ = _apply_block(cfg, mixer, ffn, block_params[i], x,
+                                     None, mode="decode", cache=cache,
+                                     pos=pos)
             if mixer == "mamba":
                 for view, fresh in zip(cache, new):
                     view.copy_(fresh)

@@ -2,7 +2,8 @@
 
 Port of ``src/repro/serve/decode.py``: drives ``lm.prefill`` /
 ``lm.decode_step`` against the ``Batcher``, on the device the params live
-on, under ``torch.no_grad()``.  Each decode step of ``serve_loop`` can
+on, under ``torch.no_grad()``, for any decoder-only config (dense, MoE,
+SSM, hybrid).  Each decode step of ``serve_loop`` can
 capture the step's logits into the co-located store (``capture_table``)
 — the paper's in-situ inference applied to LM serving.
 

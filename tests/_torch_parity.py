@@ -73,12 +73,18 @@ def np_autoencoder_params(jcfg, seed: int) -> dict:
 
 def np_lm_params(jcfg, seed: int) -> dict:
     """LM params in the reference's ``lm.lm_specs`` layout (leaves stacked
-    ``[n_periods, ...]``), drawn with numpy from ``seed``: each spec's own
-    initializer (fan-in normal, embed std 0.02, its ``scale``), except
-    that ``ones`` / ``zeros`` leaves (norm scales, ``a_log``, ``d``,
-    ``dt_bias``) get a small random offset so the parity tests exercise
-    them."""
+    ``[n_periods, ...]``), drawn with numpy from ``seed``
+    (``np_spec_params``)."""
     from repro.models import lm
+    return np_spec_params(lm.lm_specs(jcfg), seed)
+
+
+def np_spec_params(specs, seed: int) -> dict:
+    """A reference specs tree's params drawn with numpy from ``seed``:
+    each spec's own initializer (fan-in normal over ``shape[-2]``, embed
+    std 0.02, its ``scale``), except that ``ones`` / ``zeros`` leaves
+    (norm scales, ``a_log``, ``d``, ``dt_bias``) get a small random offset
+    so the parity tests exercise them."""
     from repro.parallel.sharding import ParamSpec
     rng = np.random.default_rng(seed)
 
@@ -104,7 +110,7 @@ def np_lm_params(jcfg, seed: int) -> dict:
             return {k: walk(tree[k]) for k in sorted(tree)}
         return [walk(t) for t in tree]
 
-    return walk(lm.lm_specs(jcfg))
+    return walk(specs)
 
 
 def np_resnet50_params(seed: int, num_classes: int = 1000) -> dict:

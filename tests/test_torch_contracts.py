@@ -147,7 +147,7 @@ def test_registry_resolves_registered_modules_and_names_a7():
     assert tregistry.get_config("phi4-mini-3.8b").name \
         == tregistry.get_config("phi4_mini_3_8b").name
     with pytest.raises(NotImplementedError, match="A7"):
-        tregistry.get_smoke_config("starcoder2_7b")
+        tregistry.get_smoke_config("nemotron_4_340b")
     with pytest.raises(ModuleNotFoundError):
         tregistry.get_config("no_such_arch")
 

@@ -27,12 +27,14 @@ version's within 1e-4.  (Two fp32 sums in different orders can round an
 output that lies near a bf16 midpoint to its two sides, a whole bf16 ulp
 apart, which in the top binade of |o| is more than 2^-8 max|o|: the
 exact value is the one both are a rounding of.)  At G = 3, at S equal to
-one tile, at S below a tile and without the causal mask.  The SSD intra-chunk
+one tile, at S below a tile, without the causal mask, and at the LM zoo's
+head layouts (G = 16, 5, 9, 7; LLaVA's S = 3,200).  The SSD intra-chunk
 kernel is held to its plain version within 1e-4 of each output's
 magnitude (3e-5 for ``cum``, a 256-term fp32 prefix sum taken in another
 order), with decays large enough that the masked entries above the
 diagonal overflow: a mask applied after the exp would show as NaN, and
-with head counts that leave the kernel's last group of four heads short;
+with head counts that leave the kernel's last group of four heads short,
+and at Jamba's smoke prefill (chunks of 16);
 given ``a`` with two heads swapped it must miss y's limit.
 
 The flash-attention backward kernels (dq; dk/dv) are held to their plain
@@ -453,6 +455,28 @@ def test_flash_tc_kernels_at_the_phi4_training_shape(cuda):
     assert max(_bwd_errors(got, want)) <= 1.0
 
 
+# the LM zoo's head layouts (H, K, dh 128), at B = 1 and S = 1,024, and
+# LLaVA's prefill length (1,152 patches + 2,048 tokens = 25 tiles of 128)
+ZOO_LAYOUTS = {"qwen3_moe": (1, 1024, 64, 4, 128),
+               "llama4_scout": (1, 1024, 40, 8, 128),
+               "starcoder2_7b": (1, 1024, 36, 4, 128),
+               "llava": (1, 3200, 56, 8, 128)}
+
+
+@pytest.mark.parametrize("model", sorted(ZOO_LAYOUTS))
+def test_flash_tc_forward_at_the_zoo_head_layouts(cuda, model):
+    """bf16 at each new family's head layout (G = 16, 5, 9, 7 query heads
+    a kv head) runs the tensor-core forward, one launch and none of the
+    FMA one, within the bf16 limits."""
+    q, k, v = _qkv(cuda, ZOO_LAYOUTS[model], seed=5)
+    counts = _counts(aops.FLASH, aops.FLASH_TC)
+    o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
+    torch.cuda.synchronize()
+    assert _counts(aops.FLASH, aops.FLASH_TC) == [counts[0], counts[1] + 1]
+    err, tol, lse_err = _fwd_errors(q, k, v, o, lse, True)
+    assert err <= tol and lse_err <= 1e-4, (err, tol, lse_err)
+
+
 @pytest.mark.parametrize("shape", [(2, 256, 6, 2, 128), (2, 48, 4, 2, 64)])
 def test_flash_tc_forward_warpgroups(cuda, shape):
     """The tensor-core forward's block of two consumer warpgroups (128 q
@@ -572,6 +596,7 @@ def _ssd_inputs(cuda, BC, Q, H, P, N, decay):
     (2, 256, 4, 64, 128, 20.0),     # steep decay: cum_i - cum_j ~ 1e3
     (2, 256, 12, 64, 128, 1.0),     # three whole groups of four heads
     (2, 200, 6, 64, 128, 1.0),      # a last group of two heads, ragged Q
+    (16, 16, 8, 16, 16, 1.0),       # Jamba's smoke prefill: chunks of 16
 ])
 def test_ssd_intra_kernel_close(cuda, BC, Q, H, P, N, decay):
     xdt, a, b, c = _ssd_inputs(cuda, BC, Q, H, P, N, decay)

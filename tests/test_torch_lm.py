@@ -45,7 +45,9 @@ def setup_module():
     torch.set_num_threads(1)
 
 
-ARCHS = ("phi4_mini_3_8b", "mamba2_1_3b")
+ARCHS = ("phi4_mini_3_8b", "mamba2_1_3b", "qwen3_moe_235b_a22b",
+         "llama4_scout_17b_a16e", "jamba_1_5_large_398b", "starcoder2_3b",
+         "starcoder2_7b", "llava_next_34b")
 JAX_IMPL = {"phi4_mini_3_8b": {"attn_impl": "flash_interpret"},
             "mamba2_1_3b": {"ssd_impl": "kernel_interpret"}}
 PORT_IMPLS = [("phi4_mini_3_8b", {"attn_impl": "flash"}),
@@ -171,6 +173,7 @@ def test_configs_param_counts_and_specs_match_reference(arch):
         assert tfields == jfields
         assert str(tcfg.dtype).split(".")[-1] == jnp.dtype(jcfg.dtype).name
         assert tcfg.param_count() == jcfg.param_count()
+        assert tcfg.active_param_count() == jcfg.active_param_count()
         assert (tcfg.head_dim, tcfg.n_periods, tcfg.ssm_inner,
                 tcfg.ssm_heads) == (jcfg.head_dim, jcfg.n_periods,
                                     jcfg.ssm_inner, jcfg.ssm_heads)
@@ -190,14 +193,21 @@ def test_configs_param_counts_and_specs_match_reference(arch):
 
 def test_unported_architectures_and_layouts_raise():
     with pytest.raises(NotImplementedError, match="A7"):
-        tcfgs.get_config("qwen3_moe_235b_a22b")
+        tcfgs.get_config("whisper_large_v3")
     with pytest.raises(NotImplementedError, match="A7"):
         tcfgs.get_smoke_config("whisper-large-v3")
+    with pytest.raises(NotImplementedError, match="A7"):
+        tcfgs.get_config("nemotron_4_340b")
+    with pytest.raises(NotImplementedError, match="A7"):
+        tcfgs.get_smoke_config("nemotron-4-340b")
     cfg = tcfgs.get_smoke_config("phi4_mini_3_8b")
     with pytest.raises(NotImplementedError, match="A7"):
         tlm.init_caches(dataclasses.replace(cfg, kv_cache_quant=True), 1, 8)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tlm.lm_specs(dataclasses.replace(cfg, pattern=(("attn", "moe"),)))
+    encdec = dataclasses.replace(cfg, encoder_layers=2)
+    for build in (tsteps.model_specs, tsteps.make_prefill_step,
+                  tsteps.make_decode_step):
+        with pytest.raises(NotImplementedError, match="A7"):
+            build(encdec)
     bad = np_lm_params(jget_smoke("phi4_mini_3_8b"), seed=0)
     bad["embed"] = bad["embed"][:, :-1]
     with pytest.raises(ValueError, match="embed"):
