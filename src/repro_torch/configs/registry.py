@@ -6,11 +6,11 @@ configuration) and ``smoke_config()`` (a reduced same-family config for
 the CPU tests).  As in the reference, any id resolves to the module
 ``repro_torch.configs.<id>``, a module a caller registered under that
 name in ``sys.modules`` included.  The port carries the decoder-only
-configs: dense (Phi-4-mini, StarCoder2-3B and -7B), MoE (Qwen3-MoE,
-Llama-4 Scout), SSM (Mamba-2), the Jamba hybrid and the LLaVA backbone
-with its patch prefix.  The encoder-decoder Whisper and Nemotron-4 (its
-head dim of 192 and its Adafactor) raise ``NotImplementedError`` naming
-``ROADMAP.md`` A7, and an unknown id ``ModuleNotFoundError``.  The
+configs: dense (Phi-4-mini, StarCoder2-3B and -7B, Nemotron-4 with its
+head dim of 192 and its Adafactor), MoE (Qwen3-MoE, Llama-4 Scout), SSM
+(Mamba-2), the Jamba hybrid and the LLaVA backbone with its patch
+prefix.  The encoder-decoder Whisper raises ``NotImplementedError``
+naming ``ROADMAP.md`` A7, and an unknown id ``ModuleNotFoundError``.  The
 reference's input-shape table and cell rules serve its mesh dry-run
 (A7) and are not carried.
 """
@@ -36,8 +36,8 @@ ARCH_IDS = (
     "llava_next_34b",
 )
 _PORTED = ("llama4_scout_17b_a16e", "qwen3_moe_235b_a22b", "starcoder2_7b",
-           "phi4_mini_3_8b", "starcoder2_3b", "mamba2_1_3b",
-           "jamba_1_5_large_398b", "llava_next_34b")
+           "phi4_mini_3_8b", "nemotron_4_340b", "starcoder2_3b",
+           "mamba2_1_3b", "jamba_1_5_large_398b", "llava_next_34b")
 
 # canonical external ids (assignment spelling) -> module name
 _ALIASES = {

@@ -22,16 +22,18 @@
 // bf16 tensor-core peak; it moves ~134 MB, 0.04 ms.  This kernel does its
 // arithmetic in fp32 FMA (no tensor cores), so the rate it is held to is the
 // fp32 peak: ~1.5 ms.  Design against that bound: 64 x 64 tiles, 256 threads,
-// each thread a 4 x 4 block of the logits and a 4 x 8 block of the output in
-// registers, operands read from shared memory as float4 (rows padded by 4
-// floats so 16 rows fall on distinct banks), which keeps the FMA pipes, not
-// shared memory, the limit.  K and V of a tile share one buffer (K for the
-// logits, then V for P.V), so two blocks fit on an SM at dh = 128.  Tiles
+// each thread a 4 x 4 block of the logits and a 4 x 4 HH block of the output
+// in registers (HH = 2 column groups of 64 up to dh = 128, 4 up to 256),
+// operands read from shared memory as float4 (rows padded by 4 floats so 16
+// rows fall on distinct banks), which keeps the FMA pipes, not shared
+// memory, the limit.  K and V of a tile share one buffer (K for the logits,
+// then V for P.V), so two blocks fit on an SM at dh = 128 (one at
+// dh = 256: 147 KB of shared memory, 64 accumulators a thread).  Tiles
 // above the diagonal are skipped whole, loads included, and the q tiles run
-// heaviest first.  It is the fp32 route: bf16 with dh a multiple of 16
-// runs attention_tc.cu on the tensor cores (ops.tensor_core_route).
+// heaviest first.  It is the fp32 route: bf16 with dh a multiple of 16 up
+// to 192 runs attention_tc.cu on the tensor cores (ops.tensor_core_route).
 //
-// Takes: fp32 or bf16 (all three alike), dh a multiple of 4 and at most 128,
+// Takes: fp32 or bf16 (all three alike), dh a multiple of 4 and at most 256,
 // the last axis contiguous; any S and T (ragged tiles are masked).  The
 // Python wrapper checks all of it and enforces the reference's own shape
 // contract (S and T multiples of min(128, S) and min(128, T)).
@@ -44,7 +46,7 @@ namespace {
 constexpr int kBQ = 64;       // query rows per block
 constexpr int kBK = 64;       // key rows per tile
 constexpr int kThreads = 256;
-constexpr int kMaxDh = 128;
+constexpr int kMaxDh = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -72,8 +74,9 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
+// HH: the output's groups of 64 columns a thread holds (dh <= 64 HH)
+template <typename T, int HH>
+__global__ void __launch_bounds__(kThreads, HH == 2 ? 2 : 1) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int S, int T_len, int H,
     int K, int dh, long long q_sb, long long q_ss, long long q_sh,
@@ -102,13 +105,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   const T* vb = v + b * v_sb + kh * v_sh;
   load_tile(Qs, ld, qb + (long long)q0 * q_ss, q_ss, 0, S - q0, dh, scale);
 
-  float m[4], l[4], acc[4][8];
+  float m[4], l[4], acc[4][4 * HH];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * HH; ++c) acc[i][c] = 0.f;
   }
 
   const int last_row = min(q0 + kBQ, S) - 1;
@@ -177,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
       l[i] = l[i] * corr + rs;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= corr;
+      for (int c = 0; c < 4 * HH; ++c) acc[i][c] *= corr;
     }
     __syncthreads();  // every thread is done reading K
     load_tile(KVs, ld, vb + (long long)k0 * v_ss, v_ss, 0, T_len - k0, dh,
@@ -194,7 +197,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
+        for (int hh = 0; hh < HH; ++hh) {
           const int col = 4 * (tx + 16 * hh);
           if (col < dh) {
             const float4 v4 =
@@ -224,7 +227,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
     const float li = fmaxf(l[i], 1e-30f);
     T* orow = o + (((long long)b * S + row) * H + h) * dh;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
+    for (int hh = 0; hh < HH; ++hh) {
       const int col = 4 * (tx + 16 * hh);
       if (col < dh) {
 #pragma unroll
@@ -235,7 +238,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int HH>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int S, int T_len, int H, int K, int dh, long long q_sb,
            long long q_ss, long long q_sh, long long k_sb, long long k_ss,
@@ -244,11 +247,11 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   const size_t smem =
       sizeof(float) * ((size_t)(kBQ + kBK) * (dh + 4) + kBQ * (kBK + 4));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, HH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, HH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       S, T_len, H, K, dh, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
@@ -266,11 +269,10 @@ extern "C" int flash_attention_fwd(
     int is_bf16, void* stream) {
   if (dh > kMaxDh || dh % 4 || H % K) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, B, S, T_len, H, K, dh, q_sb,
-                                 q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-                                 v_sh, causal, scale, s);
-  return launch<float>(q, k, v, o, lse, B, S, T_len, H, K, dh, q_sb, q_ss,
-                       q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal,
-                       scale, s);
+  const bool wide = dh > 128;
+  const auto run = is_bf16 ? (wide ? &launch<__nv_bfloat16, 4>
+                                   : &launch<__nv_bfloat16, 2>)
+                           : (wide ? &launch<float, 4> : &launch<float, 2>);
+  return run(q, k, v, o, lse, B, S, T_len, H, K, dh, q_sb, q_ss, q_sh, k_sb,
+             k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale, s);
 }

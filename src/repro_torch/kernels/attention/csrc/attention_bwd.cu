@@ -37,16 +37,22 @@
 // at the fp32 rate these kernels compute at (fp32 FMA, no tensor cores);
 // the bytes, ~40 MB a pass, take ~0.012 ms.  Design against the fp32
 // bound, as the forward: 256 threads, each a 4 x 4 block of the 64 x 64
-// logit tile and a 4 x 8 block of each 64 x dh accumulator in registers,
-// operands read from shared memory as float4 (rows padded by 4 floats).
-// The tiles are held in fp32: dq keeps q, do, k, v and dS (152.6 KB at
-// dh = 128), dk/dv keeps k, v, q, do, P and dS (170.5 KB), one block per
-// SM either way.  Both run only off the tensor-core route (fp32, and bf16
-// with dh not a multiple of 16): bf16 with dh a multiple of 16 runs
-// attention_bwd_tc.cu on the tensor cores (ops.tensor_core_route).
+// logit tile and a 4 x 4 HH block of each 64 x dh accumulator in registers
+// (HH = 2 column groups of 64 up to dh = 128, 4 up to 256), operands read
+// from shared memory as float4 (rows padded by 4 floats).  The tiles are
+// held in fp32: dq keeps q, do, k, v and dS (152.6 KB at dh = 128), dk/dv
+// keeps k, v, q, do, P and dS (170.5 KB), one block per SM either way.
+// Past dh = 128 that would pass the 227 KB a block may have, so the wide
+// instances (HH = 4) share buffers and load a tile twice: dq keeps one
+// buffer for k and v (k for S, then v for dP, then k again for dS k),
+// dk/dv one for q and do (q for S, then do for dP and P^T do, then q
+// again for dS^T q) and one for P and dS (217 KB each at dh = 256).  Both
+// run only off the tensor-core route (fp32, and bf16 with any other dh):
+// bf16 with dh a multiple of 16 up to 192 runs attention_bwd_tc.cu on the
+// tensor cores (ops.tensor_core_route).
 //
 // Takes: fp32 or bf16 (all inputs alike), dh a multiple of 4 and at most
-// 128, the last axis contiguous, lse and D fp32 contiguous [B, S, H]; any
+// 256, the last axis contiguous, lse and D fp32 contiguous [B, S, H]; any
 // S and T (ragged tiles are masked).  The Python wrapper checks all of it
 // and enforces the reference's shape contract (S and T multiples of
 // min(128, S) and min(128, T)).
@@ -59,7 +65,7 @@ namespace {
 constexpr int kBQ = 64;       // query rows per tile
 constexpr int kBK = 64;       // key rows per tile
 constexpr int kThreads = 256;
-constexpr int kMaxDh = 128;
+constexpr int kMaxDh = 256;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -122,9 +128,11 @@ __device__ __forceinline__ void tile_dots(float (&acc)[4][4], const float* A,
 
 // acc[i][4 hh + e] += sum_kk W[ty + 16 i][kk] * X[kk][4 (tx + 16 hh) + e]:
 // a 64 x 64 weight tile W (row length ldw) times a 64 x dh tile X.
-__device__ __forceinline__ void tile_axpy(float (&acc)[4][8], const float* W,
-                                          int ldw, const float* X, int ld,
-                                          int dh, int ty, int tx) {
+template <int HH>
+__device__ __forceinline__ void tile_axpy(float (&acc)[4][4 * HH],
+                                          const float* W, int ldw,
+                                          const float* X, int ld, int dh,
+                                          int ty, int tx) {
   for (int kk = 0; kk < 64; kk += 4) {
     float4 w4[4];
 #pragma unroll
@@ -133,7 +141,7 @@ __device__ __forceinline__ void tile_axpy(float (&acc)[4][8], const float* W,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
+      for (int hh = 0; hh < HH; ++hh) {
         const int col = 4 * (tx + 16 * hh);
         if (col < dh) {
           const float4 x4 =
@@ -154,10 +162,10 @@ __device__ __forceinline__ void tile_axpy(float (&acc)[4][8], const float* W,
 
 // rows (ty + 16 i) of a 64 x dh register block, times ``mult``, to a
 // contiguous [.., rows, heads, dh] output
-template <typename T>
+template <typename T, int HH>
 __device__ __forceinline__ void store_rows(T* base, long long row_stride,
                                            int row0, int n_rows,
-                                           const float (&acc)[4][8],
+                                           const float (&acc)[4][4 * HH],
                                            float mult, int dh, int ty,
                                            int tx) {
 #pragma unroll
@@ -166,7 +174,7 @@ __device__ __forceinline__ void store_rows(T* base, long long row_stride,
     if (row0 + r >= n_rows) continue;
     T* out = base + (long long)(row0 + r) * row_stride;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
+    for (int hh = 0; hh < HH; ++hh) {
       const int col = 4 * (tx + 16 * hh);
       if (col < dh) {
 #pragma unroll
@@ -182,7 +190,9 @@ struct Strides {
       do_ss, do_sh;
 };
 
-template <typename T>
+// HH: the output's groups of 64 columns a thread holds (dh <= 64 HH);
+// HH = 4 shares the k and v buffer (see the top)
+template <typename T, int HH>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -194,8 +204,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
   constexpr int ldp = kBK + 4;
   float* Qs = smem;                // [kBQ][ld], q * scale
   float* dOs = Qs + kBQ * ld;      // [kBQ][ld]
+  constexpr bool kShare = HH > 2;
   float* Ks = dOs + kBQ * ld;      // [kBK][ld]
-  float* Vs = Ks + kBK * ld;       // [kBK][ld]
+  float* Vs = kShare ? Ks : Ks + kBK * ld;  // [kBK][ld]
   float* dSs = Vs + kBK * ld;      // [kBQ][ldp]
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
@@ -211,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
   load_tile(dOs, ld,
             dout + b * st.do_sb + h * st.do_sh + (long long)q0 * st.do_ss,
             st.do_ss, S - q0, dh, 1.f);
-  float lse_r[4], d_r[4], acc[4][8];
+  float lse_r[4], d_r[4], acc[4][4 * HH];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
@@ -219,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     lse_r[i] = row < S ? lse[at] : 0.f;
     d_r[i] = row < S ? delta[at] : 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * HH; ++c) acc[i][c] = 0.f;
   }
 
   const T* kb = k + b * st.k_sb + kh * st.k_sh;
@@ -233,12 +244,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     __syncthreads();  // the previous tile's dS.K is done with Ks and dSs
     load_tile(Ks, ld, kb + (long long)k0 * st.k_ss, st.k_ss, T_len - k0, dh,
               1.f);
-    load_tile(Vs, ld, vb + (long long)k0 * st.v_ss, st.v_ss, T_len - k0, dh,
-              1.f);
+    if (!kShare)
+      load_tile(Vs, ld, vb + (long long)k0 * st.v_ss, st.v_ss, T_len - k0,
+                dh, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
     tile_dots(s, Qs, Ks, ld, dh, ty, tx);
+    if (kShare) {     // v into k's buffer
+      __syncthreads();
+      load_tile(Vs, ld, vb + (long long)k0 * st.v_ss, st.v_ss, T_len - k0,
+                dh, 1.f);
+      __syncthreads();
+    }
     tile_dots(dp, dOs, Vs, ld, dh, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -252,16 +270,23 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
         dSs[(ty + 16 * i) * ldp + tx + 16 * j] = p * (dp[i][j] - d_r[i]);
       }
     }
+    if (kShare) {     // k back into its buffer
+      __syncthreads();
+      load_tile(Ks, ld, kb + (long long)k0 * st.k_ss, st.k_ss, T_len - k0,
+                dh, 1.f);
+    }
     __syncthreads();
-    tile_axpy(acc, dSs, ldp, Ks, ld, dh, ty, tx);
+    tile_axpy<HH>(acc, dSs, ldp, Ks, ld, dh, ty, tx);
   }
 
   // dq is contiguous [B, S, H, dh]
-  store_rows(dq + ((long long)b * S * H + h) * dh, (long long)H * dh, q0, S,
-             acc, scale, dh, ty, tx);
+  store_rows<T, HH>(dq + ((long long)b * S * H + h) * dh, (long long)H * dh,
+                    q0, S, acc, scale, dh, ty, tx);
 }
 
-template <typename T>
+// HH as the dq kernel's; HH = 4 shares the q and do buffer and the P and
+// dS buffer (see the top)
+template <typename T, int HH>
 __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -274,10 +299,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   constexpr int ldp = kBQ + 4;
   float* Ks = smem;                // [kBK][ld]
   float* Vs = Ks + kBK * ld;       // [kBK][ld]
+  constexpr bool kShare = HH > 2;
   float* Qs = Vs + kBK * ld;       // [kBQ][ld], q * scale
-  float* dOs = Qs + kBQ * ld;      // [kBQ][ld]
+  float* dOs = kShare ? Qs : Qs + kBQ * ld;    // [kBQ][ld]
   float* Ps = dOs + kBQ * ld;      // [kBK][ldp], P transposed: kv rows
-  float* dSs = Ps + kBK * ldp;     // [kBK][ldp]
+  float* dSs = kShare ? Ps : Ps + kBK * ldp;   // [kBK][ldp]
   float* lse_s = dSs + kBK * ldp;  // [kBQ]
   float* d_s = lse_s + kBQ;        // [kBQ]
 
@@ -293,11 +319,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
             st.k_ss, T_len - k0, dh, 1.f);
   load_tile(Vs, ld, v + b * st.v_sb + kh * st.v_sh + (long long)k0 * st.v_ss,
             st.v_ss, T_len - k0, dh, 1.f);
-  float dk_acc[4][8], dv_acc[4][8];
+  float dk_acc[4][4 * HH], dv_acc[4][4 * HH];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * HH; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
   const int n_q = (S + kBQ - 1) / kBQ;
   const int qt0 = causal ? k0 / kBQ : 0;  // q tiles wholly above: skipped
@@ -310,8 +336,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       __syncthreads();  // the previous tile's sums are done with the tiles
       load_tile(Qs, ld, qb + (long long)q0 * st.q_ss, st.q_ss, S - q0, dh,
                 scale);
-      load_tile(dOs, ld, dob + (long long)q0 * st.do_ss, st.do_ss, S - q0,
-                dh, 1.f);
+      if (!kShare)
+        load_tile(dOs, ld, dob + (long long)q0 * st.do_ss, st.do_ss, S - q0,
+                  dh, 1.f);
       if (threadIdx.x < kBQ) {
         const int row = q0 + threadIdx.x;
         const long long at = ((long long)b * S + row) * H + h;
@@ -323,7 +350,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
       // logits transposed: kv rows ty + 16 i, q columns tx + 16 j
       float s[4][4], dp[4][4];
       tile_dots(s, Ks, Qs, ld, dh, ty, tx);
+      if (kShare) {   // do into q's buffer
+        __syncthreads();
+        load_tile(dOs, ld, dob + (long long)q0 * st.do_ss, st.do_ss, S - q0,
+                  dh, 1.f);
+        __syncthreads();
+      }
       tile_dots(dp, Vs, dOs, ld, dh, ty, tx);
+      // P^T into Ps; dS^T into dSs, or (shared) kept in dp until P is used
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kpos = k0 + ty + 16 * i;
@@ -335,45 +369,61 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
               qpos < S && kpos < T_len && (!causal || qpos >= kpos);
           const float p = keep ? expf(s[i][j] - lse_s[c]) : 0.f;
           Ps[(ty + 16 * i) * ldp + c] = p;
-          dSs[(ty + 16 * i) * ldp + c] = p * (dp[i][j] - d_s[c]);
+          dp[i][j] = p * (dp[i][j] - d_s[c]);
+          if (!kShare) dSs[(ty + 16 * i) * ldp + c] = dp[i][j];
         }
       }
       __syncthreads();
-      tile_axpy(dv_acc, Ps, ldp, dOs, ld, dh, ty, tx);
-      tile_axpy(dk_acc, dSs, ldp, Qs, ld, dh, ty, tx);
+      tile_axpy<HH>(dv_acc, Ps, ldp, dOs, ld, dh, ty, tx);
+      if (kShare) {   // dS^T over P^T, q back into its buffer
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            dSs[(ty + 16 * i) * ldp + tx + 16 * j] = dp[i][j];
+        load_tile(Qs, ld, qb + (long long)q0 * st.q_ss, st.q_ss, S - q0, dh,
+                  scale);
+        __syncthreads();
+      }
+      tile_axpy<HH>(dk_acc, dSs, ldp, Qs, ld, dh, ty, tx);
     }
   }
 
   // dk, dv are contiguous [B, T, K, dh]; Qs held scale * q, so dk is done
   const long long base = ((long long)b * T_len * K + kh) * dh;
-  store_rows(dk + base, (long long)K * dh, k0, T_len, dk_acc, 1.f, dh, ty,
-             tx);
-  store_rows(dv + base, (long long)K * dh, k0, T_len, dv_acc, 1.f, dh, ty,
-             tx);
+  store_rows<T, HH>(dk + base, (long long)K * dh, k0, T_len, dk_acc, 1.f,
+                    dh, ty, tx);
+  store_rows<T, HH>(dv + base, (long long)K * dh, k0, T_len, dv_acc, 1.f,
+                    dh, ty, tx);
 }
 
-size_t dq_smem(int dh) {
-  return sizeof(float) *
-         ((size_t)(2 * kBQ + 2 * kBK) * (dh + 4) + kBQ * (kBK + 4));
+// the kernels' shared memory: a wide instance (``share``) holds one tile
+// buffer fewer, and dk/dv one P/dS buffer fewer
+size_t dq_smem(int dh, bool share) {
+  return sizeof(float) * ((size_t)(2 * kBQ + (share ? 1 : 2) * kBK) *
+                              (dh + 4) +
+                          kBQ * (kBK + 4));
 }
 
-size_t dkv_smem(int dh) {
-  return sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * (dh + 4) +
-                          2 * kBK * (kBQ + 4) + 2 * kBQ);
+size_t dkv_smem(int dh, bool share) {
+  const int n = share ? 1 : 2;
+  return sizeof(float) * ((size_t)(2 * kBK + n * kBQ) * (dh + 4) +
+                          n * kBK * (kBQ + 4) + 2 * kBQ);
 }
 
-template <typename T>
+template <typename T, int HH>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int S,
               int T_len, int H, int K, int dh, Strides st, int causal,
               float scale, cudaStream_t stream) {
-  const size_t smem = dq_smem(dh);
+  const size_t smem = dq_smem(dh, HH > 2);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dq_kernel<T, HH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<T, HH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -381,18 +431,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int HH>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int S, int T_len, int H, int K, int dh, Strides st,
                int causal, float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem(dh);
+  const size_t smem = dkv_smem(dh, HH > 2);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dkv_kernel<T, HH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((T_len + kBK - 1) / kBK, K, B);
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, HH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -417,11 +467,13 @@ extern "C" int flash_attention_bwd_dq(
   const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                    v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, S,
-                                    T_len, H, K, dh, st, causal, scale, s);
-  return launch_dq<float>(q, k, v, dout, lse, delta, dq, B, S, T_len, H, K,
-                          dh, st, causal, scale, s);
+  const bool wide = dh > 128;
+  const auto run = is_bf16 ? (wide ? &launch_dq<__nv_bfloat16, 4>
+                                   : &launch_dq<__nv_bfloat16, 2>)
+                           : (wide ? &launch_dq<float, 4>
+                                   : &launch_dq<float, 2>);
+  return run(q, k, v, dout, lse, delta, dq, B, S, T_len, H, K, dh, st,
+             causal, scale, s);
 }
 
 // The same strides; dk and dv are written contiguous [B, T, K, dh].
@@ -438,9 +490,11 @@ extern "C" int flash_attention_bwd_dkv(
   const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                    v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B, S,
-                                     T_len, H, K, dh, st, causal, scale, s);
-  return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H,
-                           K, dh, st, causal, scale, s);
+  const bool wide = dh > 128;
+  const auto run = is_bf16 ? (wide ? &launch_dkv<__nv_bfloat16, 4>
+                                   : &launch_dkv<__nv_bfloat16, 2>)
+                           : (wide ? &launch_dkv<float, 4>
+                                   : &launch_dkv<float, 2>);
+  return run(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, K, dh, st,
+             causal, scale, s);
 }

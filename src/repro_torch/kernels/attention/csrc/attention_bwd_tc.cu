@@ -9,7 +9,7 @@
 //
 // They replace src/repro/kernels/attention/bwd.py::_dq_kernel (:47-71) and
 // _dkv_kernel (:74-100), with _p_and_ds (:28-44), for bf16 inputs with dh a
-// multiple of 16 up to 128; fp32 inputs and other head sizes keep the
+// multiple of 16 up to 192; fp32 inputs and other head sizes keep the
 // fp32-FMA kernels of attention_bwd.cu.  The contract is those kernels':
 // dq comes back [B, S, H, dh], dk and dv per kv head, [B, T, K, dh], the
 // G = H / K query heads summed inside the block; P is recomputed from the
@@ -57,9 +57,19 @@
 // * each output element has one owner and no atomics, so repeated runs are
 //   bit-identical.
 //
+// Nemotron-4's dh = 192 (DHP = 192, dh 144..192) keeps the blocks and the
+// tiles (shared memory: dk/dv 146 KB, dq 145 KB, one block a SM).  An
+// accumulator is 96 fp32 registers a thread there, and a whole-width
+// partial beside it, S, dP and A's terms would pass 255, so the output's
+// product runs one 64-column block of its B operand at a time into a
+// 32-register partial (sm90.cuh split_product_by_blocks), each block
+// waited for and added to its columns of acc before the next: the same
+// sums, in three rounds instead of one.  dk and dv stay on blocks of
+// their own, as at every width, so no block holds two accumulators.
+//
 // Takes: bf16 q, k, v, do with the last axis contiguous and 16-byte aligned
 // rows (strides multiples of 8 elements), lse and D fp32 contiguous
-// [B, S, H], dh a multiple of 16 up to 128, H a multiple of K; any S and T
+// [B, S, H], dh a multiple of 16 up to 192, H a multiple of K; any S and T
 // (ragged tiles are masked).  The Python wrapper checks it all.
 
 #include "sm90.cuh"
@@ -147,8 +157,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
   if (n_iter > 0) load_stage(0);
   cp_async_commit();                  // with K (and V)
 
+  constexpr int kPart = DHP > 128 ? 32 : DHP / 2;
   float acc[DHP / 2];                 // dk or dv, fp32
-  float part[DHP / 2];                // one q tile's share of it
+  float part[kPart];                  // one q tile's share (wide: a block's)
 #pragma unroll
   for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
   // this thread's two kv rows: row_lo and row_lo + 8; q columns 8 j + col_in
@@ -214,15 +225,19 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
     uint32_t af[4][kTerms][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) split_a(af[kk], s, kk);
-    fence_regs(part);
-    wgmma_fence();
-    issue_split_product<DHP>(part, af, want_dk ? sQ : sdO);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(part);
-    fence_regs(af);
+    if constexpr (DHP > 128) {
+      split_product_by_blocks<DHP>(acc, part, af, want_dk ? sQ : sdO);
+    } else {
+      fence_regs(part);
+      wgmma_fence();
+      issue_split_product<DHP>(part, af, want_dk ? sQ : sdO);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+      fence_regs(af);
 #pragma unroll
-    for (int i = 0; i < DHP / 2; ++i) acc[i] += part[i];
+      for (int i = 0; i < DHP / 2; ++i) acc[i] += part[i];
+    }
     __syncthreads();  // the stage is free for iteration it + 2
   }
   cp_async_wait<0>();  // K and V's group when the block had no iteration
@@ -310,8 +325,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_tc_kernel(
     lse_r[r] = lse[at] * kLog2e;
     d_r[r] = delta[at];
   }
+  constexpr int kPart = DHP > 128 ? 32 : DHP / 2;
   float acc[DHP / 2];                 // dq, fp32
-  float part[DHP / 2];                // one kv tile's share of it
+  float part[kPart];                  // one kv tile's share (wide: a block's)
 #pragma unroll
   for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
 
@@ -367,15 +383,19 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_tc_kernel(
     uint32_t af[4][kTerms][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) split_a(af[kk], s, kk);
-    fence_regs(part);
-    wgmma_fence();
-    issue_split_product<DHP>(part, af, sK);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(part);
-    fence_regs(af);
+    if constexpr (DHP > 128) {
+      split_product_by_blocks<DHP>(acc, part, af, sK);
+    } else {
+      fence_regs(part);
+      wgmma_fence();
+      issue_split_product<DHP>(part, af, sK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+      fence_regs(af);
 #pragma unroll
-    for (int i = 0; i < DHP / 2; ++i) acc[i] += part[i];
+      for (int i = 0; i < DHP / 2; ++i) acc[i] += part[i];
+    }
     __syncthreads();  // the stage is free for iteration it + 2
   }
   cp_async_wait<0>();  // Q and dO's group when the block had no iteration
@@ -448,16 +468,16 @@ extern "C" int flash_attention_bwd_dq_tc(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long do_sb, long long do_ss,
     long long do_sh, int causal, float scale, void* stream) {
-  if (dh > 128 || dh % 16 || H % K)
+  if (dh > 192 || dh % 16 || H % K)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                    v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, T_len, H, K,
-                         dh, st, causal, scale, s);
-  return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, T_len, H, K,
-                        dh, st, causal, scale, s);
+  const auto run = dh <= 64    ? &launch_dq<64>
+                   : dh <= 128 ? &launch_dq<128>
+                               : &launch_dq<192>;
+  return run(q, k, v, dout, lse, delta, dq, B, S, T_len, H, K, dh, st,
+             causal, scale, s);
 }
 
 // Strides (in elements) of q, k, v, do over (batch, row, head); dk and dv
@@ -470,14 +490,14 @@ extern "C" int flash_attention_bwd_dkv_tc(
     long long v_sb, long long v_ss, long long v_sh, long long do_sb,
     long long do_ss, long long do_sh, int causal, float scale,
     void* stream) {
-  if (dh > 128 || dh % 16 || H % K)
+  if (dh > 192 || dh % 16 || H % K)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                    v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh <= 64)
-    return launch<64>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, K,
-                      dh, st, causal, scale, s);
-  return launch<128>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, K,
-                     dh, st, causal, scale, s);
+  const auto run = dh <= 64    ? &launch<64>
+                   : dh <= 128 ? &launch<128>
+                               : &launch<192>;
+  return run(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, K, dh, st,
+             causal, scale, s);
 }

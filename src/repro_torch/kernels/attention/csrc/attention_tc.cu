@@ -5,11 +5,11 @@
 //     lse[b, s, h]  = log sum_t exp(scale * q . k)
 //
 // It replaces src/repro/kernels/attention/kernel.py::flash_attention
-// (_kernel, :39-87) for bf16 inputs with dh a multiple of 16 up to 128; fp32
-// inputs and other head sizes keep the fp32-FMA kernel of attention.cu.  The
-// conventions are that kernel's: the top-left causal mask qpos >= kpos,
-// -1e30 for a masked logit, l clamped at 1e-30, o in bf16, the fp32 LSE
-// [B, S, H] that the backward kernels consume.
+// (_kernel, :39-87) for bf16 inputs with dh a multiple of 16 up to 192;
+// fp32 inputs and other head sizes keep the fp32-FMA kernel of
+// attention.cu.  The conventions are that kernel's: the top-left causal
+// mask qpos >= kpos, -1e30 for a masked logit, l clamped at 1e-30, o in
+// bf16, the fp32 LSE [B, S, H] that the backward kernels consume.
 //
 // Bound at the Phi-4-mini prefill (B = 4, S = T = 2048, H = 24, K = 8,
 // dh = 128): two causal products of 2 B H dh S (S + 1) / 2 FLOP each,
@@ -54,9 +54,19 @@
 //   a block of one at both Phi-4-mini shapes (PERF.md); at S <= 64 the
 //   second warpgroup has no rows and writes nothing.
 //
+// Nemotron-4's dh = 192 (DHP = 192, dh 144..192) keeps the tiles, the ring
+// and the warpgroups: Q is 48 KB, a (K, V) stage 48 KB, 193 KB in all.
+// What does not fit is the registers: O (96 a thread), a whole-width P V
+// partial (96), S (32) and P's terms (48) pass the 255 a thread allows.
+// So that instance drops the software pipeline: each tile runs S, its
+// softmax, the rescale of O, then P V one 64-column block of V at a time
+// into a 32-register partial (sm90.cuh split_product_by_blocks), each
+// block waited for and added to O in fp32 before the next.  Its P V is
+// not overlapped with the next tile's S; that is speed left for later.
+//
 // Takes: bf16 q, k, v with the last axis contiguous, rows 16-byte aligned
 // (strides over batch, row and head multiples of 8 elements, 16-byte
-// aligned base pointers), dh a multiple of 16 up to 128, H a multiple of K;
+// aligned base pointers), dh a multiple of 16 up to 192, H a multiple of K;
 // any S and T (ragged tiles are masked).  The Python wrapper checks it all.
 
 #include "sm90.cuh"
@@ -182,10 +192,14 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_fwd_tc_kernel(
   const int wg_row0 = q0 + 64 * wg;
   const int row_lo = wg_row0 + 16 * warp + (lane >> 2);
   const int col_in = 2 * (lane & 3);
+  constexpr bool kWide = DHP > 128;   // P V by column blocks, unpipelined
+  constexpr int kPart = kWide ? 32 : DHP / 2;
   float acc[DHP / 2];                 // O, fp32, relative to the max m
-  float part[DHP / 2];                // one tile's P V
+  float part[kPart];                  // one tile's P V (wide: one block's)
 #pragma unroll
-  for (int i = 0; i < DHP / 2; ++i) acc[i] = part[i] = 0.f;
+  for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPart; ++i) part[i] = 0.f;
   float m[2] = {kMasked, kMasked};
   float l[2] = {0.f, 0.f};
   float corr[2];
@@ -196,6 +210,7 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_fwd_tc_kernel(
   // Software pipeline over the kv tiles: while the tensor cores compute
   // S of tile kt and acc += P V of tile kt - 1, the warpgroup waits only
   // for S, runs the softmax of tile kt, then waits for P V and rescales.
+  // The wide instance runs each tile's steps in order (see the top).
   for (int kt = 0; kt < n_run; ++kt) {
     mbar_wait(bars + (kt % kStages) * 8, (kt / kStages) & 1);
     // every thread is past tile kt - 1's P V: tile kt - 2's stage is free
@@ -211,47 +226,60 @@ __global__ void __launch_bounds__(128 * kWG, 1) flash_fwd_tc_kernel(
       wgmma_ss_n64<0>(s, desc_k_major(sQ, kBM, 64 * wg, kk),
                       desc_k_major(sK, kBN, 0, kk), kk > 0);
     wgmma_commit();
-    if (kt > 0) {
-      issue_split_product<DHP>(part, pf, sVprev);
-      wgmma_commit();
-      wgmma_wait<1>();               // S is ready; P V may still run
-    } else {
-      wgmma_wait<0>();
-    }
-    fence_regs(s);
-
     const int k0 = kt * kBN;
     const bool masked =
         (causal && k0 + kBN - 1 > wg_row0) || k0 + kBN > T_len;
-    online_softmax(s, m, l, corr, k0, row_lo, col_in, masked, causal, T_len,
-                   scale_log2);
+    if constexpr (kWide) {
+      wgmma_wait<0>();
+      fence_regs(s);
+      online_softmax(s, m, l, corr, k0, row_lo, col_in, masked, causal,
+                     T_len, scale_log2);
+#pragma unroll
+      for (int i = 0; i < DHP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) split_a(pf[kk], s, kk);
+      split_product_by_blocks<DHP>(acc, part, pf, sK + kTile);
+    } else {
+      if (kt > 0) {
+        issue_split_product<DHP>(part, pf, sVprev);
+        wgmma_commit();
+        wgmma_wait<1>();             // S is ready; P V may still run
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(s);
 
-    wgmma_wait<0>();                 // P V of tile kt - 1 is summed
+      online_softmax(s, m, l, corr, k0, row_lo, col_in, masked, causal,
+                     T_len, scale_log2);
+
+      wgmma_wait<0>();               // P V of tile kt - 1 is summed
+      fence_regs(acc);
+      fence_regs(part);
+      fence_regs(pf);
+#pragma unroll
+      for (int j = 0; j < DHP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          acc[i] = (acc[i] + part[i]) * corr[e >> 1];
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) split_a(pf[kk], s, kk);
+    }
+  }
+  if constexpr (!kWide) {            // the last tile's P V
     fence_regs(acc);
     fence_regs(part);
-    fence_regs(pf);
+    wgmma_fence();
+    issue_split_product<DHP>(
+        part, pf, sKV + ((n_run - 1) % kStages) * 2 * kTile + kTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(part);
 #pragma unroll
-    for (int j = 0; j < DHP / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * j + e;
-        acc[i] = (acc[i] + part[i]) * corr[e >> 1];
-      }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) split_a(pf[kk], s, kk);
+    for (int i = 0; i < DHP / 2; ++i) acc[i] += part[i];
   }
-  // the last tile's P V
-  fence_regs(acc);
-  fence_regs(part);
-  wgmma_fence();
-  issue_split_product<DHP>(
-      part, pf, sKV + ((n_run - 1) % kStages) * 2 * kTile + kTile);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
-  fence_regs(part);
-#pragma unroll
-  for (int i = 0; i < DHP / 2; ++i) acc[i] += part[i];
 
   // o = acc / l in bf16 (o is contiguous [B, S, H, dh]); lse in fp32
 #pragma unroll
@@ -353,10 +381,12 @@ extern "C" int flash_attention_fwd_tc(
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, float scale,
     void* stream) {
-  if (dh > 128 || dh % 16 || H % K)
+  if (dh > 192 || dh % 16 || H % K)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto run = dh <= 64 ? &launch<64> : &launch<128>;
+  const auto run = dh <= 64    ? &launch<64>
+                   : dh <= 128 ? &launch<128>
+                               : &launch<192>;
   return run(q, k, v, o, lse, B, S, T_len, H, K, dh, q_sb, q_ss, q_sh, k_sb,
              k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale, s);
 }

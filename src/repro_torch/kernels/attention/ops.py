@@ -11,9 +11,9 @@ Port of ``src/repro/kernels/attention/ops.py``, ``kernel.py`` and
   the plain version (``ref.flash_attention_ref``); a CUDA tensor launches
   a kernel or raises — there is no fallback.  Which kernel is a rule of
   dtype and dh alone (``tensor_core_route``): bf16 with dh a multiple of
-  16 up to 128 takes the wgmma kernel ``csrc/attention_tc.cu``
-  (``FLASH_TC``); fp32, and bf16 with any other dh, the fp32-FMA kernel
-  ``csrc/attention.cu`` (``FLASH``).
+  16 up to 192 (Nemotron-4's head) takes the wgmma kernel
+  ``csrc/attention_tc.cu`` (``FLASH_TC``); fp32, and bf16 with any other
+  dh up to 256, the fp32-FMA kernel ``csrc/attention.cu`` (``FLASH``).
 * ``flash_attention_bwd(q, k, v, o, do, lse, causal)`` — the two backward
   kernels (``bwd.py::flash_attention_bwd``: dq, then dk/dv), with the same
   shape contract, in the forward's layout (q, o, do ``[B,S,H,dh]``, k, v
@@ -88,12 +88,17 @@ FLASH_BWD_DKV_TC = _build.Kernel(_BWD_TC_LIB, "flash_attention_bwd_dkv_tc",
                                  [_P] * 8 + _BWD_ARGS + [_P])
 
 
+#: the largest head dim of each route's kernels: the tensor-core ones are
+#: instantiated at 64, 128 and 192 columns, the FMA ones hold up to 256
+MAX_DH_TC, MAX_DH = 192, 256
+
+
 def tensor_core_route(dtype: torch.dtype, dh: int) -> bool:
     """The rule that picks a kernel, from dtype and dh alone: bf16 with dh
-    a multiple of 16 up to 128 runs on the tensor cores (``FLASH_TC``,
-    ``FLASH_BWD_DQ_TC``, ``FLASH_BWD_DKV_TC``); everything else on the
-    fp32-FMA kernels."""
-    return dtype == torch.bfloat16 and dh % 16 == 0 and dh <= 128
+    a multiple of 16 up to ``MAX_DH_TC`` runs on the tensor cores
+    (``FLASH_TC``, ``FLASH_BWD_DQ_TC``, ``FLASH_BWD_DKV_TC``); everything
+    else on the fp32-FMA kernels."""
+    return dtype == torch.bfloat16 and dh % 16 == 0 and dh <= MAX_DH_TC
 
 
 def bwd_kernels(dtype: torch.dtype, dh: int) -> tuple:
@@ -117,7 +122,7 @@ def _check_shapes(q, k, v) -> None:
 
 def _check_kernel_inputs(q, **others) -> None:
     """What the CUDA kernels take: one device and dtype (fp32 or bf16),
-    dh a multiple of 4 up to 128, every last axis contiguous."""
+    dh a multiple of 4 up to ``MAX_DH``, every last axis contiguous."""
     for name, t in others.items():
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype} on "
@@ -126,9 +131,9 @@ def _check_kernel_inputs(q, **others) -> None:
         raise TypeError(f"flash kernel takes float32 or bfloat16, not "
                         f"{q.dtype}")
     dh = q.shape[3]
-    if dh % 4 or dh > 128:
-        raise ValueError(f"flash kernel takes dh a multiple of 4, <= 128; "
-                         f"got {dh}")
+    if dh % 4 or dh > MAX_DH:
+        raise ValueError(f"flash kernel takes dh a multiple of 4, <= "
+                         f"{MAX_DH}; got {dh}")
     if q.stride(3) != 1 or any(t.stride(3) != 1 for t in others.values()):
         raise ValueError("flash kernel: the last axis must be contiguous")
 

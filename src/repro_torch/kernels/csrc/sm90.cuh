@@ -7,8 +7,8 @@
 // shared-memory descriptors, and the wgmma instructions themselves (bf16
 // inputs, fp32 accumulators) as inline PTX.
 //
-// Tile layout.  A tile of R rows by DHP bf16 columns (DHP = 64 or 128) is
-// stored as DHP / 64 column blocks, each R rows of 128 bytes; block c
+// Tile layout.  A tile of R rows by DHP bf16 columns (DHP = 64, 128 or
+// 192) is stored as DHP / 64 column blocks, each R rows of 128 bytes; block c
 // starts at c * R * 128 bytes.  Inside a block, the 16-byte chunk j of row
 // r sits at r * 128 + ((j ^ (r % 8)) * 16): CUTLASS's Swizzle<3,4,3>, the
 // layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B.  Tiles start on
@@ -378,6 +378,37 @@ __device__ __forceinline__ void issue_split_product(
       else
         wgmma_rs_n64<1>(acc, a[kk][t], db, add);
     }
+  }
+}
+
+// acc += A B over 64 reduction rows, one 64-column block of B at a time
+// (DHP / 64 rounds): each round's product is summed by the tensor cores
+// into ``part`` (32 registers, not DHP / 2), waited for, and added to its
+// columns of acc in fp32.  The wide head dims (DHP = 192) take it: a
+// whole-width partial beside the accumulator and A's terms would pass 255
+// registers a thread.  Waits for its own wgmmas; the caller fences ``a``
+// and acc before it.
+template <int DHP>
+__device__ __forceinline__ void split_product_by_blocks(
+    float (&acc)[DHP / 2], float (&part)[32], uint32_t (&a)[4][kTerms][4],
+    uint32_t sB) {
+#pragma unroll
+  for (int cb = 0; cb < DHP / 64; ++cb) {
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc_mn_major(sB + cb * 64 * 128, 64, kk);
+#pragma unroll
+      for (int t = 0; t < kTerms; ++t)
+        wgmma_rs_n64<1>(part, a[kk][t], db, kk + t > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+    fence_regs(a);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[32 * cb + i] += part[i];
   }
 }
 

@@ -5,11 +5,16 @@ single-device part of ``src/repro/launch/steps.py``.
 metrics)``: the loss and its gradients by autograd, micro-batched over
 ``cfg.grad_accum`` with the gradients summed in fp32, then the optimizer
 of ``make_tx(cfg)`` (its own, with the default 100,000-step schedule, as
-the reference builds it).  Metrics are the last micro-batch's ``ce``,
-``aux`` and ``tokens``, the mean ``loss`` and the ``grad_norm`` of the
-averaged gradients, as 0-d tensors on the device.  The reference jits
-the step with its state donated; here the state is updated IN PLACE
-(params, μ, ν) and the returned state holds the same tensors.
+the reference builds it).  With one micro-batch the optimizer takes
+autograd's gradients as they are, in the params' dtype, as the
+reference's does (its ``steps.py:96-98``): the clip and the optimizer
+read them piece by piece in fp32 (``train.optimizer``), so no fp32 copy
+of the gradients is held (Nemotron-4's would be 51.6 GB at one layer).
+Metrics are the last micro-batch's ``ce``, ``aux`` and ``tokens``, the
+mean ``loss`` and the ``grad_norm`` of the averaged gradients, as 0-d
+tensors on the device.  The reference jits the step with its state
+donated; here the state is updated IN PLACE (params and the optimizer's
+moments) and the returned state holds the same tensors.
 
 ``make_prefill_step(cfg, t_max)`` and ``make_decode_step(cfg)`` return
 the serving steps: ``prefill_step(params, batch) -> (logits, caches,
@@ -67,6 +72,19 @@ def _loss_fn(cfg) -> Callable:
     return loss
 
 
+def _owned(grads: list) -> list:
+    """autograd's gradients, each contiguous and held by no other leaf
+    (the optimizer writes its updates into them): a strided or repeated
+    one is copied, in its own dtype."""
+    seen, out = set(), []
+    for g in grads:
+        if not g.is_contiguous() or g.data_ptr() in seen:
+            g = g.clone(memory_format=torch.contiguous_format)
+        seen.add(g.data_ptr())
+        out.append(g)
+    return out
+
+
 def make_train_step(cfg) -> Callable:
     tx = make_tx(cfg)
     loss_fn = _loss_fn(cfg)
@@ -81,13 +99,18 @@ def make_train_step(cfg) -> Callable:
                 for k, x in batch.items()}
             (loss, metrics), grads = value_and_grad(
                 lambda p: loss_fn(p, micro), state.params, has_aux=True)
-            for j, g in enumerate(tree_leaves(grads)):
-                if i == 0:      # owned and contiguous: updated in place
-                    gsum.append(g.to(torch.float32,
-                                     memory_format=torch.contiguous_format))
-                else:
-                    gsum[j].add_(g)
+            leaves = tree_leaves(grads)
             del grads
+            if accum == 1:      # the reference's branch: as autograd gives
+                gsum = _owned(leaves)
+            elif i == 0:        # owned and contiguous: updated in place
+                gsum = [g.to(torch.float32,
+                             memory_format=torch.contiguous_format)
+                        for g in leaves]
+            else:
+                for total, g in zip(gsum, leaves):
+                    total.add_(g)
+            del leaves
             lsum = loss if lsum is None else lsum + loss
         if accum > 1:
             for g in gsum:

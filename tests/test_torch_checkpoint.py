@@ -4,7 +4,9 @@
   ``save`` of a train state restores in the port's ``restore``, and the
   port's ``save`` restores in the reference's, with every leaf equal —
   for the Phi-4-mini smoke config's LM train state (params, AdamW
-  moments, steps; fp32) and the in-situ autoencoder's.  The manifests
+  moments, steps; fp32), the Nemotron-4 smoke config's (params,
+  Adafactor's row and column moments, steps) and the in-situ
+  autoencoder's.  The manifests
   name the same leaves with the same shapes and dtypes.
 * bf16 leaves: the port writes them as the reference's numpy does (two-
   byte void records, dtype ``bfloat16``) and reads a bf16 checkpoint the
@@ -54,7 +56,7 @@ def setup_module():
     torch.set_num_threads(1)
 
 
-PHI4 = "phi4_mini_3_8b"
+PHI4, NEMOTRON = "phi4_mini_3_8b", "nemotron_4_340b"
 
 
 def _flat_jax(tree) -> dict:
@@ -68,12 +70,12 @@ def _flat_torch(tree) -> dict:
             for k, v in tckpt._flatten_with_paths(tree)}
 
 
-def _lm_states():
+def _lm_states(arch=PHI4):
     """The smoke config's LM train state in each package: the reference's
-    from its own init (one step of AdamW state is zeros), the port's as
-    the ``like`` tree (a different seed, so a restore has to move every
+    from its own init (its optimizer state is zeros), the port's as the
+    ``like`` tree (a different seed, so a restore has to move every
     leaf)."""
-    jcfg = jget_smoke(PHI4)
+    jcfg = jget_smoke(arch)
     jstate = jinit_train_state(jax.random.key(1), jcfg, jmodel_specs(jcfg),
                                jmake_tx(jcfg, total_steps=10))
     # non-zero moments and step, so every leaf carries information
@@ -81,7 +83,7 @@ def _lm_states():
         opt_state=jax.tree.map(lambda x: x + 0.25 if x.dtype != jnp.int32
                                else x + 3, jstate.opt_state),
         step=jnp.int32(3))
-    tcfg = tcfgs.get_smoke_config(PHI4)
+    tcfg = tcfgs.get_smoke_config(arch)
     tlike = tstate.init_train_state(torch.Generator().manual_seed(2), tcfg,
                                     tsteps.model_specs(tcfg),
                                     tstate.make_tx(tcfg, total_steps=10),
@@ -103,9 +105,13 @@ def _ae_states():
     return jstate, tlike
 
 
-@pytest.mark.parametrize("states", ["lm", "autoencoder"])
+STATES = {"lm": _lm_states, "lm_adafactor": lambda: _lm_states(NEMOTRON),
+          "autoencoder": _ae_states}
+
+
+@pytest.mark.parametrize("states", STATES)
 def test_reference_save_restores_in_the_port(states, tmp_path):
-    jstate, tlike = (_lm_states if states == "lm" else _ae_states)()
+    jstate, tlike = STATES[states]()
     jckpt.save(tmp_path, 3, jstate)
     got = tckpt.restore(tmp_path, tlike)
     want = _flat_jax(jstate)
@@ -119,9 +125,9 @@ def test_reference_save_restores_in_the_port(states, tmp_path):
         assert a.dtype == b.dtype and a is b
 
 
-@pytest.mark.parametrize("states", ["lm", "autoencoder"])
+@pytest.mark.parametrize("states", STATES)
 def test_port_save_restores_in_the_reference(states, tmp_path):
-    jlike, tstate_ = (_lm_states if states == "lm" else _ae_states)()
+    jlike, tstate_ = STATES[states]()
     tckpt.save(tmp_path / "t", 5, tstate_)
     jckpt.save(tmp_path / "j", 5, jlike)
     got = jckpt.restore(tmp_path / "t", jlike)

@@ -146,8 +146,10 @@ def test_registry_resolves_registered_modules_and_names_a7():
         del sys.modules[mod.__name__]
     assert tregistry.get_config("phi4-mini-3.8b").name \
         == tregistry.get_config("phi4_mini_3_8b").name
+    assert tregistry.get_smoke_config("nemotron_4_340b").name \
+        == "nemotron-4-smoke"
     with pytest.raises(NotImplementedError, match="A7"):
-        tregistry.get_smoke_config("nemotron_4_340b")
+        tregistry.get_smoke_config("whisper_large_v3")
     with pytest.raises(ModuleNotFoundError):
         tregistry.get_config("no_such_arch")
 

@@ -39,7 +39,9 @@ given ``a`` with two heads swapped it must miss y's limit.
 
 The flash-attention backward kernels (dq; dk/dv) are held to their plain
 version on the forward kernel's own o and LSE, on the reference's four
-sweep shapes and Phi-4-mini's head layout (H = 24, K = 8, dh = 128): fp32
+sweep shapes, Phi-4-mini's head layout (H = 24, K = 8, dh = 128),
+Nemotron-4's dh = 192 (and its training shape), dh = 160 and the FMA
+kernels' widest dh = 256: fp32
 within 2e-5 of each output's magnitude, bf16 within 2^-8 of it; the bf16
 ones run on the tensor cores, each bit-identical on a rerun and missing
 its limit with the causal mask off; ``mha``
@@ -306,9 +308,13 @@ def _qkv(cuda, shape, seed, n=3, dtype="bfloat16"):
     (1, 128, 3, 1, 64, True),       # S = one tile of the reference
     (2, 48, 4, 2, 64, True),        # S below a tile: a ragged kernel tile
     (1, 256, 4, 4, 64, False),      # no causal mask
+    (1, 256, 12, 1, 192, True),     # Nemotron-4's dh and G = 12
+    (1, 128, 4, 4, 160, False),     # dh 160: the 192 instance, padded
+    (1, 128, 2, 1, 256, True),      # the FMA kernel's widest dh
 ])
 def test_flash_kernel_close(cuda, dtype, B, S, H, K, dh, causal):
-    """fp32 runs the FMA kernel, bf16 (dh 64, 128) the tensor-core one."""
+    """fp32 runs the FMA kernel, bf16 (dh 64, 128, 160, 192) the
+    tensor-core one and bf16 at dh 256 the FMA one."""
     gen = torch.Generator(device=cuda).manual_seed(S + H)
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).mul(0.5).to(dt)
@@ -316,11 +322,11 @@ def test_flash_kernel_close(cuda, dtype, B, S, H, K, dh, causal):
     launches = _counts(aops.FLASH, aops.FLASH_TC)
     o, lse = aops.flash_attention(q, k, v, causal, return_lse=True)
     torch.cuda.synchronize()
-    tc = dtype == "bfloat16"
+    tc = aops.tensor_core_route(dt, dh)
     assert _counts(aops.FLASH, aops.FLASH_TC) == [
         launches[0] + (not tc), launches[1] + tc]
     assert o.dtype == dt and lse.dtype == torch.float32
-    if tc:
+    if dtype == "bfloat16":
         err, tol, lse_err = _fwd_errors(q, k, v, o, lse, causal)
         assert err <= tol and lse_err <= 1e-4, (err, tol, lse_err)
     else:
@@ -333,7 +339,7 @@ def test_flash_kernel_close(cuda, dtype, B, S, H, K, dh, causal):
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     """The forward and both backward kernels refuse a sequence that is not
-    a multiple of the tile, fp16, dh past 128 and a strided last axis."""
+    a multiple of the tile, fp16, dh past 256 and a strided last axis."""
     q = torch.zeros((1, 200, 2, 64), device=cuda)
     lse = torch.zeros((1, 200, 2), device=cuda)
     with pytest.raises(ValueError, match="must divide blocks"):
@@ -347,9 +353,11 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     lse = torch.zeros((1, 128, 2), device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
         aops.flash_attention_bwd(half, half, half, half, half, lse)
-    wide = torch.zeros((1, 128, 2, 192), device=cuda)
-    with pytest.raises(ValueError, match="<= 128"):
+    wide = torch.zeros((1, 128, 2, 260), device=cuda)
+    with pytest.raises(ValueError, match="<= 256"):
         aops.flash_attention_bwd(wide, wide, wide, wide, wide, lse)
+    with pytest.raises(ValueError, match="<= 256"):
+        aops.flash_attention(wide, wide, wide)
     q = torch.zeros((1, 128, 2, 64), device=cuda)
     strided = torch.zeros((1, 128, 64, 2), device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -364,6 +372,10 @@ BWD_SHAPES = [
     (1, 128, 4, 4, 64, False),      # bidirectional     sweep)
     (1, 384, 2, 1, 64, True),       # MQA, 3 kv blocks
     (1, 256, 24, 8, 128, True),     # Phi-4-mini's heads: G = 3, dh 128
+    (1, 256, 12, 1, 192, True),     # Nemotron-4's dh and G = 12
+    (1, 128, 4, 4, 160, False),     # dh 160: the 192 instance, padded
+    (1, 128, 2, 1, 256, True),      # the FMA kernels' widest dh
+    (2, 48, 4, 2, 192, True),       # dh 192, a ragged 48-row tile
 ]
 
 
@@ -385,7 +397,7 @@ def test_flash_bwd_kernels_close(cuda, dtype, B, S, H, K, dh, causal):
     got = aops.flash_attention_bwd(q, k, v, o, do, lse, causal)
     want = aref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal)
     torch.cuda.synchronize()
-    tc = dtype == "bfloat16"      # dq and dk/dv on the tensor cores
+    tc = aops.tensor_core_route(dt, dh)   # dq and dk/dv on the tensor cores
     assert _counts(*kernels) == [counts[0] + (not tc), counts[1] + tc,
                                  counts[2] + (not tc), counts[3] + tc]
     rel = 2e-5 if dtype == "float32" else 2.0 ** -8
@@ -455,6 +467,65 @@ def test_flash_tc_kernels_at_the_phi4_training_shape(cuda):
     assert max(_bwd_errors(got, want)) <= 1.0
 
 
+NEMOTRON_TRAIN = (1, 2048, 96, 8, 192)   # Nemotron-4's micro-batch
+
+
+def test_flash_tc_kernels_at_the_nemotron_training_shape(cuda):
+    """bf16 at Nemotron-4's training shape (dh 192, G = 12) runs the
+    tensor-core forward, dq and dk/dv, one launch each and none of the
+    FMA kernels, within the bf16 limits; dq, dk and dv are bit-identical
+    on a rerun."""
+    q, k, v, do = _qkv(cuda, NEMOTRON_TRAIN, seed=7, n=4)
+    kernels = (aops.FLASH, aops.FLASH_TC, aops.FLASH_BWD_DQ,
+               aops.FLASH_BWD_DQ_TC, aops.FLASH_BWD_DKV,
+               aops.FLASH_BWD_DKV_TC)
+    counts = _counts(*kernels)
+    o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
+    got = aops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    torch.cuda.synchronize()
+    assert _counts(*kernels) == [counts[0], counts[1] + 1, counts[2],
+                                 counts[3] + 1, counts[4], counts[5] + 1]
+    err, tol, lse_err = _fwd_errors(q, k, v, o, lse, True)
+    assert err <= tol and lse_err <= 1e-4, (err, tol, lse_err)
+    want = aref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
+    assert max(_bwd_errors(got, want)) <= 1.0
+    again = aops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_tc_mask_off_control_fails_at_dh_192(cuda):
+    """The dh = 192 instances' limits can fail: the tensor-core kernels
+    with the causal mask off miss them."""
+    q, k, v, do = _qkv(cuda, (1, 256, 12, 1, 192), seed=9, n=4)
+    o, lse = aops.flash_attention(q, k, v, False, return_lse=True)
+    err, tol, lse_err = _fwd_errors(q, k, v, o, lse, True)
+    assert err > tol and lse_err > 1e-4
+    o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
+    got = aops.flash_attention_bwd(q, k, v, o, do, lse, False)
+    want = aref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
+    assert min(_bwd_errors(got, want)) > 1.0
+
+
+def test_flash_bf16_past_the_tensor_core_route(cuda):
+    """bf16 at dh 208, a multiple of 16 past the tensor-core kernels'
+    192, takes the FMA kernels (their wide instances), by the route rule
+    alone."""
+    q, k, v, do = _qkv(cuda, (1, 128, 4, 2, 208), seed=11, n=4)
+    kernels = (aops.FLASH, aops.FLASH_TC, aops.FLASH_BWD_DQ,
+               aops.FLASH_BWD_DQ_TC, aops.FLASH_BWD_DKV,
+               aops.FLASH_BWD_DKV_TC)
+    counts = _counts(*kernels)
+    o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
+    got = aops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    torch.cuda.synchronize()
+    assert _counts(*kernels) == [counts[0] + 1, counts[1], counts[2] + 1,
+                                 counts[3], counts[4] + 1, counts[5]]
+    err, tol, _ = _fwd_errors(q, k, v, o, lse, True)
+    assert err <= tol
+    want = aref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
+    assert max(_bwd_errors(got, want)) <= 1.0
+
+
 # the LM zoo's head layouts (H, K, dh 128), at B = 1 and S = 1,024, and
 # LLaVA's prefill length (1,152 patches + 2,048 tokens = 25 tiles of 128)
 ZOO_LAYOUTS = {"qwen3_moe": (1, 1024, 64, 4, 128),
@@ -477,11 +548,12 @@ def test_flash_tc_forward_at_the_zoo_head_layouts(cuda, model):
     assert err <= tol and lse_err <= 1e-4, (err, tol, lse_err)
 
 
-@pytest.mark.parametrize("shape", [(2, 256, 6, 2, 128), (2, 48, 4, 2, 64)])
+@pytest.mark.parametrize("shape", [(2, 256, 6, 2, 128), (2, 48, 4, 2, 64),
+                                   (2, 48, 4, 2, 192)])
 def test_flash_tc_forward_warpgroups(cuda, shape):
     """The tensor-core forward's block of two consumer warpgroups (128 q
     rows) meets the limits on whole blocks and where the second
-    warpgroup has no rows (S = 48, a ragged tile)."""
+    warpgroup has no rows (S = 48, a ragged tile; at dh 64 and 192)."""
     q, k, v = _qkv(cuda, shape, seed=2)
     o, lse = aops.flash_attention(q, k, v, True, return_lse=True)
     err, tol, lse_err = _fwd_errors(q, k, v, o, lse, True)

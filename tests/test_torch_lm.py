@@ -47,7 +47,7 @@ def setup_module():
 
 ARCHS = ("phi4_mini_3_8b", "mamba2_1_3b", "qwen3_moe_235b_a22b",
          "llama4_scout_17b_a16e", "jamba_1_5_large_398b", "starcoder2_3b",
-         "starcoder2_7b", "llava_next_34b")
+         "starcoder2_7b", "llava_next_34b", "nemotron_4_340b")
 JAX_IMPL = {"phi4_mini_3_8b": {"attn_impl": "flash_interpret"},
             "mamba2_1_3b": {"ssd_impl": "kernel_interpret"}}
 PORT_IMPLS = [("phi4_mini_3_8b", {"attn_impl": "flash"}),
@@ -196,10 +196,13 @@ def test_unported_architectures_and_layouts_raise():
         tcfgs.get_config("whisper_large_v3")
     with pytest.raises(NotImplementedError, match="A7"):
         tcfgs.get_smoke_config("whisper-large-v3")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tcfgs.get_config("nemotron_4_340b")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tcfgs.get_smoke_config("nemotron-4-340b")
+    # Nemotron-4 resolves now, under both spellings, to the reference's
+    for get, jget in ((tcfgs.get_config, jget_config),
+                      (tcfgs.get_smoke_config, jget_smoke)):
+        for name in ("nemotron_4_340b", "nemotron-4-340b"):
+            got, want = get(name), jget(name)
+            assert (got.name, got.head_dim, got.optimizer) \
+                == (want.name, want.head_dim, want.optimizer)
     cfg = tcfgs.get_smoke_config("phi4_mini_3_8b")
     with pytest.raises(NotImplementedError, match="A7"):
         tlm.init_caches(dataclasses.replace(cfg, kv_cache_quant=True), 1, 8)

@@ -56,6 +56,8 @@ FLASH_SHAPES = [
     (2, 256, 4, 2, 64, True),       # GQA 2:1
     (1, 384, 2, 1, 64, True),       # MQA, 3 kv blocks
     (1, 128, 4, 4, 64, False),      # bidirectional
+    (1, 128, 2, 1, 192, True),      # Nemotron-4's dh, MQA
+    (1, 128, 4, 2, 192, False),     # Nemotron-4's dh, GQA bidirectional
 ]
 
 
@@ -99,6 +101,8 @@ BWD_SHAPES = [
     (2, 256, 4, 2, 64, True),       # GQA (group-summed dk/dv)
     (1, 128, 4, 4, 64, False),      # bidirectional
     (1, 384, 2, 1, 64, True),       # MQA, 3 kv blocks
+    (1, 128, 2, 1, 192, True),      # Nemotron-4's dh, MQA
+    (1, 128, 4, 2, 192, False),     # Nemotron-4's dh, GQA bidirectional
 ]
 
 
@@ -208,17 +212,21 @@ def test_ssd_scan_matches_reference(with_h0):
 
 
 def test_flash_route_is_a_rule_of_dtype_and_dh():
-    """bf16 with dh a multiple of 16 up to 128 takes the tensor-core
-    kernels, dq's and dk/dv's both; fp32, and bf16 with any other dh, the
-    FMA kernels."""
+    """bf16 with dh a multiple of 16 up to 192 (Nemotron-4's head) takes
+    the tensor-core kernels, dq's and dk/dv's both; fp32, and bf16 with
+    any other dh, the FMA kernels."""
     route = tattn.tensor_core_route
-    assert all(route(torch.bfloat16, dh) for dh in (16, 64, 80, 128))
-    assert not any(route(torch.bfloat16, dh) for dh in (8, 72, 100, 144))
-    assert not any(route(torch.float32, dh) for dh in (64, 128))
+    assert all(route(torch.bfloat16, dh)
+               for dh in (16, 64, 80, 128, 144, 192))
+    assert not any(route(torch.bfloat16, dh)
+                   for dh in (8, 72, 100, 200, 208, 256))
+    assert not any(route(torch.float32, dh) for dh in (64, 128, 192))
     tc = (tattn.FLASH_BWD_DQ_TC, tattn.FLASH_BWD_DKV_TC)
     fma = (tattn.FLASH_BWD_DQ, tattn.FLASH_BWD_DKV)
     assert tattn.bwd_kernels(torch.bfloat16, 128) == tc
+    assert tattn.bwd_kernels(torch.bfloat16, 192) == tc
     assert tattn.bwd_kernels(torch.bfloat16, 72) == fma
+    assert tattn.bwd_kernels(torch.bfloat16, 208) == fma
     assert tattn.bwd_kernels(torch.float32, 128) == fma
     assert tattn.FLASH_BWD_DQ_TC.symbol == "flash_attention_bwd_dq_tc"
     assert tattn.FLASH_BWD_DQ_TC.library is tattn.FLASH_BWD_DKV_TC.library
