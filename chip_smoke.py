@@ -253,7 +253,30 @@ Phases, each printing one line (or a few):
    the card's, one profiled step, and one Adafactor step of the card's
    state against float64 on the embedding and the MLP's ``w_up``
    (``adafactor_step_check``); then both smoke launchers
-   (``launch.serve.run`` and ``launch.train.run`` with ``smoke=True``).
+   (``launch.serve.run`` and ``launch.train.run`` with ``smoke=True``);
+19. whisper — Whisper large-v3 whole (32 encoder + 32 decoder layers,
+   d_model 1,280, 20 heads of 64, vocab 51,866) in bf16 with random
+   seeded weights: first the flash forward, dq and dk/dv at its head
+   layout with no mask, B 4, as the encoder's self-attention (S = T =
+   1,536, its 1,500 frames rounded up to the reference's tile) and as
+   the decoder's cross-attention (S = 128 queries against T = 1,536
+   keys), each against its plain version beside SDPA, bit-identical on
+   a rerun, a mask-on control failing; (a) ``[whisper serve]``: B 4 x
+   1,500 random frames, large-v3's 4-token start-of-transcript prompt,
+   32 greedy tokens through ``make_prefill_step`` / ``make_decode_step``
+   (t_max 448): encode, prefill and decode-step times, the decode step's
+   bytes bound, peak memory; every layer against the fp32 twin on the
+   same input, the logits against it a row, the fp32 decode steps
+   against the teacher-forced ``decoder_forward``, with a causal-off and
+   a swapped-cross-cache control failing; (b) ``[whisper train]``: B 8 x
+   1,500 frames x 448 decoder tokens, AdamW, 4 steps of
+   ``make_train_step``: every layer's gradients and the whole model's
+   loss, ``grad_norm`` and gradient leaves against the fp32 twin (a
+   causal-off control failing), step time, frames and tokens a second,
+   peak memory, every leaf moved, one profiled step; (c) ``[whisper
+   flash]``: the smoke config through the flash kernels against the
+   plain path in fp32 and bf16 (encode, loss, every gradient; exact
+   launches; a causal cross-attention control failing).
 
 Kernel, plain and library times in the kernels line are device times per
 call (``torch.profiler``: the summed device time of every kernel and copy
@@ -268,7 +291,8 @@ gather's rows carry the reproducer's shapes, with their launches there,
 under ``"reproducer"``; the store and QuadConv rows' ``launches_by_path``
 add the faulted chaos runs and the spectral session; the flash row's
 ``"zoo"`` and the SSD row's ``"jamba"`` carry phase 17's shapes, the
-attention rows' ``"nemotron"`` phase 18's, and
+attention rows' ``"nemotron"`` phase 18's and ``"whisper"`` phase 19's
+cross-attention rows, and
 every attention and SSD row's ``launches_by_path`` its launches), the
 ``nvidia-smi`` line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -285,8 +309,10 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 from dataclasses import replace
 from pathlib import Path
+from unittest import mock
 
 import torch
 
@@ -367,6 +393,31 @@ ADAFACTOR_RTOL = 1e-5
 # 0.30 (an H100 80GB HBM3 at 700 W, PERF.md), inside it: the cut stack
 # is held at a quarter of it
 NEMOTRON_LM_LIMIT = 0.1
+# Whisper large-v3 whole (32 + 32 layers, d_model 1280, 20 heads of 64,
+# vocab 51,866; 1.53B parameters, 3.2 GB in bf16), random weights: serving
+# B 4 x the stub frontend's 1,500 frames, a 4-token prompt (large-v3's
+# start-of-transcript sequence), 32 greedy tokens, t_max 448 (the
+# decoder's context); training B 8 x 1,500 frames x 448 decoder tokens,
+# AdamW, 4 steps.  The bf16 model against its fp32 twin on the card: each
+# encoder and decoder layer's output, and the head's logits, on the same
+# input within LAYER_LIMIT; the whole run's logits (the prefill's and
+# every decode step's, each row relative Frobenius) within
+# WHISPER_LOGITS_LIMIT: after 64 bf16 layers the residual stream's
+# roundings alone move them past the 1e-2 of a layer (0.013 a row), while
+# a cross cache read from another row moves them by 0.11 (an H100 80GB
+# HBM3 at 700 W, PERF.md), so they are held between the two.  The fp32
+# decode steps against the teacher-forced forward within the reference's
+# own limit (tests/test_models.py:92-104, absolute on the logits).  The
+# flash kernels' cross-attention rows run at Whisper's head layout with
+# T = 1,536, 1,500 rounded up to the reference's 128-row tile (the
+# nearest length its kernel takes)
+WHISPER = "whisper_large_v3"
+WHISPER_BATCH, WHISPER_NEW, WHISPER_T_MAX = 4, 32, 448
+WHISPER_PROMPT = (50258, 50259, 50360, 50364)
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_STEPS = 8, 4
+WHISPER_LOGITS_LIMIT = 5e-2
+DECODE_VS_FORWARD_ATOL = 3e-3
+WHISPER_FLASH_T = 1536
 # the paper's reproducer (paper §3): its default deployment (24 ranks x
 # 256 KB, 2 warm-up + 40 timed iterations), Fig. 4's message sizes at 24
 # ranks, Fig. 7's ResNet-50 batches; ResNet-50's logits on the card
@@ -1703,21 +1754,39 @@ def checkpoint_full(dev, state, one_step, step_peak: int) -> dict:
             "host_mem_available_bytes": mem_avail}
 
 
+def attention_pairs(B: int, S: int, T: int, H: int, causal: bool) -> int:
+    """The (query, key) pairs attention computes: every one without a
+    mask, those with qpos >= kpos (the top-left mask) with it."""
+    if not causal:
+        return B * H * S * T
+    m = min(S, T)
+    return B * H * (m * (m + 1) // 2 + (S - m) * T)
+
+
+def attention_shape(B, S, T, H, K, dh, dtype, causal) -> str:
+    rows = f"S=T={S}" if S == T else f"S={S} T={T}"
+    return (f"B={B} {rows} H={H} K={K} dh={dh} "
+            f"{str(dtype).split('.')[-1]} causal={causal}")
+
+
 def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
                 causal: bool = True, iters: int = 10,
-                rerun: bool = False) -> dict:
+                rerun: bool = False, T: int | None = None) -> dict:
     """The flash-attention forward against its plain version (output and
     log-sum-exp) and against ``scaled_dot_product_attention``, timed; the
     kernel the route rule picks (bf16: the tensor-core one, fp32: the FMA
     one) must be the one launched, and, as a control that must FAIL the
-    same limits, the kernel without its causal mask; with ``rerun``, o
-    and the LSE bit-identical on a second run."""
+    same limits, the kernel with its causal mask flipped (off for a
+    causal run, on for a non-causal one); with ``rerun``, o and the LSE
+    bit-identical on a second run.  ``T`` (default ``S``) is the keys'
+    length: cross-attention takes S queries against T keys."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops, ref
+    T = S if T is None else T
     gen = torch.Generator(device=dev).manual_seed(SEED)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).mul(0.5)
-               .to(dtype) for shape in ((B, S, H, dh), (B, S, K, dh),
-                                        (B, S, K, dh)))
+               .to(dtype) for shape in ((B, S, H, dh), (B, T, K, dh),
+                                        (B, T, K, dh)))
     kern = ops.FLASH_TC if ops.tensor_core_route(dtype, dh) else ops.FLASH
     before = (ops.FLASH.launches, ops.FLASH_TC.launches)
     o, lse = ops.flash_attention(q, k, v, causal, return_lse=True)
@@ -1749,7 +1818,7 @@ def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
     err_c = float((o_c.float() - o_r.float()).abs().max())
     lse_err_c = float((lse_c - lse_r).abs().max())
     if err_c <= tol or lse_err_c <= lse_tol:
-        raise AssertionError(f"the flash mask-off control passed a limit at "
+        raise AssertionError(f"the flash mask-flip control passed a limit at "
                              f"{q.shape} {dtype}: o {err_c}, lse {lse_err_c}")
     del o_r, lse_r, o_c, lse_c
     kernel = timed(lambda: ops.flash_attention(q, k, v, causal), iters)
@@ -1757,8 +1826,7 @@ def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library = timed(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    flops = 4.0 * pairs * dh                     # q.k and p.v
+    flops = 4.0 * attention_pairs(B, S, T, H, causal) * dh   # q.k, p.v
     nbytes = (q.numel() * 2 + k.numel() * 2) * q.element_size() \
         + lse.numel() * 4
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
@@ -1767,15 +1835,14 @@ def check_flash(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
     return {"kernel": kern.symbol, "max_abs_err": err, "tol": tol,
             "lse_max_abs_err": lse_err, "lse_tol": lse_tol,
             "bit_identical_rerun": identical,
-            "control_mask_off_max_abs_err": err_c,
-            "control_mask_off_lse_max_abs_err": lse_err_c,
+            "control_mask_flip_max_abs_err": err_c,
+            "control_mask_flip_lse_max_abs_err": lse_err_c,
             **kernel,
             "plain_ms": plain["ms"],
             "plain_wall_ms": plain["wall_ms"], "library_ms": library["ms"],
             "library_wall_ms": library["wall_ms"], "bound_ms": b,
             "bound_by": by, "bound_ms_at_fp32_rate": b32,
-            "shape": f"B={B} S=T={S} H={H} K={K} dh={dh} "
-                     f"{str(dtype).split('.')[-1]} causal={causal}"}
+            "shape": attention_shape(B, S, T, H, K, dh, dtype, causal)}
 
 
 def check_ssd(dev, BC: int, Q: int, H: int, P: int, N: int) -> dict:
@@ -2264,40 +2331,49 @@ def serve_loop_phase(dev) -> dict:
 
 
 def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
-                    iters: int = 10) -> tuple[dict, dict]:
+                    iters: int = 10, T: int | None = None,
+                    causal: bool = True) -> tuple[dict, dict]:
     """The two flash-attention backward kernels against their plain
-    version on the forward kernel's own o and LSE (causal), timed beside
-    the backward of ``scaled_dot_product_attention``; dq and dk/dv on the
+    version on the forward kernel's own o and LSE (in fp32, the inputs'
+    values upcast and the outputs unrounded), timed beside the
+    backward of ``scaled_dot_product_attention``; dq and dk/dv on the
     kernels the route rule picks (bf16: tensor cores), each launched once;
     dq, dk and dv bit-identical on a second run; and, as a control that
     must FAIL each one's limit, the backward kernels with their causal
-    mask off.  Returns the dq row and the dk/dv row."""
+    mask flipped (off under a causal forward, on under a non-causal one).
+    ``T`` (default ``S``) is the keys' length.  Returns the dq row and the
+    dk/dv row."""
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops, ref
+    T = S if T is None else T
     gen = torch.Generator(device=dev).manual_seed(SEED)
     q, k, v, do = (torch.randn(shape, generator=gen, device=dev).mul(0.5)
-                   .to(dtype) for shape in ((B, S, H, dh), (B, S, K, dh),
-                                            (B, S, K, dh), (B, S, H, dh)))
-    o, lse = ops.flash_attention(q, k, v, True, return_lse=True)
+                   .to(dtype) for shape in ((B, S, H, dh), (B, T, K, dh),
+                                            (B, T, K, dh), (B, S, H, dh)))
+    o, lse = ops.flash_attention(q, k, v, causal, return_lse=True)
     tc = ops.tensor_core_route(dtype, dh)
     kernels = (ops.FLASH_BWD_DQ, ops.FLASH_BWD_DQ_TC, ops.FLASH_BWD_DKV,
                ops.FLASH_BWD_DKV_TC)
     before = [kern.launches for kern in kernels]
-    got = ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
     grown = [kern.launches - b for kern, b in zip(kernels, before)]
     if grown != [int(not tc), int(tc)] * 2:
         raise AssertionError(f"flash backward at {dtype} launched (dq FMA, "
                              f"dq tensor-core, dk/dv FMA, dk/dv tensor-core)"
                              f" {grown}")
     dq_kernel, dkv_kernel = ops.bwd_kernels(dtype, dh)
-    again = ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
     identical = [torch.equal(a, b) for a, b in zip(got, again)]
     if not all(identical):
         raise AssertionError(f"dq, dk, dv bit-identical between two runs "
                              f"at {dtype}: {identical}")
     del again
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
-    # fp32: sums in another order; bf16: one bf16 rounding of the output
+    # the plain version on the same values in fp32, its outputs unrounded:
+    # fp32, sums in another order; bf16, one bf16 rounding of the output
+    # (two bf16 roundings of sums taken in different orders can land a
+    # whole ulp apart, past one rounding of the largest entry)
+    want = ref.flash_attention_bwd_ref(
+        *(t.float() for t in (q, k, v, o, do)), lse, causal)
     rel = 2e-5 if dtype == torch.float32 else 2.0 ** -8
     errs = {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -2307,41 +2383,39 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
             raise AssertionError(f"flash backward kernel disagrees on {name}"
                                  f" at {q.shape} {dtype}: {err} > {tol}")
         errs[name] = (err, tol)
-    control = ops.flash_attention_bwd(q, k, v, o, do, lse, False)
+    control = ops.flash_attention_bwd(q, k, v, o, do, lse, not causal)
     control_errs = {}
     for name, g, w in zip(("dq", "dk", "dv"), control, want):
         control_errs[name] = float((g.float() - w.float()).abs().max())
         if control_errs[name] <= errs[name][1]:
-            raise AssertionError(f"the mask-off backward control passed "
+            raise AssertionError(f"the mask-flip backward control passed "
                                  f"{name}'s limit at {dtype}: "
                                  f"{control_errs[name]}")
     del got, want, control
 
     def both():
-        return ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+        return ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
 
     wall = time_ms(both, iters)
     dev_ms = device_ms(both, iters, {
         "dq": "flash_bwd_dq_tc_kernel" if tc else "flash_bwd_dq_kernel",
         "dkv": "flash_bwd_dkv_tc_kernel" if tc else "flash_bwd_dkv_kernel"})
     plain = timed(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
-                                                      True), 3)
+                                                      causal), 3)
     leaves = [t.transpose(1, 2).detach().requires_grad_(True)
               for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                          enable_gqa=True)
     ct = do.transpose(1, 2)
     library = timed(lambda: torch.autograd.grad(out, leaves, ct,
                                                 retain_graph=True), iters)
-    pairs = B * H * S * (S + 1) // 2
-    prod = 2.0 * pairs * dh                      # one causal product
+    prod = 2.0 * attention_pairs(B, S, T, H, causal) * dh  # one product
     e = q.element_size()
     rows = B * S * H * dh * e
-    kv = B * S * K * dh * e
+    kv = B * T * K * dh * e
     stats = 2 * B * S * H * 4                    # lse and D, fp32
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    shape = (f"B={B} S=T={S} H={H} K={K} dh={dh} "
-             f"{str(dtype).split('.')[-1]} causal=True")
+    shape = attention_shape(B, S, T, H, K, dh, dtype, causal)
     out_rows = []
     for name, nbytes, flops, errs_of, kern in (
             ("dq", 3 * rows + 2 * kv + stats, 3 * prod, ("dq",), dq_kernel),
@@ -2362,7 +2436,7 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
             "bound_by": by, "bound_ms_at_fp32_rate": b32, "shape": shape,
             "bit_identical_rerun": all(
                 identical[("dq", "dk", "dv").index(n)] for n in errs_of),
-            "control_mask_off_max_abs_err": {n: control_errs[n]
+            "control_mask_flip_max_abs_err": {n: control_errs[n]
                                              for n in errs_of},
             "notes": "wall_ms, plain_ms and library_ms are the whole "
                      "backward (dq, dk and dv; wall_ms with D = "
@@ -2808,6 +2882,648 @@ def nemotron_train_phase(dev) -> tuple[dict, dict, dict]:
     del state, step_fn
     torch.cuda.empty_cache()
     return dq, dkv, line
+
+
+def whisper_attention(causal_self=None, causal_cross=None):
+    """``models.whisper``'s attention with the decoder's self-attention
+    mask (``causal_self``) or the cross-attention's (``causal_cross``)
+    forced on or off, for the controls; ``None`` leaves it."""
+    from repro_torch.models import layers
+
+    def attention(params, cfg, x, positions, causal=True, kv=None,
+                  use_rope=True):
+        if kv is None and causal and causal_self is not None:
+            causal = causal_self
+        if kv is not None and causal_cross is not None:
+            causal = causal_cross
+        return layers.attention(params, cfg, x, positions, causal, kv,
+                                use_rope)
+    return attention
+
+
+def whisper_kernel_rows(dev) -> tuple[dict, dict, dict]:
+    """The flash forward, dq and dk/dv at Whisper's head layout (bf16,
+    H = K = 20, dh 64: the tensor-core route) with no mask, B 4: the
+    encoder's self-attention (S = T = ``WHISPER_FLASH_T``) and the
+    decoder's cross-attention (S = 128 queries, T = ``WHISPER_FLASH_T``
+    keys); each against its plain version, bit-identical on a rerun, the
+    mask-on control failing.  Returns (forward, dq, dk/dv) rows by
+    shape."""
+    from repro_torch.configs import get_config
+    wc = get_config(WHISPER)
+    H, K, dh, T = wc.n_heads, wc.n_kv_heads, wc.head_dim, WHISPER_FLASH_T
+    fwd, dq, dkv = {}, {}, {}
+    for name, S in (("encoder_like", T), ("cross_like", 128)):
+        torch.cuda.empty_cache()
+        fwd[name] = check_flash(dev, WHISPER_BATCH, S, H, K, dh,
+                                torch.bfloat16, causal=False, rerun=True,
+                                T=T)
+        dq[name], dkv[name] = check_flash_bwd(
+            dev, WHISPER_BATCH, S, H, K, dh, torch.bfloat16, T=T,
+            causal=False)
+    return fwd, dq, dkv
+
+
+def whisper_generate(params, cfg, frames, prompt, ids=None,
+                     swap_cross: bool = False):
+    """``WHISPER_NEW`` decode steps after the prefill through
+    ``make_prefill_step`` / ``make_decode_step``, greedy, or fed ``ids``
+    (teacher forcing); with ``swap_cross`` the cross caches' rows 0 and 1
+    are swapped after the prefill.  Returns (the ids fed [B, NEW], the
+    prefill's and every step's logits [B, NEW + 1, V] in fp32)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    prefill = make_prefill_step(cfg, WHISPER_T_MAX)
+    decode = make_decode_step(cfg)
+    with torch.no_grad():
+        logits, caches, pos = prefill(params, {"frames": frames,
+                                               "tokens": prompt})
+        if swap_cross:
+            for t in caches["cross"]:
+                t[:, [0, 1]] = t[:, [1, 0]]
+        out, fed = [logits.float()], []
+        token = logits.argmax(-1)[:, None] if ids is None else ids[:, :1]
+        for i in range(WHISPER_NEW):
+            fed.append(token)
+            logits, caches = decode(params, caches, token, pos + i)
+            out.append(logits.float())
+            token = (logits.argmax(-1)[:, None] if ids is None
+                     else ids[:, i + 1:i + 2])
+    return torch.cat(fed, dim=1), torch.stack(out, dim=1)
+
+
+def rows_rel_frobenius(a: torch.Tensor, b: torch.Tensor) -> list[float]:
+    """Relative Frobenius difference of each batch row."""
+    return [rel_frobenius(a[i], b[i]) for i in range(b.shape[0])]
+
+
+def whisper_layer_check(p16, p32, cfg16, cfg32, frames, tokens) -> dict:
+    """Each encoder and decoder layer of the bf16 model against its fp32
+    twin on the same input: the twin's hidden state (cast to bf16 for the
+    bf16 layer; the decoder layers also read the twin's encoder output,
+    cast): the relative Frobenius difference of the layer's output, and
+    of its contribution (output minus input); and the head (final norm,
+    tied embedding) on the twin's last hidden state, its logits at every
+    position (``"logits"``)."""
+    from repro_torch.models import layers, whisper
+    from repro_torch.models.lm import _periods
+    out = {"encoder": [], "decoder": [], "encoder_contribution": [],
+           "decoder_contribution": []}
+    bf16 = torch.bfloat16
+
+    def walk(kind, layer, x, positions, *rest16_32):
+        n = cfg32.encoder_layers if kind == "encoder" else cfg32.n_layers
+        for a, b in zip(_periods(p16[kind], n), _periods(p32[kind], n)):
+            x16 = x.to(bf16)
+            y16 = layer(a, cfg16, x16, positions,
+                        *[r.to(bf16) for r in rest16_32]).float()
+            y32 = layer(b, cfg32, x, positions, *rest16_32)
+            out[kind].append(rel_frobenius(y16, y32))
+            out[f"{kind}_contribution"].append(
+                rel_frobenius(y16 - x16.float(), y32 - x))
+            x = y32
+        return x
+
+    with torch.no_grad():
+        B, T = frames.shape[0], frames.shape[1]
+        x = frames.float() + p32["enc_pos"][:T]
+        x = walk("encoder", whisper._encoder_layer, x,
+                 whisper._positions(B, T, x.device))
+        enc = layers.apply_norm(p32["enc_final_norm"], x, cfg32.norm)
+        x = whisper._embed_tokens(p32, cfg32, tokens)
+        x = walk("decoder", whisper._decoder_layer, x,
+                 whisper._positions(B, tokens.shape[1], x.device), enc)
+        y16 = layers.apply_norm(p16["final_norm"], x.to(bf16), cfg16.norm) \
+            @ p16["embed"].T
+        y32 = layers.apply_norm(p32["final_norm"], x, cfg32.norm) \
+            @ p32["embed"].T
+        out["logits"] = rel_frobenius(y16.float(), y32)
+    return out
+
+
+def whisper_serve_phase(dev) -> dict:
+    """``[whisper serve]``: Whisper large-v3 whole, bf16, random weights:
+    greedy decoding of ``WHISPER_NEW`` tokens for B ``WHISPER_BATCH``
+    through ``make_prefill_step`` / ``make_decode_step`` (``t_max``
+    ``WHISPER_T_MAX``); encode, prefill and decode-step times, the decode
+    step's bytes bound, peak memory, where a prefill's and 4 decode steps'
+    device time goes; then the fp32 twin (the same weights in fp32, TF32
+    off): every layer and the head on the same input
+    (``whisper_layer_check``) within ``LAYER_LIMIT``, the logits of the prefill and every step (the twin
+    fed the bf16 run's ids) within ``WHISPER_LOGITS_LIMIT`` a row; the
+    twin's decode logits against its teacher-forced ``decoder_forward``
+    within ``DECODE_VS_FORWARD_ATOL``; and two controls that must FAIL:
+    the teacher-forced forward with the decoder's causal mask off, and the
+    bf16 decoding with the cross caches of rows 0 and 1 swapped."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, model_specs)
+    from repro_torch.models import whisper
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config(WHISPER)
+    cfg32 = replace(cfg, dtype=torch.float32)
+    B = WHISPER_BATCH
+    params = init_params(model_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(SEED),
+                         cfg.dtype, dev)
+    frames = torch.randn((B, cfg.encoder_ctx, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED + 1)).to(cfg.dtype)
+    prompt = torch.tensor([WHISPER_PROMPT] * B, device=dev)
+    batch = {"frames": frames, "tokens": prompt}
+    prefill = make_prefill_step(cfg, WHISPER_T_MAX)
+    decode = make_decode_step(cfg)
+    with torch.no_grad():
+        prefill(params, batch)                       # cuBLAS warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ids, logits16 = whisper_generate(params, cfg, frames, prompt)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if ids.shape != (B, WHISPER_NEW) or int(ids.min()) < 0 \
+            or int(ids.max()) >= cfg.vocab \
+            or not bool(torch.isfinite(logits16).all()):
+        raise AssertionError(f"whisper: generated ids {ids.shape}")
+    with torch.no_grad():
+        encode_ms = time_ms(lambda: whisper.encode(params, cfg, frames), 3,
+                            warmup=1)
+        prefill_ms = time_ms(lambda: prefill(params, batch), 3, warmup=1)
+        _, caches, pos = prefill(params, batch)
+        token = ids[:, :1]
+        decode_ms = time_ms(lambda: decode(params, caches, token, pos), 8)
+        prefill_profile = profile(lambda: prefill(params, batch), top=8)
+        decode_profile = profile(lambda: [decode(params, caches, token, pos)
+                                          for _ in range(4)], top=6)
+        cross_bytes = sum(t.numel() * t.element_size()
+                          for t in caches["cross"])
+        del caches
+    # a decode step reads the decoder's weights (not the cross wk / wv:
+    # their K/V are cached), the tied embedding, the cross caches and the
+    # self caches up to its position
+    dec = params["decoder"]
+    read = sum(t.numel() for t in tree_leaves(dec)) \
+        - dec["cross_attn"]["wk"].numel() - dec["cross_attn"]["wv"].numel() \
+        + params["embed"].numel() + cfg.d_model * 3
+    self_bytes = 2 * cfg.n_layers * B * (pos + 1) * cfg.d_model * 2
+    decode_bytes = read * 2 + cross_bytes + self_bytes
+    leaf_sum = sum(t.numel() for t in tree_leaves(params))
+
+    # the fp32 twin
+    p32 = tree_map(lambda a: a.float(), params)
+    frames32 = frames.float()
+    tf_tokens = torch.cat([prompt, ids], dim=1)
+    layer_errs = whisper_layer_check(params, p32, cfg, cfg32, frames,
+                                     tf_tokens)
+    ids32, logits32 = whisper_generate(p32, cfg32, frames32, prompt, ids)
+    logits_errs = rows_rel_frobenius(logits16, logits32)
+    _, swapped = whisper_generate(params, cfg, frames, prompt, ids,
+                                  swap_cross=True)
+    swap_errs = rows_rel_frobenius(swapped, logits32)
+    with torch.no_grad():
+        enc32 = whisper.encode(p32, cfg32, frames32)
+        S0 = prompt.shape[1]
+        tf = whisper.decoder_forward(p32, cfg32, tf_tokens, enc32)[
+            :, S0 - 1:] @ p32["embed"].T
+        tf_err = float((tf - logits32).abs().max())
+        with mock.patch.object(whisper, "attention",
+                               whisper_attention(causal_self=False)):
+            tf_c = whisper.decoder_forward(p32, cfg32, tf_tokens, enc32)[
+                :, S0 - 1:] @ p32["embed"].T
+        tf_err_c = float((tf_c - logits32).abs().max())
+    del p32, enc32, tf, tf_c
+    worst_layer = max(layer_errs["encoder"] + layer_errs["decoder"]
+                      + [layer_errs["logits"]])
+    if not (torch.equal(ids32, ids) and worst_layer <= LAYER_LIMIT
+            and max(logits_errs) <= WHISPER_LOGITS_LIMIT
+            and tf_err <= DECODE_VS_FORWARD_ATOL):
+        raise AssertionError(
+            f"whisper serving: worst layer {worst_layer} (limit "
+            f"{LAYER_LIMIT}), logits {logits_errs} (limit "
+            f"{WHISPER_LOGITS_LIMIT}), decode vs forward {tf_err} (limit "
+            f"{DECODE_VS_FORWARD_ATOL})")
+    if tf_err_c <= DECODE_VS_FORWARD_ATOL \
+            or max(swap_errs) <= WHISPER_LOGITS_LIMIT:
+        raise AssertionError(f"whisper serving: a control passed: causal "
+                             f"mask off {tf_err_c}, cross caches swapped "
+                             f"{swap_errs}")
+    out = {"arch": WHISPER, "impl": {"attn_impl": cfg.attn_impl},
+           "dtype": "bfloat16", "B": B, "frames": cfg.encoder_ctx,
+           "prompt": list(WHISPER_PROMPT), "new_tokens": WHISPER_NEW,
+           "t_max": WHISPER_T_MAX,
+           "encoder_layers": cfg.encoder_layers, "n_layers": cfg.n_layers,
+           "params": cfg.param_count(), "leaf_sum": leaf_sum,
+           "weights_gb": leaf_sum * 2 / 1e9,
+           "encode_ms": encode_ms, "prefill_ms": prefill_ms,
+           "decode_step_ms": decode_ms, "generate_s": gen_s,
+           "decode_tokens_per_s": B * WHISPER_NEW
+           / (gen_s - prefill_ms / 1e3),
+           "decode_bytes": decode_bytes, "cross_cache_bytes": cross_bytes,
+           "decode_bound_ms": bound(decode_bytes)[0],
+           "peak_mem_gb": peak,
+           "layer_rel_frobenius_max": worst_layer,
+           "layer_limit": LAYER_LIMIT,
+           "encoder_layer_max": max(layer_errs["encoder"]),
+           "decoder_layer_max": max(layer_errs["decoder"]),
+           "logits_same_input_rel_frobenius": layer_errs["logits"],
+           "encoder_contribution_max": max(
+               layer_errs["encoder_contribution"]),
+           "decoder_contribution_max": max(
+               layer_errs["decoder_contribution"]),
+           "logits_rel_frobenius_by_row": logits_errs,
+           "logits_limit": WHISPER_LOGITS_LIMIT,
+           "decode_vs_forward_max_abs": tf_err,
+           "decode_vs_forward_atol": DECODE_VS_FORWARD_ATOL,
+           "control_causal_off_decode_vs_forward": tf_err_c,
+           "control_cross_swapped_logits_by_row": swap_errs,
+           "reduced": {"B_x_decoder_positions": [
+               "32 x 32,768 (prefill) / 128 x 32,768 (decode)",
+               f"{B} x {WHISPER_T_MAX}"], "width": "none", "depth": "none"},
+           "prefill_profile": prefill_profile,
+           "decode_4_steps_profile": decode_profile}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_layer_grads(p16, p32, cfg16, cfg32, frames, tokens,
+                        control: bool = False) -> dict:
+    """On every encoder and decoder layer, the gradients of the layer's
+    output (against one random cotangent) with respect to its input, its
+    encoder input (decoder layers) and every parameter leaf, the bf16
+    layer against its fp32 twin on the same input (the twin's hidden
+    state), as relative Frobenius differences, the worst a layer; with
+    ``control``, the bf16 decoder layers' self-attention without its
+    causal mask."""
+    from repro_torch.models import layers, whisper
+    from repro_torch.models.lm import _periods
+    from repro_torch.tree import tree_leaves, tree_map
+    gen = torch.Generator(device=frames.device).manual_seed(SEED + 2)
+    out = {"encoder": [], "decoder": []}
+    by_name: dict = {}
+
+    def grads(layer, p, cfg, x, positions, rest, ct):
+        tracked = tree_map(lambda a: a.detach().requires_grad_(True), p)
+        inputs = [x.detach().requires_grad_(True),
+                  *[r.detach().requires_grad_(True) for r in rest]]
+        with torch.enable_grad():
+            y = layer(tracked, cfg, inputs[0], positions, *inputs[1:])
+            return torch.autograd.grad(y, inputs + tree_leaves(tracked),
+                                       ct.to(y.dtype))
+
+    def walk(kind, layer, x, positions, *rest):
+        n = cfg32.encoder_layers if kind == "encoder" else cfg32.n_layers
+        names = ["x", *(["enc_out"] if rest else [])] + [
+            "/".join(path) for path in leaf_paths(p32[kind])]
+        for a, b in zip(_periods(p16[kind], n), _periods(p32[kind], n)):
+            ct = torch.randn(x.shape, generator=gen, device=x.device)
+            ctx = (mock.patch.object(whisper, "attention",
+                                     whisper_attention(causal_self=False))
+                   if control and kind == "decoder" else nullcontext())
+            with ctx:
+                g16 = grads(layer, a, cfg16, x.to(torch.bfloat16),
+                            positions, [r.to(torch.bfloat16) for r in rest],
+                            ct)
+            g32 = grads(layer, b, cfg32, x, positions, rest, ct)
+            errs = [rel_frobenius(u, w) for u, w in zip(g16, g32)]
+            out[kind].append(max(errs))
+            for name, e in zip(names, errs):
+                key = f"{kind}/{name}"
+                by_name[key] = max(by_name.get(key, 0.0), e)
+            with torch.no_grad():
+                x = layer(b, cfg32, x, positions, *rest)
+        return x
+
+    with torch.no_grad():
+        B, T = frames.shape[0], frames.shape[1]
+        x = frames.float() + p32["enc_pos"][:T]
+    x = walk("encoder", whisper._encoder_layer, x,
+             whisper._positions(B, T, x.device))
+    with torch.no_grad():
+        enc = layers.apply_norm(p32["enc_final_norm"], x, cfg32.norm)
+        x = whisper._embed_tokens(p32, cfg32, tokens)
+    walk("decoder", whisper._decoder_layer, x,
+         whisper._positions(B, tokens.shape[1], x.device), enc)
+    return {**out, "by_name": by_name}
+
+
+def leaf_paths(tree, path=()) -> list:
+    """The key paths of a nested dict's leaves, in ``tree_leaves``'
+    order."""
+    if isinstance(tree, dict):
+        return [q for k in tree for q in leaf_paths(tree[k], path + (k,))]
+    return [path]
+
+
+def whisper_train_phase(dev) -> dict:
+    """``[whisper train]``: Whisper large-v3 whole, bf16, B
+    ``WHISPER_TRAIN_BATCH`` x 1,500 frames x ``WHISPER_T_MAX`` decoder
+    tokens, AdamW from ``init_train_state`` with ``make_tx(cfg,
+    total_steps=WHISPER_TRAIN_STEPS)`` (the launcher's entry points):
+    first the fp32 twin on one batch — every layer's gradients on the
+    same input and cotangent within ``LAYER_GRAD_LIMIT``
+    (``whisper_layer_grads``), the whole model's loss within
+    ``LOSS_LIMIT``, ``grad_norm`` within ``GRAD_NORM_LIMIT`` and every
+    gradient leaf within ``GRAD_NORM_LIMIT`` (relative), a
+    causal-mask-off control failing them; then ``WHISPER_TRAIN_STEPS``
+    steps of ``make_train_step``: step time, frames and decoder tokens a
+    second, peak memory beside params, gradients and moments, finite
+    losses, every leaf's moments moved and every parameter leaf changed
+    unless bf16 cannot hold a change that small (``frozen_by_bf16``); one
+    profiled step and where its time goes."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import layers, lm, whisper
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_state import init_train_state, make_tx
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+    cfg = get_config(WHISPER)
+    cfg32 = replace(cfg, dtype=torch.float32)
+    B, S = WHISPER_TRAIN_BATCH, WHISPER_T_MAX
+    state = init_train_state(
+        torch.Generator(device=dev).manual_seed(SEED), cfg,
+        steps.model_specs(cfg), make_tx(cfg, total_steps=WHISPER_TRAIN_STEPS),
+        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    batches = []
+    for _ in range(WHISPER_TRAIN_STEPS + 1):
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device=dev)
+        batches.append({"frames": torch.randn(
+            (B, cfg.encoder_ctx, cfg.d_model), generator=gen,
+            device=dev).to(cfg.dtype), "tokens": tokens, "labels": tokens})
+
+    # (1) the fp32 twin on the first batch, before any step
+    p16 = state.params
+    p32 = tree_map(lambda a: a.float(), p16)
+    first = batches[0]
+    layer = whisper_layer_grads(p16, p32, cfg, cfg32, first["frames"],
+                                first["tokens"])
+    layer_c = whisper_layer_grads(p16, p32, cfg, cfg32, first["frames"],
+                                  first["tokens"], control=True)
+    worst = max(layer["encoder"] + layer["decoder"])
+    control_min = min(layer_c["decoder"])
+    whole = {}
+    for name, p, c in (("bf16", p16, cfg), ("fp32", p32, cfg32),
+                       ("bf16 causal off", p16, cfg)):
+        b = dict(first, frames=first["frames"].to(c.dtype))
+        ctx = (mock.patch.object(whisper, "attention",
+                                 whisper_attention(causal_self=False))
+               if "off" in name else nullcontext())
+        with ctx:
+            (loss, _), g = value_and_grad(
+                lambda q: steps._loss_fn(c)(q, b), p, has_aux=True)
+        whole[name] = (float(loss), float(opt.global_norm(g)),
+                       tree_leaves(g))
+        del g
+    (l16, n16, g16), (l32, n32, g32), (lc, nc, gc) = (
+        whole["bf16"], whole["fp32"], whole["bf16 causal off"])
+    leaf_errs = [rel_frobenius(a, b) for a, b in zip(g16, g32)]
+    leaf_errs_c = [rel_frobenius(a, b) for a, b in zip(gc, g32)]
+    del whole, g16, g32, gc, p32
+    torch.cuda.empty_cache()
+    ok_whole = (math.isfinite(l16) and abs(l16 - l32) <= LOSS_LIMIT * abs(l32)
+                and abs(n16 - n32) <= GRAD_NORM_LIMIT * abs(n32)
+                and max(leaf_errs) <= GRAD_NORM_LIMIT)
+    if not (worst <= LAYER_GRAD_LIMIT and ok_whole):
+        raise AssertionError(
+            f"whisper training vs fp32: worst layer gradient {worst} "
+            f"(limit {LAYER_GRAD_LIMIT}); loss {l16} vs {l32}, grad_norm "
+            f"{n16} vs {n32}, worst leaf {max(leaf_errs)}")
+    control_whole_fails = not (
+        abs(lc - l32) <= LOSS_LIMIT * abs(l32)
+        and abs(nc - n32) <= GRAD_NORM_LIMIT * abs(n32)
+        and max(leaf_errs_c) <= GRAD_NORM_LIMIT)
+    if control_min <= LAYER_GRAD_LIMIT or not control_whole_fails:
+        raise AssertionError(
+            f"whisper training: the causal-mask-off control passed: decoder "
+            f"layers' gradients {control_min}, loss {lc} vs {l32}, leaves "
+            f"{max(leaf_errs_c)}")
+
+    # (2) the steps
+    before = [t.clone() for t in tree_leaves(state.params)]
+    step_fn = steps.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_s = [], [], []
+    for b in batches[:WHISPER_TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        norms.append(float(metrics["grad_norm"]))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(map(math.isfinite, losses + norms)) \
+            or int(state.step) != WHISPER_TRAIN_STEPS:
+        raise AssertionError(f"whisper: losses {losses}, norms {norms}")
+    # the step builds make_tx(cfg): a 2,000-step warmup to 3e-4, so lr_t =
+    # 1.5e-7 (t + 1); AdamW moves an element by at most lr_t (|m/sqrt(v)|
+    # + wd |p|), under 4 lr_t in these first steps
+    lr_sum = sum(3e-4 * (t + 1) / 2000 for t in range(WHISPER_TRAIN_STEPS))
+    names = ["/".join(p) for p in leaf_paths(state.params)]
+    inner = state.opt_state[1]
+    still, frozen = [], []
+    for name, old, new, mu, nu in zip(names, before,
+                                      tree_leaves(state.params),
+                                      tree_leaves(inner.mu),
+                                      tree_leaves(inner.nu)):
+        if not (bool(mu.abs().max() > 0) and bool(nu.abs().max() > 0)):
+            raise AssertionError(f"whisper: {name}'s moments did not move")
+        if torch.equal(old, new):
+            # half the bf16 spacing at the leaf's smallest magnitude
+            half_ulp = 2.0 ** (math.floor(math.log2(float(
+                old.float().abs().min()) or 2.0 ** -133)) - 8)
+            most = 4 * lr_sum * (1 + 0.1 * float(old.float().abs().max()))
+            (frozen if half_ulp > most else still).append(name)
+    if still:
+        raise AssertionError(f"whisper: leaves unchanged after "
+                             f"{WHISPER_TRAIN_STEPS} steps: {still}")
+    del before
+    out = []
+    step_profile = profile(lambda: out.append(step_fn(state, batches[-1])),
+                           top=12)
+    state = out.pop()[0]
+    # where a step's time goes: one encoder layer's attention (scores,
+    # softmax, P V; run twice a step by remat, then its backward) and the
+    # fp32 CE over the vocabulary, forward and backward, by CUDA events
+    H, dh = cfg.n_heads, cfg.head_dim
+    qkv = [torch.randn((B, cfg.encoder_ctx, H, dh), device=dev,
+                       dtype=cfg.dtype, requires_grad=True)
+           for _ in range(3)]
+
+    def enc_attention():
+        o = layers._full_attention(*qkv, causal=False)
+        torch.autograd.grad(o, qkv, torch.ones_like(o))
+
+    hidden = torch.randn((B, S - 1, cfg.d_model), device=dev,
+                         dtype=cfg.dtype, requires_grad=True)
+    w = state.params["embed"].detach().T.requires_grad_(True)
+    labels = batches[0]["tokens"][:, 1:]
+    mask = torch.ones(labels.shape, device=dev)
+
+    def ce():
+        nll, _ = lm._ce_full(hidden, w, labels, mask)
+        torch.autograd.grad(nll, [hidden, w])
+
+    attn_fwd_ms = time_ms(lambda: layers._full_attention(*qkv, False), 3)
+    attn_ms = time_ms(enc_attention, 3)
+    ce_ms = time_ms(ce, 3)
+    del qkv, hidden, w
+    steady = step_s[1:]
+    step_mean = sum(steady) / len(steady)
+    # a step runs each encoder layer's attention forward twice (remat)
+    enc_attn_step_ms = cfg.encoder_layers * (attn_ms + attn_fwd_ms)
+    weights = sum(t.numel() for t in tree_leaves(state.params))
+    line = {"arch": WHISPER, "impl": {"attn_impl": cfg.attn_impl},
+            "dtype": "bfloat16", "B": B, "frames": cfg.encoder_ctx,
+            "decoder_tokens": S, "steps": WHISPER_TRAIN_STEPS,
+            "optimizer": cfg.optimizer, "remat": cfg.remat,
+            "layer_grad_rel_frobenius_max": worst,
+            "layer_grad_encoder_max": max(layer["encoder"]),
+            "layer_grad_decoder_max": max(layer["decoder"]),
+            "layer_grad_worst_by_name": dict(sorted(
+                layer["by_name"].items(), key=lambda kv: -kv[1])[:6]),
+            "layer_grad_limit": LAYER_GRAD_LIMIT,
+            "control_causal_off_decoder_layer_min": control_min,
+            "whole_loss_bf16": l16, "whole_loss_fp32": l32,
+            "whole_loss_rel": abs(l16 - l32) / abs(l32),
+            "loss_limit": LOSS_LIMIT, "whole_grad_norm_bf16": n16,
+            "whole_grad_norm_fp32": n32,
+            "whole_grad_norm_rel": abs(n16 - n32) / abs(n32),
+            "grad_norm_limit": GRAD_NORM_LIMIT,
+            "whole_leaf_rel_frobenius_max": max(leaf_errs),
+            "whole_leaf_worst": names[leaf_errs.index(max(leaf_errs))],
+            "whole_leaf_limit": GRAD_NORM_LIMIT,
+            "control_causal_off_loss": lc,
+            "control_causal_off_leaf_max": max(leaf_errs_c),
+            "losses": losses, "grad_norms": norms, "step_s": step_s,
+            "steady_step_s_mean": step_mean,
+            "frames_per_s": B * cfg.encoder_ctx / step_mean,
+            "decoder_tokens_per_s": B * S / step_mean,
+            "peak_mem_gb": peak, "params": cfg.param_count(),
+            "leaf_sum": weights,
+            "params_gb": weights * 2 / 1e9, "grads_gb": weights * 2 / 1e9,
+            "adamw_moments_gb": weights * 8 / 1e9,
+            "leaves_frozen_by_bf16": frozen,
+            "encoder_attention_ms_per_step": enc_attn_step_ms,
+            "encoder_attention_share": enc_attn_step_ms / 1e3 / step_mean,
+            "ce_fp32_ms_per_step": ce_ms,
+            "ce_fp32_share": ce_ms / 1e3 / step_mean,
+            "reduced": {"B_x_decoder_tokens": ["256 x 4,096 (train_4k)",
+                                               f"{B} x {S}"],
+                        "width": "none", "depth": "none"},
+            "step_profile": step_profile}
+    del state, step_fn, batches
+    torch.cuda.empty_cache()
+    return line
+
+
+def whisper_flash_phase(dev) -> dict:
+    """``[whisper flash]``: Whisper's smoke config on the card through the
+    flash kernels (``attn_impl="flash"``) against the plain path
+    (``"xla"``), in fp32 (the FMA kernels) and bf16 (the tensor-core
+    ones, dh 16): ``encode``, ``whisper_loss`` and every gradient; the
+    encoder's self-attention (S = T = 64, no mask), the decoder's (S = 32,
+    causal) and its cross-attention (S = 32 queries, T = 64 keys, no
+    mask).  One forward launches the forward kernel L + 2L times and the
+    backward as many dq and dk/dv, the other route's never (counts zeroed
+    before, read after); fp32 within 1e-4 of each leaf's max, bf16 within
+    phase 13's limits; as a control that must FAIL them, the
+    cross-attention with its causal mask on."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.launch import steps
+    from repro_torch.models import whisper
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+    base = get_smoke_config(WHISPER)
+    cpu = init_params(steps.model_specs(base),
+                      torch.Generator().manual_seed(SEED), torch.float32,
+                      "cpu")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    frames = torch.randn((2, base.encoder_ctx, base.d_model), generator=gen)
+    tokens = torch.randint(0, base.vocab, (2, 32), generator=gen)
+    kernels = (aops.FLASH, aops.FLASH_TC, aops.FLASH_BWD_DQ,
+               aops.FLASH_BWD_DQ_TC, aops.FLASH_BWD_DKV,
+               aops.FLASH_BWD_DKV_TC)
+    L = base.encoder_layers + 2 * base.n_layers
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        params = tree_map(lambda a: a.to(dev, dt), cpu)
+        batch = {"frames": frames.to(dev, dt), "tokens": tokens.to(dev),
+                 "labels": tokens.to(dev)}
+        cfg_k = replace(base, dtype=dt, attn_impl="flash")
+        cfg_p = replace(base, dtype=dt, attn_impl="xla")
+        tc = aops.tensor_core_route(dt, base.head_dim)
+
+        def run(cfg):
+            with torch.no_grad():
+                enc = whisper.encode(params, cfg, batch["frames"])
+            (loss, _), g = value_and_grad(
+                lambda p: steps._loss_fn(cfg)(p, batch), params,
+                has_aux=True)
+            torch.cuda.synchronize()
+            return enc, float(loss), tree_leaves(g)
+
+        for kern in kernels:
+            kern.launches = 0
+        enc_k, loss_k, g_k = run(cfg_k)
+        launches = {kern.symbol: kern.launches for kern in kernels}
+        # encode: the encoder's layers; value_and_grad: every attention
+        want = dict.fromkeys(launches, 0)
+        fwd, (dq, dkv) = (aops.FLASH_TC if tc else aops.FLASH), \
+            aops.bwd_kernels(dt, base.head_dim)
+        want.update({fwd.symbol: base.encoder_layers + L,
+                     dq.symbol: L, dkv.symbol: L})
+        if launches != want:
+            raise AssertionError(f"whisper flash {dt}: launches {launches}, "
+                                 f"expected {want}")
+        enc_p, loss_p, g_p = run(cfg_p)
+        with mock.patch.object(whisper, "attention",
+                               whisper_attention(causal_cross=True)):
+            _, loss_c, g_c = run(cfg_k)
+
+        def errors(enc, loss, g):
+            if dt == torch.float32:     # max |diff| over max |leaf|
+                errs = [float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip([enc, *g], [enc_p, *g_p])]
+                return errs[0], abs(loss - loss_p) / abs(loss_p), errs[1:]
+            return (rel_frobenius(enc, enc_p), abs(loss - loss_p)
+                    / abs(loss_p), [rel_frobenius(a, b)
+                                    for a, b in zip(g, g_p)])
+
+        def within(e_enc, e_loss, e_g):
+            if dt == torch.float32:
+                return max(e_enc, e_loss, *e_g) <= 1e-4
+            return (e_enc <= LAYER_LIMIT and e_loss <= LOSS_LIMIT
+                    and max(e_g) <= LAYER_GRAD_LIMIT)
+
+        e = errors(enc_k, loss_k, g_k)
+        e_c = errors(enc_k, loss_c, g_c)
+        if not within(*e) or within(*e_c):
+            raise AssertionError(f"whisper flash {dt}: encode {e[0]}, loss "
+                                 f"{e[1]}, worst gradient {max(e[2])}; the "
+                                 f"causal cross-attention control: loss "
+                                 f"{e_c[1]}, worst {max(e_c[2])}")
+        out[str(dt).split(".")[-1]] = {
+            "kernels": [fwd.symbol, dq.symbol, dkv.symbol],
+            "launches": launches, "encode_err": e[0], "loss_err": e[1],
+            "grad_err_max": max(e[2]),
+            "limits": ("1e-4 of each leaf's max" if dt == torch.float32
+                       else {"encode": LAYER_LIMIT, "loss": LOSS_LIMIT,
+                             "grads": LAYER_GRAD_LIMIT}),
+            "control_causal_cross_loss_err": e_c[1],
+            "control_causal_cross_grad_err_max": max(e_c[2])}
+        del params, g_k, g_p, g_c
+    return {"config": base.name, "B": 2, "frames": base.encoder_ctx,
+            "decoder_tokens": 32,
+            "attention": {"encoder": "S=T=64 no mask",
+                          "decoder_self": "S=T=32 causal",
+                          "cross": "S=32 T=64 no mask"}, **out}
 
 
 def sharded_phase(dev, cfg, fcfg, fused: dict) -> tuple[dict, dict]:
@@ -4767,6 +5483,17 @@ def launch_floor(lib) -> dict:
             "source": "tools/launch_floor.cu", "launches": kernel.launches}
 
 
+def _whisper_launches(flash_line: dict, tc_symbol: str,
+                      fma_symbol: str) -> dict:
+    """A kernel's launches in ``[whisper flash]``'s runs (one encode and
+    one value_and_grad of the smoke model): the tensor-core kernel's in
+    bf16, the FMA one's in fp32."""
+    return {"whisper flash smoke bf16 (encode + one value_and_grad)":
+            flash_line["bfloat16"]["launches"][tc_symbol],
+            "whisper flash smoke fp32 (encode + one value_and_grad)":
+            flash_line["float32"]["launches"][fma_symbol]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5292,6 +6019,26 @@ def main() -> int:
     nemo_train["seconds"] = time.perf_counter() - t0
     print(f"[lm train nemotron] {smi} {json.dumps(nemo_train)}", flush=True)
 
+    # 19. Whisper large-v3 whole: the flash kernels' cross-attention rows,
+    # serving, training, the flash route through the model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    w_fwd, w_dq, w_dkv = whisper_kernel_rows(dev)
+    for rows_by_shape in (w_fwd, w_dq, w_dkv):
+        for row in rows_by_shape.values():
+            print(f"[kernels] {json.dumps(row)}", flush=True)
+    print(f"[whisper kernels] {smi} seconds "
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    for tag, phase in (("whisper serve", whisper_serve_phase),
+                       ("whisper train", whisper_train_phase),
+                       ("whisper flash", whisper_flash_phase)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        line = phase(dev)
+        line["seconds"] = time.perf_counter() - t0
+        print(f"[{tag}] {smi} {json.dumps(line)}", flush=True)
+    w_flash = line                   # [whisper flash]'s, the loop's last
+
     serving_launches = launches
     rows = []
     for row, path in ((probe, "serving"), (sample, "training"),
@@ -5378,6 +6125,13 @@ def main() -> int:
                     "bit_identical_rerun", *timing_keys, "bound_by")}
                 for name, r in flash_nemo.items()}
             row["nemotron"]["prefill"]["launches"] = nemo["launches"]
+            row["whisper"] = {name: {k: r[k] for k in (
+                "kernel", "shape", "max_abs_err", "tol",
+                "bit_identical_rerun", *timing_keys, "bound_by",
+                "control_mask_flip_max_abs_err")}
+                for name, r in w_fwd.items()}
+            row["launches_by_path"].update(_whisper_launches(
+                w_flash, aops.FLASH_TC.symbol, aops.FLASH.symbol))
         else:
             row["launches_by_path"] = {
                 "lm mamba2 prefill": lm_run["launches"],
@@ -5386,10 +6140,10 @@ def main() -> int:
             row["jamba"] = {k: ssd_jamba[k] for k in (
                 "shape", "max_abs_err", *timing_keys, "bound_by")}
         rows.append(row)
-    for row, nemo_row, name, src, tpu, symbol in (
-            (bwd_dq, nemo_dq, "flash_attention_bwd_dq",
+    for row, nemo_row, w_rows, name, src, tpu, symbol in (
+            (bwd_dq, nemo_dq, w_dq, "flash_attention_bwd_dq",
              "attention_bwd_tc.cu", "bwd.py:47", "flash_attention_bwd_dq_tc"),
-            (bwd_dkv, nemo_dkv, "flash_attention_bwd_dkv",
+            (bwd_dkv, nemo_dkv, w_dkv, "flash_attention_bwd_dkv",
              "attention_bwd_tc.cu", "bwd.py:74",
              "flash_attention_bwd_dkv_tc")):
         row = dict(row, name=name, route="cuda",
@@ -5403,10 +6157,15 @@ def main() -> int:
                 "kernel", "shape", "max_abs_err", "bit_identical_rerun",
                 *timing_keys, "bound_by", "fp32")},
             launches=nemo_train["launches"][symbol])
+        row["whisper"] = {shape: {k: r[k] for k in (
+            "kernel", "shape", "max_abs_err", "bit_identical_rerun",
+            *timing_keys, "bound_by", "control_mask_flip_max_abs_err")}
+            for shape, r in w_rows.items()}
         row["launches_by_path"] = {
             "lm phi4 train (4 steps)": row["launches"],
             f"lm train nemotron ({NEMOTRON_TRAIN_STEPS} steps)":
-                nemo_train["launches"][symbol]}
+                nemo_train["launches"][symbol],
+            **_whisper_launches(w_flash, symbol, symbol.removesuffix("_tc"))}
         if row["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
         rows.append(row)

@@ -1,5 +1,5 @@
-"""Architecture configs — port of ``src/repro/configs`` (the decoder-only
-configs of the zoo; Whisper and Nemotron-4 are ``ROADMAP.md`` A7)."""
+"""Architecture configs — port of ``src/repro/configs``: the zoo's ten
+ids, the decoder-only families and the encoder-decoder Whisper."""
 
 from .registry import ARCH_IDS, get_config, get_smoke_config
 

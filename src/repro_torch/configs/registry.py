@@ -1,18 +1,18 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``.
 
-Port of ``src/repro/configs/registry.py``.  Each ported
+Port of ``src/repro/configs/registry.py``.  Each
 ``repro_torch/configs/<id>.py`` exports ``config()`` (the assigned
 configuration) and ``smoke_config()`` (a reduced same-family config for
 the CPU tests).  As in the reference, any id resolves to the module
 ``repro_torch.configs.<id>``, a module a caller registered under that
-name in ``sys.modules`` included.  The port carries the decoder-only
-configs: dense (Phi-4-mini, StarCoder2-3B and -7B, Nemotron-4 with its
-head dim of 192 and its Adafactor), MoE (Qwen3-MoE, Llama-4 Scout), SSM
-(Mamba-2), the Jamba hybrid and the LLaVA backbone with its patch
-prefix.  The encoder-decoder Whisper raises ``NotImplementedError``
-naming ``ROADMAP.md`` A7, and an unknown id ``ModuleNotFoundError``.  The
-reference's input-shape table and cell rules serve its mesh dry-run
-(A7) and are not carried.
+name in ``sys.modules`` included, and an unknown id raises
+``ModuleNotFoundError``.  The port carries all ten of the reference's
+ids: dense (Phi-4-mini, StarCoder2-3B and -7B, Nemotron-4 with its head
+dim of 192 and its Adafactor), MoE (Qwen3-MoE, Llama-4 Scout), SSM
+(Mamba-2), the Jamba hybrid, the LLaVA backbone with its patch prefix
+and the encoder-decoder Whisper.  The reference's input-shape table and
+cell rules serve its mesh dry-run (``ROADMAP.md`` A7.7) and are not
+carried.
 """
 
 from __future__ import annotations
@@ -35,9 +35,6 @@ ARCH_IDS = (
     "whisper_large_v3",
     "llava_next_34b",
 )
-_PORTED = ("llama4_scout_17b_a16e", "qwen3_moe_235b_a22b", "starcoder2_7b",
-           "phi4_mini_3_8b", "nemotron_4_340b", "starcoder2_3b",
-           "mamba2_1_3b", "jamba_1_5_large_398b", "llava_next_34b")
 
 # canonical external ids (assignment spelling) -> module name
 _ALIASES = {
@@ -56,15 +53,7 @@ _ALIASES = {
 
 def _module(name: str):
     mod = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    path = f"{__package__}.{mod}"
-    try:
-        return importlib.import_module(path)
-    except ModuleNotFoundError as e:
-        if e.name != path or mod not in ARCH_IDS:
-            raise
-        raise NotImplementedError(
-            f"{name}: the port carries {', '.join(_PORTED)}; the other "
-            f"architectures of the LM zoo are ROADMAP.md A7") from None
+    return importlib.import_module(f"{__package__}.{mod}")
 
 
 def get_config(name: str) -> ModelConfig:

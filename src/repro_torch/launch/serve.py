@@ -5,7 +5,9 @@ Port of ``src/repro/launch/serve.py``: the continuous-batching serve loop
 ``seed`` by ``init_params`` on the device, for every id the registry
 carries (dense, MoE, Mamba-2, the Jamba hybrid; a vision config serves
 its text backbone, as the reference's launcher does: the loop feeds
-tokens only).  Runs on the card by default
+tokens only; an encoder-decoder config is refused with the reference's
+``SystemExit``: Whisper serves through ``launch.steps.make_prefill_step``
+and ``make_decode_step``).  Runs on the card by default
 (``--device cpu`` for the plain PyTorch path) and at the config's full
 width; ``--smoke`` takes the reduced same-family config (the reference's
 launcher runs only that one: its full-width path lowers the production
@@ -49,6 +51,8 @@ def run(arch: str, n_requests: int = 8, batch: int = 4, prompt_len: int = 8,
         smoke: bool = False, device=None) -> ServeRun:
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if cfg.is_encdec:
+        raise SystemExit("use examples/ for enc-dec serving demos")
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(model_specs(cfg), gen, cfg.dtype, dev)
 

@@ -19,11 +19,15 @@ moments) and the returned state holds the same tensors.
 ``make_prefill_step(cfg, t_max)`` and ``make_decode_step(cfg)`` return
 the serving steps: ``prefill_step(params, batch) -> (logits, caches,
 next_pos)``, with a vision config's ``batch["patches"]`` as the prefix
-embeds, and ``decode_step(params, caches, token, pos) -> (logits,
-caches)``, which updates the caches IN PLACE (``lm.decode_step``).
-Encoder-decoder models (Whisper), MoE and vision training, and the
-abstract sharded inputs of the reference's dry-run are ``ROADMAP.md``
-A7.
+embeds and an encoder-decoder config's ``batch["frames"]`` as the audio
+(``models.whisper``: the self caches padded to ``t_max or
+tokens.shape[1]``), and ``decode_step(params, caches, token, pos) ->
+(logits, caches)``, which updates the caches IN PLACE
+(``lm.decode_step``, ``whisper.whisper_decode_step``).  An
+encoder-decoder config trains on ``batch["frames"]``, ``["tokens"]`` and
+``["labels"]`` (``whisper.whisper_loss``).  MoE and vision training
+(``ROADMAP.md`` A7.3) and the abstract sharded inputs of the reference's
+dry-run (A7.7) are not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Callable
 
 import torch
 
-from ..models import lm
+from ..models import lm, whisper
 from ..train import optimizer as opt
 from ..train.train_state import TrainState, make_tx
 from ..tree import tree_leaves, tree_map, value_and_grad
@@ -41,22 +45,17 @@ __all__ = ["model_specs", "make_train_step", "make_prefill_step",
            "make_decode_step"]
 
 
-def _no_encdec(cfg) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models (Whisper) are ROADMAP.md A7")
-
-
 def model_specs(cfg):
-    _no_encdec(cfg)
-    return lm.lm_specs(cfg)
+    return whisper.whisper_specs(cfg) if cfg.is_encdec else lm.lm_specs(cfg)
 
 
 def untrainable(cfg) -> str | None:
-    """Why the port does not train ``cfg`` yet (``ROADMAP.md`` A7), or
+    """Why the port does not train ``cfg`` yet (``ROADMAP.md`` A7.3), or
     None."""
-    if cfg.is_encdec or cfg.frontend is not None:
-        return f"training with a {cfg.frontend or 'encoder'} frontend"
+    if cfg.is_encdec:
+        return None
+    if cfg.frontend is not None:
+        return f"training with a {cfg.frontend} frontend"
     if any(ffn == "moe" for _, ffn in cfg.pattern):
         return "training MoE blocks"
     return None
@@ -65,10 +64,14 @@ def untrainable(cfg) -> str | None:
 def _loss_fn(cfg) -> Callable:
     why = untrainable(cfg)
     if why:
-        raise NotImplementedError(f"{cfg.name}: {why} is ROADMAP.md A7")
-
-    def loss(params, batch):
-        return lm.lm_loss(params, cfg, batch["tokens"], batch["labels"])
+        raise NotImplementedError(f"{cfg.name}: {why} is ROADMAP.md A7.3")
+    if cfg.is_encdec:
+        def loss(params, batch):
+            return whisper.whisper_loss(params, cfg, batch["frames"],
+                                        batch["tokens"], batch["labels"])
+    else:
+        def loss(params, batch):
+            return lm.lm_loss(params, cfg, batch["tokens"], batch["labels"])
     return loss
 
 
@@ -127,8 +130,12 @@ def make_train_step(cfg) -> Callable:
 
 
 def make_prefill_step(cfg, t_max: int | None = None) -> Callable:
-    _no_encdec(cfg)
-    if cfg.frontend == "vision":
+    if cfg.is_encdec:
+        def prefill_step(params, batch):
+            return whisper.whisper_prefill(
+                params, cfg, batch["frames"], batch["tokens"],
+                t_max=t_max or batch["tokens"].shape[1])
+    elif cfg.frontend == "vision":
         def prefill_step(params, batch):
             return lm.prefill(params, cfg, batch["tokens"],
                               batch["patches"], t_max=t_max)
@@ -139,8 +146,11 @@ def make_prefill_step(cfg, t_max: int | None = None) -> Callable:
 
 
 def make_decode_step(cfg) -> Callable:
-    _no_encdec(cfg)
-
-    def decode_step(params, caches, token, pos):
-        return lm.decode_step(params, cfg, caches, token, pos)
+    if cfg.is_encdec:
+        def decode_step(params, caches, token, pos):
+            return whisper.whisper_decode_step(params, cfg, caches, token,
+                                               pos)
+    else:
+        def decode_step(params, caches, token, pos):
+            return lm.decode_step(params, cfg, caches, token, pos)
     return decode_step

@@ -17,8 +17,10 @@ and at the config's full width (``--full`` spells that default out);
 ``--smoke`` takes the reduced same-family config (the reference's
 launcher defaults to it and takes ``--full`` for the other).  ``attn_impl`` overrides the config's
 attention plan (``"flash"``: the hand-written forward and backward
-kernels).  Training MoE, vision and encoder-decoder models is
-``ROADMAP.md`` A7 (``steps.untrainable``).
+kernels).  Training MoE and vision models is ``ROADMAP.md`` A7.3
+(``steps.untrainable``); an encoder-decoder config is refused as the
+reference's launcher refuses it (``SystemExit``): Whisper trains through
+``launch.steps.make_train_step``.
 
 Durable checkpoints go through ``train.checkpoint.Checkpointer``, in the
 reference's on-disk layout: with ``--ckpt-dir`` the state is saved every
@@ -73,9 +75,11 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if attn_impl is not None:
         cfg = replace(cfg, attn_impl=attn_impl)
+    if cfg.is_encdec:
+        raise SystemExit("use examples/ for enc-dec training demos")
     why = untrainable(cfg)
     if why:
-        raise NotImplementedError(f"{cfg.name}: {why} is ROADMAP.md A7")
+        raise NotImplementedError(f"{cfg.name}: {why} is ROADMAP.md A7.3")
     specs = model_specs(cfg)
     tx = make_tx(cfg, total_steps=steps)
     state = init_train_state(torch.Generator(device=dev).manual_seed(seed),

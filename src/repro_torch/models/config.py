@@ -6,10 +6,11 @@ pairs — e.g. dense GQA = ``(("attn","mlp"),)``, Qwen3-MoE =
 ``(("attn","moe"),)``, Mamba-2 = ``(("mamba","none"),)``, Jamba's period-8
 hybrid = 7 mamba + 1 attention with MoE every other layer.  The fields
 are the reference's, so a config carries across field for field;
-``dtype`` is a ``torch.dtype``.  The port runs every decoder-only
-family; the encoder-decoder fields and the mesh levers are kept so
-configs stay comparable, and the modules that would read them raise
-(``ROADMAP.md`` A7).
+``dtype`` is a ``torch.dtype``.  The port runs every family, the
+encoder-decoder Whisper included; the mesh levers (``pad_heads``) and
+the int8 KV cache (``kv_cache_quant``) are kept so configs stay
+comparable, and the modules that would read them raise (``ROADMAP.md``
+A7.4, A7.5).
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ class ModelConfig:
     ce_fp32: bool = True
     bf16_grads: bool = False
     remat_policy: str = "full"         # full | dots | none
-    pad_heads: bool = False            # TP head padding (ROADMAP A7)
+    pad_heads: bool = False            # TP head padding (ROADMAP A7.5)
     attn_impl: str = "xla"             # "flash": the hand-written kernels
     #                                    on CUDA, mha_ref on the CPU;
     #                                    "flash_interpret": the kernels'
@@ -79,7 +80,7 @@ class ModelConfig:
     #                                    over their plain versions
     ssd_impl: str = "xla"              # "kernel": intra-chunk SSD kernel
     #                                    ("kernel_interpret" its alias)
-    kv_cache_quant: bool = False       # int8 KV cache (ROADMAP A7)
+    kv_cache_quant: bool = False       # int8 KV cache (ROADMAP A7.4)
     moe_ep: bool = True
     serve_replicate_params: bool = False
     serve_2d_tp: bool = False

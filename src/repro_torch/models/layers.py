@@ -14,8 +14,14 @@ dropped.  Attention offers the reference's plans, chosen by
 * ``"xla"`` → ``chunked`` (streaming softmax over q/kv blocks, for
   ``S > attn_chunk`` divisible by it) or ``full`` (scores materialized).
 
+Cross-attention (Whisper) is ``attention(..., kv=enc_out)``: q from x,
+k and v from ``kv``, through the same plan, so a flash config sends
+decoder queries (S) against encoder keys (T != S) through the kernels.
+
 Decode attends one query against a fixed-capacity bf16 ``KVCache`` with a
-length mask and writes the new K/V into the cache IN PLACE.  Softmax
+length mask and writes the new K/V into the cache IN PLACE; with
+``update_cache=False`` (Whisper's precomputed cross K/V) it writes
+nothing.  Softmax
 statistics accumulate in fp32, as in the reference (its
 ``preferred_element_type=float32`` dots are fp32 products here).
 
@@ -25,9 +31,8 @@ Function.  Torch's autograd already casts every cotangent to its
 tensor's dtype, so in the port it pins what the reference has to pin by
 hand, and changes no number.
 
-Not ported (``ROADMAP.md``): the int8 ``QuantKVCache`` (A7), the TP head
-padding ``_maybe_pad_heads`` (``cfg.pad_heads``, A7) and cross-attention
-(Whisper, A7).
+Not ported (``ROADMAP.md``): the int8 ``QuantKVCache`` (A7.4) and the TP
+head padding ``_maybe_pad_heads`` (``cfg.pad_heads``, A7.5).
 """
 
 from __future__ import annotations
@@ -123,9 +128,11 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def attention_specs(cfg, stacked: tuple[int, ...] = ()) -> dict:
+def attention_specs(cfg, stacked: tuple[int, ...] = (), cross: bool = False
+                    ) -> dict:
     """Projection weights stored with FLATTENED head dims ([D, H·dh]), as
-    the reference stores them."""
+    the reference stores them.  ``cross`` (cross-attention) changes
+    nothing, as in the reference."""
     D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lay = ("layers",) * len(stacked)
     p = {
@@ -140,17 +147,31 @@ def attention_specs(cfg, stacked: tuple[int, ...] = ()) -> dict:
     return p
 
 
-def _project_qkv(params, cfg, x, positions, use_rope=True):
+def _project_q(params, cfg, x, positions, use_rope=True):
     B, S, _ = x.shape
-    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, dh)
-    k = (x @ params["wk"]).reshape(B, S, K, dh)
-    v = (x @ params["wv"]).reshape(B, S, K, dh)
+    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"])
-        k = rmsnorm(k, params["k_norm"])
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def _project_kv(params, cfg, src):
+    """k (``k_norm``-ed, not rotated) and v from ``src`` [B,T,D]."""
+    B, T, _ = src.shape
+    K, dh = cfg.n_kv_heads, cfg.head_dim
+    k = (src @ params["wk"]).reshape(B, T, K, dh)
+    v = (src @ params["wv"]).reshape(B, T, K, dh)
+    if cfg.qk_norm:
+        k = rmsnorm(k, params["k_norm"])
+    return k, v
+
+
+def _project_qkv(params, cfg, x, positions, use_rope=True):
+    q = _project_q(params, cfg, x, positions, use_rope)
+    k, v = _project_kv(params, cfg, x)
+    if use_rope:
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
@@ -215,9 +236,17 @@ def _out_proj(params, out, cfg):
 
 
 def attention(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-              causal: bool = True, use_rope: bool = True) -> torch.Tensor:
-    """Self-attention over a full sequence.  x: [B,S,D] → [B,S,D]."""
-    q, k, v = _project_qkv(params, cfg, x, positions, use_rope)
+              causal: bool = True, kv: torch.Tensor | None = None,
+              use_rope: bool = True) -> torch.Tensor:
+    """Self- (or cross-, via ``kv`` [B,T,D]) attention over a full
+    sequence.  x: [B,S,D] → [B,S,D].  Cross-attention takes q from x and
+    k, v from ``kv``; RoPE (at ``positions``) rotates q only and
+    ``k_norm`` applies to k, as in the reference."""
+    if kv is None:
+        q, k, v = _project_qkv(params, cfg, x, positions, use_rope)
+    else:
+        q = _project_q(params, cfg, x, positions, use_rope)
+        k, v = _project_kv(params, cfg, kv)
     return _out_proj(params, _attention_core(q, k, v, causal, cfg), cfg)
 
 
@@ -225,7 +254,7 @@ def _attention_core(q, k, v, causal, cfg):
     """Dispatch the attention plan: flash kernel / chunked / full."""
     if cfg.pad_heads:
         raise NotImplementedError(
-            "pad_heads (TP head padding) is a mesh lever: ROADMAP.md A7")
+            "pad_heads (TP head padding) is a mesh lever: ROADMAP.md A7.5")
     S, T = q.shape[1], k.shape[1]
     if cfg.attn_impl in ("flash", "flash_interpret"):
         from ..kernels.attention import mha
@@ -249,25 +278,32 @@ def prefill_attention(params: dict, cfg, x, positions, use_rope: bool = True):
 
 
 def decode_attention(params: dict, cfg, x: torch.Tensor, cache: KVCache,
-                     pos: int, use_rope: bool = True):
+                     pos: int, update_cache: bool = True,
+                     use_rope: bool = True):
     """One-token decode: x [B,1,D], cache [B,T,K·dh] (flattened), pos int.
 
     Writes the new K/V at ``pos`` into ``cache`` IN PLACE (the reference
     returns an updated copy; at Phi-4-mini's width a copy per layer and
     step would move the whole cache) and attends over positions ≤ pos.
-    Returns (out, cache).  A ``pos`` past the cache raises ``IndexError``
-    (the reference's ``dynamic_update_slice`` would clamp it).
+    With ``update_cache=False`` it projects q alone, writes nothing and
+    attends over the cache's positions ≤ pos (Whisper's cross K/V, shared
+    by every step).  Returns (out, cache).  A ``pos`` past the cache
+    raises ``IndexError`` where it writes (the reference's
+    ``dynamic_update_slice`` would clamp it).
     """
     if not isinstance(cache, KVCache):
-        raise NotImplementedError("the int8 QuantKVCache is ROADMAP.md A7")
+        raise NotImplementedError("the int8 QuantKVCache is ROADMAP.md A7.4")
     B = x.shape[0]
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(params, cfg, x, positions, use_rope)
-    kd = K * dh
-    cache.k[:, pos] = k_new.reshape(B, kd).to(cache.k.dtype)
-    cache.v[:, pos] = v_new.reshape(B, kd).to(cache.v.dtype)
+    if update_cache:
+        q, k_new, v_new = _project_qkv(params, cfg, x, positions, use_rope)
+        kd = K * dh
+        cache.k[:, pos] = k_new.reshape(B, kd).to(cache.k.dtype)
+        cache.v[:, pos] = v_new.reshape(B, kd).to(cache.v.dtype)
+    else:
+        q = _project_q(params, cfg, x, positions, use_rope)
     T = cache.k.shape[1]
     k = cache.k.reshape(B, T, K, dh)
     v = cache.v.reshape(B, T, K, dh)

@@ -24,7 +24,7 @@ Entry points:
 Multimodal prefix (the LLaVA stub): ``extra_embeds`` [B, P, D] is cast
 to ``cfg.dtype`` and concatenated in front of the token embeddings;
 positions run over the whole sequence, and ``prefill`` returns its length
-as ``next_pos``.  The ``"dots"`` remat policy is ``ROADMAP.md`` A7.
+as ``next_pos``.  The ``"dots"`` remat policy is ``ROADMAP.md`` A7.6.
 """
 
 from __future__ import annotations
@@ -173,7 +173,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor,
     remat = cfg.remat and torch.is_grad_enabled()
     if remat and cfg.remat_policy == "dots":
         raise NotImplementedError("the 'dots' remat policy (save the "
-                                  "matmul outputs) is ROADMAP.md A7")
+                                  "matmul outputs) is ROADMAP.md A7.6")
     for block_params in _periods(params["blocks"], cfg.n_periods):
         if remat:
             x, a = checkpoint(inner, x, block_params, use_reentrant=False,
@@ -257,7 +257,7 @@ def init_caches(cfg, batch: int, t_max: int, device=None):
     card (``resolve_device``)."""
     if cfg.kv_cache_quant:
         raise NotImplementedError("the int8 KV cache (kv_cache_quant) is "
-                                  "ROADMAP.md A7")
+                                  "ROADMAP.md A7.4")
     device = resolve_device(device)
     n = cfg.n_periods
     caches = []

@@ -411,11 +411,13 @@ def init_params(specs, generator: torch.Generator,
 
 
 def lm_params_from_numpy(tree, cfg, device=None, dtype=None):
-    """The reference's LM params (``lm.lm_specs`` layout, leaves as numpy
-    arrays or anything ``np.asarray`` takes) as the port's: the same
-    nested dict, each leaf a tensor of ``dtype`` (default ``cfg.dtype``;
-    optimizer moments pass ``torch.float32``) on ``device``.  Every leaf's
-    shape is checked against the port's ``lm_specs(cfg)``."""
+    """The reference's model params (``launch.steps.model_specs`` layout:
+    ``lm.lm_specs``, or ``whisper.whisper_specs`` for an encoder-decoder
+    config; leaves as numpy arrays or anything ``np.asarray`` takes) as
+    the port's: the same nested dict, each leaf a tensor of ``dtype``
+    (default ``cfg.dtype``; optimizer moments pass ``torch.float32``) on
+    ``device``.  Every leaf's shape is checked against the port's
+    ``model_specs(cfg)``."""
     from ..launch.steps import model_specs
     device = resolve_device(device)
     dtype = dtype or cfg.dtype

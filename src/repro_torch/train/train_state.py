@@ -4,13 +4,14 @@ Port of ``src/repro/train/train_state.py``: ``TrainState``, ``make_tx``
 (global-norm clipping, then AdamW on a 3e-4 warmup-cosine schedule, or
 Adafactor on a 1e-2 one for the 340B/398B configs) and
 ``init_train_state``, plus ``train_state_from_numpy``, which carries the
-reference's LM train state across (its params and optimizer state as
-numpy trees in ``lm.lm_specs`` layout).  The optimizer state has the
+reference's train state across (its params and optimizer state as
+numpy trees in ``launch.steps.model_specs`` layout: the LM's or
+Whisper's).  The optimizer state has the
 reference's structure, ``chain(clip, inner)`` → ``((), AdamState(step,
 mu, nu))`` or ``((), AdafactorState(step, vr, vc))``.  ``make_tx``'s
 transforms update in place (see ``train.optimizer``): the reference's
 train step donates its state.  The dry-run's ``abstract_*``
-constructors are ``ROADMAP.md`` A7.
+constructors are ``ROADMAP.md`` A7.7.
 """
 
 from __future__ import annotations
@@ -59,8 +60,8 @@ def init_train_state(generator: torch.Generator, cfg, specs, tx,
 
 def train_state_from_numpy(params, cfg, mu=None, nu=None, step: int = 0,
                            device=None, vr=None, vc=None) -> TrainState:
-    """The reference's LM train state as the port's: ``params`` in
-    ``cfg.dtype`` in ``lm.lm_specs`` layout; the optimizer's state in
+    """The reference's train state as the port's: ``params`` in
+    ``cfg.dtype`` in ``model_specs(cfg)`` layout; the optimizer's state in
     fp32, zeros where ``None``: Adam's ``mu``/``nu`` (params-shaped), or
     for an Adafactor config its ``vr``/``vc`` (each leaf's row and column
     moments, the reference's ``AdafactorState`` layout); ``step`` is both

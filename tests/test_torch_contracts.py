@@ -9,8 +9,8 @@
   the same small session in each package; a server has ``timers`` and
   ``table_lock``.
 * The config registry resolves any id the reference's does, a module a
-  caller registered in ``sys.modules`` included, and still names A7 for
-  the zoo's unported ids.
+  caller registered in ``sys.modules`` included, Whisper's under both
+  spellings field for field.
 * ``launch.train``'s CLI takes the reference's ``--full``.
 """
 
@@ -148,8 +148,18 @@ def test_registry_resolves_registered_modules_and_names_a7():
         == tregistry.get_config("phi4_mini_3_8b").name
     assert tregistry.get_smoke_config("nemotron_4_340b").name \
         == "nemotron-4-smoke"
-    with pytest.raises(NotImplementedError, match="A7"):
-        tregistry.get_smoke_config("whisper_large_v3")
+    # Whisper, the last id the port lacked, resolves under both spellings
+    # to the reference's config field for field
+    from repro.configs import registry as jregistry
+    for name in ("whisper_large_v3", "whisper-large-v3"):
+        for get, jget in ((tregistry.get_config, jregistry.get_config),
+                          (tregistry.get_smoke_config,
+                           jregistry.get_smoke_config)):
+            got, want = get(name), jget(name)
+            assert {k: v for k, v in vars(got).items() if k != "dtype"} \
+                == {k: v for k, v in vars(want).items() if k != "dtype"}
+            assert str(got.dtype).split(".")[-1] \
+                == jnp.dtype(want.dtype).name
     with pytest.raises(ModuleNotFoundError):
         tregistry.get_config("no_such_arch")
 

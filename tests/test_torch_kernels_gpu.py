@@ -302,23 +302,34 @@ def _qkv(cuda, shape, seed, n=3, dtype="bfloat16"):
             .to(getattr(torch, dtype)) for s in shapes[:n]]
 
 
+def _cases(shapes):
+    """(B, S, T, H, K, dh, causal) rows as pytest params, each id
+    B-S-H-K-dh-causal, with -T<T> appended where T != S (cross-attention:
+    S queries against T keys)."""
+    return [pytest.param(*c, id="-".join(map(str, (*c[:2], *c[3:])))
+                         + (f"-T{c[2]}" if c[2] != c[1] else ""))
+            for c in shapes]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,K,dh,causal", [
-    (2, 256, 6, 2, 128, True),      # G = 3 (Phi-4-mini's), dh 128
-    (1, 128, 3, 1, 64, True),       # S = one tile of the reference
-    (2, 48, 4, 2, 64, True),        # S below a tile: a ragged kernel tile
-    (1, 256, 4, 4, 64, False),      # no causal mask
-    (1, 256, 12, 1, 192, True),     # Nemotron-4's dh and G = 12
-    (1, 128, 4, 4, 160, False),     # dh 160: the 192 instance, padded
-    (1, 128, 2, 1, 256, True),      # the FMA kernel's widest dh
-])
-def test_flash_kernel_close(cuda, dtype, B, S, H, K, dh, causal):
-    """fp32 runs the FMA kernel, bf16 (dh 64, 128, 160, 192) the
+@pytest.mark.parametrize("B,S,T,H,K,dh,causal", _cases([
+    (2, 256, 256, 6, 2, 128, True),     # G = 3 (Phi-4-mini's), dh 128
+    (1, 128, 128, 3, 1, 64, True),      # S = one tile of the reference
+    (2, 48, 48, 4, 2, 64, True),        # S below a tile: a ragged tile
+    (1, 256, 256, 4, 4, 64, False),     # no causal mask
+    (1, 256, 256, 12, 1, 192, True),    # Nemotron-4's dh and G = 12
+    (1, 128, 128, 4, 4, 160, False),    # dh 160: the 192 instance, padded
+    (1, 128, 128, 2, 1, 256, True),     # the FMA kernel's widest dh
+    (2, 128, 384, 4, 4, 64, False),     # cross-attention: S queries, T keys
+    (1, 64, 128, 4, 4, 16, False),      # Whisper smoke's head, S < T
+]))
+def test_flash_kernel_close(cuda, dtype, B, S, T, H, K, dh, causal):
+    """fp32 runs the FMA kernel, bf16 (dh 16, 64, 128, 160, 192) the
     tensor-core one and bf16 at dh 256 the FMA one."""
     gen = torch.Generator(device=cuda).manual_seed(S + H)
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda).mul(0.5).to(dt)
-               for shape in ((B, S, H, dh), (B, S, K, dh), (B, S, K, dh)))
+               for shape in ((B, S, H, dh), (B, T, K, dh), (B, T, K, dh)))
     launches = _counts(aops.FLASH, aops.FLASH_TC)
     o, lse = aops.flash_attention(q, k, v, causal, return_lse=True)
     torch.cuda.synchronize()
@@ -366,30 +377,32 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         aops.flash_attention(strided, q, q)
 
 
-BWD_SHAPES = [
-    (1, 128, 2, 2, 64, True),       # MHA causal       (the reference's
-    (2, 256, 4, 2, 64, True),       # GQA               test_kernels.py
-    (1, 128, 4, 4, 64, False),      # bidirectional     sweep)
-    (1, 384, 2, 1, 64, True),       # MQA, 3 kv blocks
-    (1, 256, 24, 8, 128, True),     # Phi-4-mini's heads: G = 3, dh 128
-    (1, 256, 12, 1, 192, True),     # Nemotron-4's dh and G = 12
-    (1, 128, 4, 4, 160, False),     # dh 160: the 192 instance, padded
-    (1, 128, 2, 1, 256, True),      # the FMA kernels' widest dh
-    (2, 48, 4, 2, 192, True),       # dh 192, a ragged 48-row tile
-]
+BWD_SHAPES = _cases([
+    (1, 128, 128, 2, 2, 64, True),      # MHA causal    (the reference's
+    (2, 256, 256, 4, 2, 64, True),      # GQA            test_kernels.py
+    (1, 128, 128, 4, 4, 64, False),     # bidirectional  sweep)
+    (1, 384, 384, 2, 1, 64, True),      # MQA, 3 kv blocks
+    (1, 256, 256, 24, 8, 128, True),    # Phi-4-mini's heads: G = 3
+    (1, 256, 256, 12, 1, 192, True),    # Nemotron-4's dh and G = 12
+    (1, 128, 128, 4, 4, 160, False),    # dh 160: the 192 instance, padded
+    (1, 128, 128, 2, 1, 256, True),     # the FMA kernels' widest dh
+    (2, 48, 48, 4, 2, 192, True),       # dh 192, a ragged 48-row tile
+    (2, 128, 384, 4, 4, 64, False),     # cross-attention: S queries, T keys
+    (1, 64, 128, 4, 4, 16, False),      # Whisper smoke's head, S < T
+])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,K,dh,causal", BWD_SHAPES)
-def test_flash_bwd_kernels_close(cuda, dtype, B, S, H, K, dh, causal):
+@pytest.mark.parametrize("B,S,T,H,K,dh,causal", BWD_SHAPES)
+def test_flash_bwd_kernels_close(cuda, dtype, B, S, T, H, K, dh, causal):
     """dq and dk/dv against the plain version on the forward kernel's own
     o and LSE: fp32 within 2e-5 of each output's magnitude (sums in
     another order), bf16 within one bf16 rounding of it (2^-8)."""
     gen = torch.Generator(device=cuda).manual_seed(S + H + 1)
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.randn(shape, generator=gen, device=cuda).mul(0.5)
-                   .to(dt) for shape in ((B, S, H, dh), (B, S, K, dh),
-                                         (B, S, K, dh), (B, S, H, dh)))
+                   .to(dt) for shape in ((B, S, H, dh), (B, T, K, dh),
+                                         (B, T, K, dh), (B, S, H, dh)))
     o, lse = aops.flash_attention(q, k, v, causal, return_lse=True)
     kernels = (aops.FLASH_BWD_DQ, aops.FLASH_BWD_DQ_TC, aops.FLASH_BWD_DKV,
                aops.FLASH_BWD_DKV_TC)

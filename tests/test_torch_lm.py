@@ -192,25 +192,30 @@ def test_configs_param_counts_and_specs_match_reference(arch):
 
 
 def test_unported_architectures_and_layouts_raise():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tcfgs.get_config("whisper_large_v3")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tcfgs.get_smoke_config("whisper-large-v3")
-    # Nemotron-4 resolves now, under both spellings, to the reference's
+    # Nemotron-4 and Whisper resolve now, under both spellings, to the
+    # reference's config field for field
     for get, jget in ((tcfgs.get_config, jget_config),
                       (tcfgs.get_smoke_config, jget_smoke)):
-        for name in ("nemotron_4_340b", "nemotron-4-340b"):
+        for name in ("nemotron_4_340b", "nemotron-4-340b",
+                     "whisper_large_v3", "whisper-large-v3"):
             got, want = get(name), jget(name)
-            assert (got.name, got.head_dim, got.optimizer) \
-                == (want.name, want.head_dim, want.optimizer)
+            assert {f.name: getattr(got, f.name)
+                    for f in dataclasses.fields(got) if f.name != "dtype"} \
+                == {f.name: getattr(want, f.name)
+                    for f in dataclasses.fields(want) if f.name != "dtype"}
+            assert str(got.dtype).split(".")[-1] \
+                == jnp.dtype(want.dtype).name
     cfg = tcfgs.get_smoke_config("phi4_mini_3_8b")
     with pytest.raises(NotImplementedError, match="A7"):
         tlm.init_caches(dataclasses.replace(cfg, kv_cache_quant=True), 1, 8)
+    # an encoder-decoder config takes Whisper's specs and steps; MoE and
+    # vision training still name A7
     encdec = dataclasses.replace(cfg, encoder_layers=2)
-    for build in (tsteps.model_specs, tsteps.make_prefill_step,
-                  tsteps.make_decode_step):
+    assert _spec_shapes(tsteps.model_specs(encdec))["enc_pos/"] \
+        == (encdec.encoder_ctx, encdec.d_model)
+    for arch in ("qwen3_moe_235b_a22b", "llava_next_34b"):
         with pytest.raises(NotImplementedError, match="A7"):
-            build(encdec)
+            tsteps.make_train_step(tcfgs.get_smoke_config(arch))
     bad = np_lm_params(jget_smoke("phi4_mini_3_8b"), seed=0)
     bad["embed"] = bad["embed"][:, :-1]
     with pytest.raises(ValueError, match="embed"):

@@ -21,7 +21,9 @@ kernels in interpret mode, fed the head-major, KV-expanded layout its
 with ``mode="interpret"`` (its autograd Function over the plain
 versions) to ``jax.grad`` of the reference's ``mha(..., "interpret")``:
 on the four shapes of the reference's own backward test
-(``tests/test_kernels.py``), within its tolerance, atol 1e-4.
+(``tests/test_kernels.py``), within its tolerance, atol 1e-4.  Both
+directions also run cross-attention shapes (S queries against T != S
+keys, no mask), Whisper's decoder against its encoder.
 """
 
 import jax
@@ -52,24 +54,38 @@ def setup_module():
 
 TOL = 2e-5
 SSD_TOL = 3e-5
-FLASH_SHAPES = [
-    (2, 256, 4, 2, 64, True),       # GQA 2:1
-    (1, 384, 2, 1, 64, True),       # MQA, 3 kv blocks
-    (1, 128, 4, 4, 64, False),      # bidirectional
-    (1, 128, 2, 1, 192, True),      # Nemotron-4's dh, MQA
-    (1, 128, 4, 2, 192, False),     # Nemotron-4's dh, GQA bidirectional
-]
 
 
-def _qkv(B, S, H, K, dh, seed):
+def _cases(shapes):
+    """(B, S, T, H, K, dh, causal) rows as pytest params, each id
+    B-S-H-K-dh-causal, with -T<T> appended where T != S (cross-attention:
+    S queries against T keys)."""
+    return [pytest.param(*c, id="-".join(map(str, (*c[:2], *c[3:])))
+                         + (f"-T{c[2]}" if c[2] != c[1] else ""))
+            for c in shapes]
+
+
+FLASH_SHAPES = _cases([
+    (2, 256, 256, 4, 2, 64, True),      # GQA 2:1
+    (1, 384, 384, 2, 1, 64, True),      # MQA, 3 kv blocks
+    (1, 128, 128, 4, 4, 64, False),     # bidirectional
+    (1, 128, 128, 2, 1, 192, True),     # Nemotron-4's dh, MQA
+    (1, 128, 128, 4, 2, 192, False),    # Nemotron-4's dh, GQA bidirectional
+    (2, 32, 64, 4, 4, 16, False),       # Whisper smoke's cross-attention
+    (1, 128, 384, 4, 2, 64, False),     # cross, 3 kv blocks of 128
+])
+
+
+def _qkv(B, S, H, K, dh, seed, T=None):
     rng = np.random.default_rng(seed)
+    T = S if T is None else T
     return [(rng.standard_normal(shape) * 0.5).astype(np.float32)
-            for shape in ((B, S, H, dh), (B, S, K, dh), (B, S, K, dh))]
+            for shape in ((B, S, H, dh), (B, T, K, dh), (B, T, K, dh))]
 
 
-@pytest.mark.parametrize("B,S,H,K,dh,causal", FLASH_SHAPES)
-def test_flash_attention_matches_reference(B, S, H, K, dh, causal):
-    q, k, v = _qkv(B, S, H, K, dh, seed=B * S + H)
+@pytest.mark.parametrize("B,S,T,H,K,dh,causal", FLASH_SHAPES)
+def test_flash_attention_matches_reference(B, S, T, H, K, dh, causal):
+    q, k, v = _qkv(B, S, H, K, dh, seed=B * S + H, T=T)
     o_j, lse_j = jflash(q, k, v, causal=causal, interpret=True,
                         return_lse=True)
     o_t, lse_t = tattn.flash_attention(*map(torch.from_numpy, (q, k, v)),
@@ -96,19 +112,21 @@ def test_flash_attention_shape_contract():
 
 
 BWD_TOL = 1e-4
-BWD_SHAPES = [
-    (1, 128, 2, 2, 64, True),       # MHA causal
-    (2, 256, 4, 2, 64, True),       # GQA (group-summed dk/dv)
-    (1, 128, 4, 4, 64, False),      # bidirectional
-    (1, 384, 2, 1, 64, True),       # MQA, 3 kv blocks
-    (1, 128, 2, 1, 192, True),      # Nemotron-4's dh, MQA
-    (1, 128, 4, 2, 192, False),     # Nemotron-4's dh, GQA bidirectional
-]
+BWD_SHAPES = _cases([
+    (1, 128, 128, 2, 2, 64, True),      # MHA causal
+    (2, 256, 256, 4, 2, 64, True),      # GQA (group-summed dk/dv)
+    (1, 128, 128, 4, 4, 64, False),     # bidirectional
+    (1, 384, 384, 2, 1, 64, True),      # MQA, 3 kv blocks
+    (1, 128, 128, 2, 1, 192, True),     # Nemotron-4's dh, MQA
+    (1, 128, 128, 4, 2, 192, False),    # Nemotron-4's dh, GQA bidirectional
+    (2, 32, 64, 4, 4, 16, False),       # Whisper smoke's cross-attention
+    (1, 128, 384, 4, 2, 64, False),     # cross, 3 kv blocks of 128
+])
 
 
-@pytest.mark.parametrize("B,S,H,K,dh,causal", BWD_SHAPES)
-def test_flash_attention_bwd_matches_reference(B, S, H, K, dh, causal):
-    q, k, v = _qkv(B, S, H, K, dh, seed=B * S + H)
+@pytest.mark.parametrize("B,S,T,H,K,dh,causal", BWD_SHAPES)
+def test_flash_attention_bwd_matches_reference(B, S, T, H, K, dh, causal):
+    q, k, v = _qkv(B, S, H, K, dh, seed=B * S + H, T=T)
     do = (np.random.default_rng(S).standard_normal((B, S, H, dh)) * 0.5) \
         .astype(np.float32)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
@@ -131,16 +149,16 @@ def test_flash_attention_bwd_matches_reference(B, S, H, K, dh, causal):
     def back(t, n):
         return np.asarray(t).reshape(B, n, -1, dh).transpose(0, 2, 1, 3)
 
-    want = (back(dqh, H), back(dkh, H).reshape(B, S, K, G, dh).sum(3),
-            back(dvh, H).reshape(B, S, K, G, dh).sum(3))
+    want = (back(dqh, H), back(dkh, H).reshape(B, T, K, G, dh).sum(3),
+            back(dvh, H).reshape(B, T, K, G, dh).sum(3))
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), w, atol=BWD_TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("B,S,H,K,dh,causal", BWD_SHAPES)
-def test_mha_interpret_grads_match_reference(B, S, H, K, dh, causal):
-    q, k, v = _qkv(B, S, H, K, dh, seed=B * S + H + 1)
+@pytest.mark.parametrize("B,S,T,H,K,dh,causal", BWD_SHAPES)
+def test_mha_interpret_grads_match_reference(B, S, T, H, K, dh, causal):
+    q, k, v = _qkv(B, S, H, K, dh, seed=B * S + H + 1, T=T)
     ct = (np.random.default_rng(S + 1).standard_normal((B, S, H, dh))
           * 0.5).astype(np.float32)
     want = jax.grad(
