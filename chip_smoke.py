@@ -276,7 +276,36 @@ Phases, each printing one line (or a few):
    peak memory, every leaf moved, one profiled step; (c) ``[whisper
    flash]``: the smoke config through the flash kernels against the
    plain path in fp32 and bf16 (encode, loss, every gradient; exact
-   launches; a causal cross-attention control failing).
+   launches; a causal cross-attention control failing);
+20. zoo train — the LM zoo's MoE and vision families trained at full
+   width in bf16 with ``attn_impl="flash"``, depth cut to fit the card
+   (``ZOO_TRAIN_LAYERS``), one sequence of 4,096 positions a step: first
+   the flash forward, dq and dk/dv at their heads (B 1, S = T = 4,096,
+   dh 128: Qwen3-MoE 64/4, Llama-4 Scout 40/8, LLaVA-NeXT 56/8) against
+   their plain versions beside SDPA, bit-identical on a rerun, a
+   mask-off control failing; (a) ``[lm train qwen3_moe]`` (4 of 94
+   layers, Adafactor), ``[lm train llama4_scout]`` (1 of 48, AdamW) and
+   ``[lm train llava]`` (6 of 60, AdamW, 1,152 patch embeddings and
+   2,944 tokens), each through ``zoo_train_phase``: phase 13's
+   ``grads_vs_plain``, for a MoE config each MoE layer's bf16 gradients
+   against the same layer in fp32 (``moe_grad_check``: routing pairs all
+   agreeing, x's and every leaf's gradient within ``MOE_GRAD_LIMIT``, an
+   unnormalized-gates control failing, a rerun ``torch.equal``), 4 steps
+   of ``make_train_step`` with exact launches, the loss's token count,
+   the step time, the peak memory, the leaves that moved, a profiled
+   step; (b) ``[lm train jamba]``: the smoke config in fp32, one train
+   step on the card against the CPU's (loss, gradients, the optimizer's
+   update and the new parameters within 1e-4 of each leaf's max; the FMA
+   flash kernels once each, ``ssd_intra`` never; the aux term left out
+   failing a router's gradient); (c) ``[remat dots]``: Phi-4-mini's
+   ``value_and_grad`` on 1 x 2,048 under ``remat_policy="full"`` and
+   ``"dots"``: gradients ``torch.equal``, the products each backward
+   launches, time and peak memory; (d) ``[int8 kv]``: Phi-4-mini at B 4,
+   256 prompt tokens fed step by step into an ``init_caches`` int8
+   cache, 32 greedy tokens; the logits after the prompt within 5% of the
+   bf16 path's (a scales-off-by-one-head control failing), the cache
+   bytes, a decode step on each cache, ``serve_loop`` on both; (e)
+   ``launch.train.run(smoke=True)`` for Qwen3-MoE and LLaVA, 2 steps each.
 
 Kernel, plain and library times in the kernels line are device times per
 call (``torch.profiler``: the summed device time of every kernel and copy
@@ -291,8 +320,8 @@ gather's rows carry the reproducer's shapes, with their launches there,
 under ``"reproducer"``; the store and QuadConv rows' ``launches_by_path``
 add the faulted chaos runs and the spectral session; the flash row's
 ``"zoo"`` and the SSD row's ``"jamba"`` carry phase 17's shapes, the
-attention rows' ``"nemotron"`` phase 18's and ``"whisper"`` phase 19's
-cross-attention rows, and
+attention rows' ``"nemotron"`` phase 18's, ``"whisper"`` phase 19's
+cross-attention rows and ``"zoo_train"`` phase 20's, and
 every attention and SSD row's ``launches_by_path`` its launches), the
 ``nvidia-smi`` line,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -418,6 +447,26 @@ WHISPER_TRAIN_BATCH, WHISPER_TRAIN_STEPS = 8, 4
 WHISPER_LOGITS_LIMIT = 5e-2
 DECODE_VS_FORWARD_ATOL = 3e-3
 WHISPER_FLASH_T = 1536
+# the LM zoo's MoE and vision families trained at full width (phase 20),
+# depth cut to fit one card in bf16 with the optimizer's state: Qwen3-MoE
+# 4 of 94 layers with Adafactor (params and bf16 gradients 44.8 GB),
+# Llama-4 Scout 1 of 48 and LLaVA-NeXT 6 of 60 with AdamW (params,
+# gradients and fp32 moments ~51 GB); grad_accum 1, one sequence of
+# train_4k's 4,096 positions a step.  Each MoE layer's bf16 gradients
+# against the same layer in fp32 within phase 13's per-layer limit
+# (relative Frobenius)
+ZOO_TRAIN_LAYERS = {"qwen3_moe_235b_a22b": 4, "llama4_scout_17b_a16e": 1,
+                    "llava_next_34b": 6}
+ZOO_TRAIN_SEQ, ZOO_TRAIN_STEPS = 4096, 4
+MOE_GRAD_LIMIT = 2e-2
+# Jamba's smoke train step on the card against the CPU's (fp32, TF32 off)
+# from a mid-training AdamW state (the warmup's last step: lr 3e-4): the
+# loss and each leaf relative to its max|.|
+JAMBA_TRAIN_RTOL, JAMBA_TRAIN_STEP = 1e-4, 1999
+# the int8 KV cache at Phi-4-mini's full width, held to the reference's
+# own 5% of the bf16 path (tests/test_models.py:234-250, max-abs relative)
+INT8_BATCH, INT8_PROMPT, INT8_NEW = 4, 256, 32
+INT8_REL_LIMIT = 0.05
 # the paper's reproducer (paper §3): its default deployment (24 ranks x
 # 256 KB, 2 warm-up + 40 timed iterations), Fig. 4's message sizes at 24
 # ranks, Fig. 7's ResNet-50 batches; ResNet-50's logits on the card
@@ -2292,15 +2341,15 @@ def serve_smoke(dev, arch: str) -> dict:
             "wall_s": res.wall_s}
 
 
-def train_smoke(dev, arch: str) -> dict:
+def train_smoke(dev, arch: str, steps: int = 4) -> dict:
     """``launch.train.run`` at ``arch``'s smoke config on the card with
-    ``attn_impl="flash"`` (fp32: the FMA forward, dq and dk/dv): 4 steps
-    of 4 x 64 tokens, finite losses and gradient norms."""
+    ``attn_impl="flash"`` (fp32: the FMA forward, dq and dk/dv): ``steps``
+    steps of 4 x 64 tokens, finite losses and gradient norms."""
     from repro_torch.launch import train as train_launcher
-    res = train_launcher.run(arch, steps=4, smoke=True, device=dev,
-                             attn_impl="flash", log_every=4)
-    if len(res.losses) != 4 or not all(map(math.isfinite,
-                                           res.losses + res.grad_norms)):
+    res = train_launcher.run(arch, steps=steps, smoke=True, device=dev,
+                             attn_impl="flash", log_every=steps)
+    if len(res.losses) != steps or not all(map(
+            math.isfinite, res.losses + res.grad_norms)):
         raise AssertionError(f"train {arch}: losses {res.losses}, norms "
                              f"{res.grad_norms}")
     return {"arch": arch, "losses": res.losses,
@@ -2447,51 +2496,56 @@ def check_flash_bwd(dev, B: int, S: int, H: int, K: int, dh: int, dtype,
 
 def attention_grads(params, cfg, h, positions, ct) -> list:
     """Gradients of one attention mixer's output against ``ct``: the
-    input's, then wq, wk, wv, wo."""
+    input's, then each of its weights' in ``params``' order (wq, wk, wv,
+    wo; Qwen3's q_norm and k_norm after them)."""
     from repro_torch.models import layers
     x = h.detach().requires_grad_(True)
-    w = {n: params[n].detach().requires_grad_(True)
-         for n in ("wq", "wk", "wv", "wo")}
+    w = {n: a.detach().requires_grad_(True) for n, a in params.items()}
     with torch.enable_grad():
         out = layers.attention(w, cfg, x, positions)
         return list(torch.autograd.grad(out, [x, *w.values()], ct))
 
 
-def layer_grad_check(params, cfg_k, cfg_p, tokens) -> list[dict]:
-    """On every layer, the attention mixer's gradients through the kernel
+def layer_grad_check(params, cfg_k, cfg_p, tokens,
+                     patches=None) -> list[dict]:
+    """On every attention layer, the mixer's gradients through the kernel
     path and the plain path on the same input — the plain path's hidden
-    state — and the same random cotangent, as relative Frobenius
-    differences by gradient."""
+    state, after ``patches`` when given — and the same random cotangent,
+    as relative Frobenius differences by gradient."""
     from repro_torch.models import layers, lm
     gen = torch.Generator(device=tokens.device).manual_seed(SEED + 2)
     diffs = []
     with torch.no_grad():
-        x, positions = lm._embed(params, cfg_p, tokens)
+        x, positions = lm._embed(params, cfg_p, tokens, patches)
     for period in lm._periods(params["blocks"], cfg_p.n_periods):
-        bp = period[0]
-        with torch.no_grad():
-            h = layers.apply_norm(bp["norm1"], x, cfg_p.norm)
-        ct = torch.randn(h.shape, generator=gen, device=h.device) \
-            .to(h.dtype)
-        got, want = (attention_grads(bp["attn"], c, h, positions, ct)
-                     for c in (cfg_k, cfg_p))
-        diffs.append({n: rel_frobenius(a, b) for n, a, b in
-                      zip(("x", "wq", "wk", "wv", "wo"), got, want)})
-        with torch.no_grad():
-            x = lm._apply_block(cfg_p, "attn", "mlp", bp, x, positions)[0]
+        for bp, (mixer, ffn) in zip(period, cfg_p.pattern):
+            if mixer == "attn":
+                with torch.no_grad():
+                    h = layers.apply_norm(bp["norm1"], x, cfg_p.norm)
+                ct = torch.randn(h.shape, generator=gen, device=h.device) \
+                    .to(h.dtype)
+                got, want = (attention_grads(bp["attn"], c, h, positions,
+                                             ct) for c in (cfg_k, cfg_p))
+                diffs.append({n: rel_frobenius(a, b) for n, a, b in
+                              zip(("x", *bp["attn"]), got, want)})
+            with torch.no_grad():
+                x = lm._apply_block(cfg_p, mixer, ffn, bp, x, positions)[0]
     return diffs
 
 
-def grads_vs_plain(dev, base, micro: int) -> dict:
-    """One micro-batch of ``micro`` x ``TRAIN_SEQ`` tokens at ``base``'s
-    width in bf16, the kernel path (``attn_impl="flash"``) against the
-    plain path (``"xla"``): every layer's attention gradients within
+def grads_vs_plain(dev, base, micro: int, batch: dict | None = None,
+                   after=None) -> dict:
+    """One micro-batch of ``micro`` x ``TRAIN_SEQ`` tokens (or ``batch``:
+    tokens, labels and a vision config's patches) at ``base``'s width in
+    bf16, the kernel path (``attn_impl="flash"``) against the plain path
+    (``"xla"``): every attention layer's gradients within
     ``LAYER_GRAD_LIMIT`` (and, as a control that must FAIL it on every
     layer, the backward kernels with their causal mask off under a causal
     forward), then the whole model's loss and ``grad_norm`` within
     ``LOSS_LIMIT`` and ``GRAD_NORM_LIMIT`` with the tensor-core forward,
     dq and dk/dv launched 2, 1 and 1 times a layer (remat) and none of
-    the FMA ones."""
+    the FMA ones.  ``after(params, cfg_k, cfg_p, batch)``, when given,
+    runs on the same params last; its dict is the line's ``"after"``."""
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.kernels.attention import ops as aops
     from repro_torch.launch import steps
@@ -2502,9 +2556,12 @@ def grads_vs_plain(dev, base, micro: int) -> dict:
     params = init_params(steps.model_specs(cfg_k),
                          torch.Generator(device=dev).manual_seed(SEED),
                          cfg_k.dtype, dev)
-    stream = iter(TokenStream(base.vocab, micro, TRAIN_SEQ, seed=SEED))
-    tokens = torch.from_numpy(next(stream)["tokens"]).to(dev)
-    layer = layer_grad_check(params, cfg_k, cfg_p, tokens)
+    if batch is None:
+        stream = iter(TokenStream(base.vocab, micro, TRAIN_SEQ, seed=SEED))
+        tokens = torch.from_numpy(next(stream)["tokens"]).to(dev)
+        batch = {"tokens": tokens, "labels": tokens}
+    tokens, patches = batch["tokens"], batch.get("patches")
+    layer = layer_grad_check(params, cfg_k, cfg_p, tokens, patches)
     worst = max(max(d.values()) for d in layer)
     orig_bwd = aops.flash_attention_bwd
 
@@ -2514,7 +2571,7 @@ def grads_vs_plain(dev, base, micro: int) -> dict:
 
     aops.flash_attention_bwd = non_causal_bwd
     try:
-        control = layer_grad_check(params, cfg_k, cfg_p, tokens)
+        control = layer_grad_check(params, cfg_k, cfg_p, tokens, patches)
     finally:
         aops.flash_attention_bwd = orig_bwd
     control_min = min(max(d.values()) for d in control)
@@ -2527,7 +2584,6 @@ def grads_vs_plain(dev, base, micro: int) -> dict:
                              f"passed the per-layer limit on some layer "
                              f"({control_min})")
     whole = {}
-    batch = {"tokens": tokens, "labels": tokens}
     # bf16 at the config's dh: the tensor-core forward, dq and dk/dv; the
     # FMA forward, dq and dk/dv must not run
     kernels = (aops.FLASH_TC, aops.FLASH_BWD_DQ_TC, aops.FLASH_BWD_DKV_TC)
@@ -2555,8 +2611,12 @@ def grads_vs_plain(dev, base, micro: int) -> dict:
             and abs(nk - np_) <= GRAD_NORM_LIMIT * abs(np_)):
         raise AssertionError(f"{base.name} whole model: loss {lk} vs {lp}, "
                              f"grad_norm {nk} vs {np_}")
+    extra = {}
+    if after is not None:
+        torch.cuda.empty_cache()
+        extra["after"] = after(params, cfg_k, cfg_p, batch)
     del params
-    return {"layer_grad_rel_frobenius_max": worst,
+    return {**extra, "layer_grad_rel_frobenius_max": worst,
             "layer_grad_rel_frobenius_median": sorted(
                 max(d.values()) for d in layer)[len(layer) // 2],
             "layer_grad_worst_by_name": {n: max(d[n] for d in layer)
@@ -3209,10 +3269,13 @@ def whisper_layer_grads(p16, p32, cfg16, cfg32, frames, tokens,
 
 
 def leaf_paths(tree, path=()) -> list:
-    """The key paths of a nested dict's leaves, in ``tree_leaves``'
-    order."""
+    """The key paths of a nested dict's or list's leaves (a list's items
+    by index), in ``tree_leaves``' order."""
     if isinstance(tree, dict):
         return [q for k in tree for q in leaf_paths(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [q for i, t in enumerate(tree)
+                for q in leaf_paths(t, path + (str(i),))]
     return [path]
 
 
@@ -3524,6 +3587,612 @@ def whisper_flash_phase(dev) -> dict:
             "attention": {"encoder": "S=T=64 no mask",
                           "decoder_self": "S=T=32 causal",
                           "cross": "S=32 T=64 no mask"}, **out}
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the LM zoo's MoE and vision families trained at full width
+# ---------------------------------------------------------------------------
+
+def zoo_train_batches(dev, cfg, n: int) -> list[dict]:
+    """``n`` batches of one sequence of ``ZOO_TRAIN_SEQ`` positions: the
+    token stream's tokens and labels; for a vision config its
+    ``frontend_tokens`` random patch embeddings (0.02 · N(0, 1), in
+    ``cfg.dtype``) in front of ``ZOO_TRAIN_SEQ - frontend_tokens`` tokens,
+    labels -1 over the patches."""
+    from repro_torch.data.pipeline import TokenStream
+    P = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    stream = iter(TokenStream(cfg.vocab, 1, ZOO_TRAIN_SEQ - P, seed=SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    out = []
+    for _ in range(n):
+        raw = next(stream)
+        tokens = torch.from_numpy(raw["tokens"]).to(dev)
+        batch = {"tokens": tokens, "labels": tokens}
+        if P:
+            batch["patches"] = (0.02 * torch.randn(
+                (1, P, cfg.d_model), generator=gen, device=dev)).to(cfg.dtype)
+            batch["labels"] = torch.cat([torch.full(
+                (1, P), -1, dtype=tokens.dtype, device=dev), tokens], dim=1)
+        out.append(batch)
+    return out
+
+
+def zoo_kernel_rows(dev) -> tuple[dict, dict, dict]:
+    """The flash forward, dq and dk/dv at the zoo's training heads: bf16,
+    causal, B 1, S = T = ``ZOO_TRAIN_SEQ``, dh 128, H/K of Qwen3-MoE,
+    Llama-4 Scout and LLaVA-NeXT; each against its plain version beside
+    SDPA, bit-identical on a rerun, a mask-off control failing."""
+    from repro_torch.configs import get_config
+    fwd, dq, dkv = {}, {}, {}
+    for arch in ZOO_TRAIN_LAYERS:
+        c = get_config(arch)
+        torch.cuda.empty_cache()
+        fwd[arch] = check_flash(dev, 1, ZOO_TRAIN_SEQ, c.n_heads,
+                                c.n_kv_heads, c.head_dim, torch.bfloat16,
+                                rerun=True)
+        torch.cuda.empty_cache()
+        dq[arch], dkv[arch] = check_flash_bwd(
+            dev, 1, ZOO_TRAIN_SEQ, c.n_heads, c.n_kv_heads, c.head_dim,
+            torch.bfloat16)
+    torch.cuda.empty_cache()
+    return fwd, dq, dkv
+
+
+def moe_grads(p, cfg, x, ct, unnormalized: bool = False) -> tuple:
+    """``sum(y · ct) + aux`` of one MoE layer and its gradients by x and
+    every leaf of ``p`` (in ``tree_leaves`` order); ``unnormalized`` leaves
+    the gates at their router probabilities (the control)."""
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_leaves, tree_map
+    leaves = [x.detach().requires_grad_(True)] + [
+        a.detach().requires_grad_(True) for a in tree_leaves(p)]
+    it = iter(leaves[1:])
+    tracked = tree_map(lambda _: next(it), p)
+    with torch.enable_grad():
+        r = moe.route(tracked, cfg, leaves[0])
+        if unnormalized:
+            r = r._replace(gates=torch.gather(r.probs, -1, r.expert_idx))
+        y, aux = moe.moe_apply(tracked, cfg, leaves[0], r)
+        value = (y.float() * ct.float()).sum() + aux
+        grads = torch.autograd.grad(value, leaves)
+    return value.detach(), grads, r
+
+
+def first_differing_op(run) -> str:
+    """Run ``run()`` twice under a dispatch mode that notes each aten
+    op's name and the float64 sum of its floating outputs; the first op
+    whose sums differ between the runs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Note(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            self.seen.append((str(func), [
+                float(o.double().sum()) for o in outs
+                if isinstance(o, torch.Tensor) and o.is_floating_point()]))
+            return out
+
+    notes = []
+    for _ in range(2):
+        with Note() as mode:
+            run()
+        notes.append(mode.seen)
+    for (name, a), (_, b) in zip(*notes):
+        if a != b:
+            return name
+    return "none (the sums agree)"
+
+
+def moe_grad_check(params, cfg_k, cfg_p, batch) -> dict:
+    """Each MoE layer of the model on the plain path's hidden state: the
+    bf16 ``moe_grads`` against the same layer in fp32 (the same bf16
+    input, weights and cotangent, upcast).  Every (token, choice) routing
+    pair must agree; the gradients of x and of every leaf (router,
+    ``w_up``, ``w_gate``, ``w_down``, the shared expert's) within
+    ``MOE_GRAD_LIMIT`` (relative Frobenius); as a control that must FAIL
+    that limit on every layer, the bf16 layer with its gates left
+    unnormalized; and the bf16 gradients ``torch.equal`` on a rerun (else
+    the first op whose output differs is named)."""
+    from repro_torch.models import layers, lm, moe
+    from repro_torch.tree import tree_map
+    cfg32 = replace(cfg_p, dtype=torch.float32)
+    gen = torch.Generator(device=batch["tokens"].device).manual_seed(SEED + 4)
+    rows = []
+    with torch.no_grad():
+        x, positions = lm._embed(params, cfg_p, batch["tokens"],
+                                 batch.get("patches"))
+    for bp in lm._periods(params["blocks"], cfg_p.n_periods):
+        for p, (mixer, ffn) in zip(bp, cfg_p.pattern):
+            if ffn != "moe":
+                with torch.no_grad():
+                    x = lm._apply_block(cfg_p, mixer, ffn, p, x,
+                                        positions)[0]
+                continue
+            with torch.no_grad():
+                h = layers.apply_norm(p["norm1"], x, cfg_p.norm)
+                x = x + layers.attention(p["attn"], cfg_p, h, positions)
+                h2 = layers.apply_norm(p["norm2"], x, cfg_p.norm)
+            ct = torch.randn(h2.shape, generator=gen,
+                             device=h2.device).to(h2.dtype)
+            names = ["x"] + ["/".join(q) for q in leaf_paths(p["ffn"])]
+            v16, g16, r16 = moe_grads(p["ffn"], cfg_p, h2, ct)
+            p32 = tree_map(lambda a: a.float(), p["ffn"])
+            v32, g32, r32 = moe_grads(p32, cfg32, h2.float(), ct)
+            del p32
+            agree = float(((r16.expert_idx == r32.expert_idx).reshape(
+                r16.keep.shape) & (r16.keep == r32.keep)).float().mean())
+            errs = {n: rel_frobenius(a, b) for n, a, b in zip(names, g16,
+                                                              g32)}
+            _, gc, _ = moe_grads(p["ffn"], cfg_p, h2, ct, unnormalized=True)
+            control = {n: rel_frobenius(a, b) for n, a, b in zip(names, gc,
+                                                                 g32)}
+            del gc, g32
+            _, again, _ = moe_grads(p["ffn"], cfg_p, h2, ct)
+            equal = all(torch.equal(a, b) for a, b in zip(g16, again))
+            del again
+            differs = None if equal else first_differing_op(
+                lambda: moe_grads(p["ffn"], cfg_p, h2, ct))
+            rows.append({"routing_pair_agreement": agree,
+                         "dropped_pairs": int((~r16.keep).sum()),
+                         "value_rel": abs(float(v16) - float(v32))
+                         / abs(float(v32)),
+                         "grad_rel_frobenius": errs,
+                         "control_unnormalized": control,
+                         "rerun_equal": equal, "rerun_first_op": differs})
+            with torch.no_grad():
+                x = x + moe.moe_apply(p["ffn"], cfg_p, h2)[0]
+            del g16, r16, r32, h2
+    out = {"layers": rows, "limit": MOE_GRAD_LIMIT,
+           "grad_rel_frobenius_max": max(
+               max(r["grad_rel_frobenius"].values()) for r in rows),
+           "grad_worst_by_name": {n: max(r["grad_rel_frobenius"][n]
+                                         for r in rows)
+                                  for n in rows[0]["grad_rel_frobenius"]},
+           "control_unnormalized_min": min(
+               max(r["control_unnormalized"].values()) for r in rows),
+           "routing_pair_agreement_min": min(
+               r["routing_pair_agreement"] for r in rows),
+           "dropped_pairs_total": sum(r["dropped_pairs"] for r in rows),
+           "rerun_equal": all(r["rerun_equal"] for r in rows)}
+    if out["routing_pair_agreement_min"] < MOE_ROUTING_FLOOR \
+            or out["grad_rel_frobenius_max"] > MOE_GRAD_LIMIT \
+            or not out["rerun_equal"]:
+        raise AssertionError(f"moe grads: {json.dumps(out)}")
+    if out["control_unnormalized_min"] <= MOE_GRAD_LIMIT:
+        raise AssertionError(f"moe grads: the unnormalized-gates control "
+                             f"passed: {json.dumps(out)}")
+    return out
+
+
+def zoo_train_phase(dev, arch: str) -> tuple[dict, dict]:
+    """``[lm train <arch>]``: ``arch`` at full width, depth cut to
+    ``ZOO_TRAIN_LAYERS[arch]``, bf16, ``attn_impl="flash"``, grad_accum 1,
+    one sequence of ``ZOO_TRAIN_SEQ`` positions a step (LLaVA: 1,152
+    patch embeddings and 2,944 tokens): (a) ``grads_vs_plain`` (every
+    attention layer's gradients, the whole model's loss and grad_norm,
+    the causal-mask-off control), with ``moe_grad_check`` for a MoE
+    config; (b) ``ZOO_TRAIN_STEPS`` steps of
+    ``launch.steps.make_train_step`` from ``init_train_state`` (the
+    config's optimizer): exactly 2, 1 and 1 tensor-core forward, dq and
+    dk/dv launches an attention layer a step and none of the FMA ones,
+    finite losses, a vision config's ``tokens`` metric the text tokens
+    alone; the step time, tokens a second, the peak memory under the
+    card's, which parameter leaves moved (against a host copy), one
+    profiled step.  Returns (the line, the launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.launch import steps
+    from repro_torch.train.train_state import init_train_state, make_tx
+    from repro_torch.tree import tree_leaves
+    full = get_config(arch)
+    base = replace(full, n_layers=ZOO_TRAIN_LAYERS[arch], grad_accum=1)
+    batches = zoo_train_batches(dev, base, ZOO_TRAIN_STEPS + 2)
+    is_moe = any(f == "moe" for _, f in base.pattern)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grads_line = grads_vs_plain(dev, base, 1, batch=batches[0],
+                                after=moe_grad_check if is_moe else None)
+    grads_line["seconds"] = time.perf_counter() - t0
+    grads_peak = torch.cuda.max_memory_allocated() / 1e9
+    moe_line = grads_line.pop("after", None)
+    torch.cuda.empty_cache()
+
+    cfg = replace(base, attn_impl="flash")
+    kernels = (aops.FLASH_TC, aops.FLASH_BWD_DQ_TC, aops.FLASH_BWD_DKV_TC)
+    fma_only = (aops.FLASH, aops.FLASH_BWD_DQ, aops.FLASH_BWD_DKV)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(SEED),
+                             cfg, steps.model_specs(cfg),
+                             make_tx(cfg, total_steps=ZOO_TRAIN_STEPS),
+                             device=dev)
+    before = [a.cpu() for a in tree_leaves(state.params)]
+    step_fn = steps.make_train_step(cfg)
+    for kern in kernels + fma_only:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_step, losses, norms, step_s, tokens = [], [], [], [], []
+    for batch in batches[:ZOO_TRAIN_STEPS]:
+        counts = [kern.launches for kern in kernels]
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        norms.append(float(metrics["grad_norm"]))
+        tokens.append(float(metrics["tokens"]))
+        per_step.append([kern.launches - b for kern, b in zip(kernels,
+                                                               counts)])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    card = torch.cuda.get_device_properties(0).total_memory / 1e9
+    launches = {kern.symbol: kern.launches for kern in kernels + fma_only}
+    n_attn = cfg.n_periods * sum(m == "attn" for m, _ in cfg.pattern)
+    want = [2 * n_attn, n_attn, n_attn]
+    # the CE's tokens: each text token predicted from the position before
+    # it (LLaVA's first from the last patch), the first of a sequence
+    # without patches predicted from nothing
+    vision = cfg.frontend == "vision"
+    text = ZOO_TRAIN_SEQ - (cfg.frontend_tokens if vision else 0)
+    want_tokens = text if vision else text - 1
+    if per_step != [want] * ZOO_TRAIN_STEPS \
+            or any(kern.launches for kern in fma_only):
+        raise AssertionError(f"{arch}: launches per step {per_step}, "
+                             f"expected {want}; FMA forward, dq, dk/dv: "
+                             f"{[k.launches for k in fma_only]}")
+    if not all(map(math.isfinite, losses + norms)) or peak >= card \
+            or tokens != [want_tokens] * ZOO_TRAIN_STEPS:
+        raise AssertionError(f"{arch}: losses {losses}, norms {norms}, "
+                             f"peak {peak} GB, tokens {tokens}")
+    names = ["/".join(q) for q in leaf_paths(state.params)]
+    moved = [n for n, old, new in zip(names, before,
+                                      tree_leaves(state.params))
+             if not torch.equal(old.to(dev), new)]
+    del before
+    out = []
+    step_profile = profile(lambda: out.append(step_fn(state, batches[-1])),
+                           top=12)
+    del out
+    steady = step_s[1:]
+    line = {"arch": arch, "impl": {"attn_impl": "flash"},
+            "n_layers": cfg.n_layers, "full_n_layers": full.n_layers,
+            # the reference's train_4k cell: 256 sequences of 4,096
+            "reduced": {"n_layers": [full.n_layers, cfg.n_layers],
+                        "grad_accum": [full.grad_accum, 1],
+                        "tokens_per_step": [256 * ZOO_TRAIN_SEQ,
+                                            ZOO_TRAIN_SEQ]},
+            **grads_line, "grads_vs_plain_peak_mem_gb": grads_peak,
+            "steps": ZOO_TRAIN_STEPS, "batch": 1, "seq_len": ZOO_TRAIN_SEQ,
+            "text_tokens": text, "optimizer": cfg.optimizer,
+            "launches": launches, "launches_per_step": per_step[0],
+            "losses": losses, "grad_norms": norms, "loss_tokens": tokens,
+            "step_s": step_s,
+            "steady_step_s_mean": sum(steady) / len(steady),
+            "steady_tokens_per_s": ZOO_TRAIN_SEQ * len(steady) / sum(steady),
+            "peak_mem_gb": peak, "card_mem_gb": card,
+            "params": cfg.param_count(),
+            "leaves_moved": len(moved), "leaves": len(names),
+            "leaves_unmoved": sorted(set(names) - set(moved)),
+            "step_profile": step_profile}
+    if moe_line is not None:
+        line["moe_grads"] = moe_line
+    del state, step_fn, batches
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def jamba_train_phase(dev, flash_kernels) -> dict:
+    """``[lm train jamba]``: Jamba's smoke config (one period: 7 mamba
+    blocks through the chunked scan, ``ssd_impl="xla"``; 1 attention block
+    on the FMA flash kernels, dh 16; MoE every other block) in fp32, one
+    train step on the card against the same step on the CPU from the same
+    weights, AdamW state (``JAMBA_TRAIN_STEP``, random moments) and batch,
+    TF32 off: the loss and every gradient leaf within
+    ``JAMBA_TRAIN_RTOL`` of that leaf's max|.|, the optimizer's update
+    (the parameter change before it is rounded into the parameters) and
+    the parameters after ``make_train_step`` the same; the forward, dq and
+    dk/dv launched once each and ``ssd_intra`` never; and, as a control
+    that must FAIL a router's gradient, the card's loss without the aux
+    term."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.ssd import ops as dops
+    from repro_torch.launch import steps
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.train.train_state import make_tx, train_state_from_numpy
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+    cfg = replace(get_smoke_config("jamba_1_5_large_398b"), attn_impl="flash")
+    # a mid-training AdamW state (the warmup's last step, random moments),
+    # as the CPU tests take it: at step 0 the update is lr · g / (|g| +
+    # eps), a sign that gradient noise near 0 flips
+    params = tree_map(lambda a: a.numpy(), init_params(
+        steps.model_specs(cfg), torch.Generator().manual_seed(SEED),
+        cfg.dtype, "cpu"))
+    rng = np.random.default_rng(SEED)
+    mu = tree_map(lambda a: (1e-3 * rng.standard_normal(a.shape)).astype(
+        np.float32), params)
+    nu = tree_map(lambda a: (1e-6 * rng.random(a.shape) + 1e-8).astype(
+        np.float32), params)
+    cpu_state, card_state = (train_state_from_numpy(
+        params, cfg, mu, nu, step=JAMBA_TRAIN_STEP, device=d)
+        for d in ("cpu", dev))
+    tokens = torch.randint(0, cfg.vocab, (JAMBA_BATCH, JAMBA_SEQ),
+                           generator=torch.Generator().manual_seed(SEED))
+    batches = {"cpu": {"tokens": tokens, "labels": tokens},
+               "card": {"tokens": tokens.to(dev), "labels": tokens.to(dev)}}
+    names = ["/".join(q) for q in leaf_paths(cpu_state.params)]
+
+    def rel_errs(got, want):
+        return {n: float((g.cpu() - w).abs().max())
+                / max(float(w.abs().max()), 1e-30)
+                for n, g, w in zip(names, tree_leaves(got),
+                                   tree_leaves(want))}
+
+    def grads(c, state, where):
+        loss_fn = steps._loss_fn(c)
+        return value_and_grad(lambda p: loss_fn(p, batches[where]),
+                              state.params, has_aux=True)
+
+    (l_cpu, _), g_cpu = grads(cfg, cpu_state, "cpu")
+    kernels = (*flash_kernels, dops.SSD_INTRA)
+    for kern in kernels:
+        kern.launches = 0
+    (l_card, _), g_card = grads(cfg, card_state, "card")
+    torch.cuda.synchronize()
+    launches = {kern.symbol: kern.launches for kern in kernels}
+    loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    grad_errs = rel_errs(g_card, g_cpu)
+    (_, _), g_ctl = grads(replace(cfg, router_aux_coef=0.0), card_state,
+                          "card")
+    control = {n: e for n, e in rel_errs(g_ctl, g_cpu).items()
+               if n.endswith("router")}
+    del g_ctl
+    upd = {}
+    for where, state, g in (("cpu", cpu_state, g_cpu),
+                            ("card", card_state, g_card)):
+        fresh = tree_map(lambda a: a.clone(), g)
+        upd[where] = make_tx(cfg).update(fresh, tree_map(
+            lambda a: a.clone(), state.opt_state), state.params)[0]
+    update_errs = rel_errs(upd["card"], upd["cpu"])
+    new = {where: steps.make_train_step(cfg)(state, batches[where])[0]
+           for where, state in (("cpu", cpu_state), ("card", card_state))}
+    param_errs = rel_errs(new["card"].params, new["cpu"].params)
+    worst = {k: max(v.values()) for k, v in (
+        ("grads", grad_errs), ("update", update_errs),
+        ("params", param_errs))}
+    want = {flash_kernels[0].symbol: 1, flash_kernels[1].symbol: 1,
+            flash_kernels[2].symbol: 1, dops.SSD_INTRA.symbol: 0}
+    if launches != want or loss_rel > JAMBA_TRAIN_RTOL \
+            or max(worst.values()) > JAMBA_TRAIN_RTOL:
+        raise AssertionError(f"jamba train: launches {launches} (want "
+                             f"{want}), loss {loss_rel}, worst {worst}")
+    if min(control.values()) <= JAMBA_TRAIN_RTOL:
+        raise AssertionError(f"jamba train: the no-aux control passed a "
+                             f"router's limit: {control}")
+    return {"config": cfg.name, "B": JAMBA_BATCH, "S": JAMBA_SEQ,
+            "dtype": "float32", "launches": launches,
+            "loss_card": float(l_card), "loss_cpu": float(l_cpu),
+            "loss_rel": loss_rel, "limit": JAMBA_TRAIN_RTOL,
+            "worst": worst,
+            "worst_leaf": {k: max(v, key=v.get) for k, v in (
+                ("grads", grad_errs), ("update", update_errs),
+                ("params", param_errs))},
+            "control_no_aux_router": control}
+
+
+class AtenCount:
+    """A dispatch mode counting the aten ops named in ``ops``."""
+
+    def __init__(self, ops):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        outer = self
+        self.counts = {str(op): 0 for op in ops}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if str(func) in outer.counts:
+                    outer.counts[str(func)] += 1
+                return func(*args, **(kwargs or {}))
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def remat_dots_phase(dev) -> dict:
+    """``[remat dots]``: Phi-4-mini at full width, bf16, flash, one
+    micro-batch of phase 13's shape (1 x ``TRAIN_SEQ``), one
+    ``value_and_grad`` of the loss under ``remat_policy="full"`` and one
+    under ``"dots"`` from the same params: the gradients ``torch.equal``;
+    each policy's ``aten.mm`` / ``aten.addmm`` calls in the forward and
+    the backward (a dispatch-mode count, in a run of its own), its flash
+    launches, its time and peak memory.  The dots backward must launch
+    fewer products: it reruns none of the periods' ``mm``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.tree import tree_leaves, tree_map
+    base = replace(get_config("phi4_mini_3_8b"), attn_impl="flash",
+                   remat=True)
+    params = init_params(steps.model_specs(base),
+                         torch.Generator(device=dev).manual_seed(SEED),
+                         base.dtype, dev)
+    raw = next(iter(TokenStream(base.vocab, 1, TRAIN_SEQ, seed=SEED)))
+    tokens = torch.from_numpy(raw["tokens"]).to(dev)
+    batch = {"tokens": tokens, "labels": tokens}
+    kernels = (aops.FLASH_TC, aops.FLASH_BWD_DQ_TC, aops.FLASH_BWD_DKV_TC)
+    out, grads = {}, {}
+    for policy in ("full", "dots"):
+        cfg = replace(base, remat_policy=policy)
+        loss_fn = steps._loss_fn(cfg)
+
+        def run(count=False):
+            leaves = [p.detach().requires_grad_(True)
+                      for p in tree_leaves(params)]
+            it = iter(leaves)
+            tracked = tree_map(lambda _: next(it), params)
+            ops = lm.DOTS_SAVEABLE
+            fwd, bwd = AtenCount(ops), AtenCount(ops)
+            with torch.enable_grad():
+                with fwd if count else nullcontext():
+                    loss, _ = loss_fn(tracked, batch)
+                with bwd if count else nullcontext():
+                    g = torch.autograd.grad(loss, leaves)
+            return g, fwd.counts, bwd.counts
+
+        _, fwd, bwd = run(count=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        g, _, _ = run()
+        torch.cuda.synchronize()
+        out[policy] = {"s": time.perf_counter() - t0,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated()
+                       / 1e9,
+                       "forward_products": fwd, "backward_products": bwd,
+                       "launches": {k.symbol: k.launches for k in kernels}}
+        grads[policy] = g
+        del g
+    equal = all(torch.equal(a, b) for a, b in zip(grads["full"],
+                                                   grads["dots"]))
+    del grads, params
+    torch.cuda.empty_cache()
+    n = base.n_periods
+    full_b, dots_b = (sum(out[p]["backward_products"].values())
+                      for p in ("full", "dots"))
+    if not equal or not dots_b < full_b or any(
+            out[p]["launches"] != {kernels[0].symbol: 2 * n,
+                                   kernels[1].symbol: n,
+                                   kernels[2].symbol: n}
+            for p in out):
+        raise AssertionError(f"remat dots: gradients equal {equal}, "
+                             f"{json.dumps(out)}")
+    return {"arch": base.name, "B": 1, "S": TRAIN_SEQ,
+            "gradients_equal": equal,
+            "backward_products_saved": full_b - dots_b, **out}
+
+
+def int8_kv_phase(dev) -> dict:
+    """``[int8 kv]``: Phi-4-mini at full width, bf16, B ``INT8_BATCH``: a
+    prompt of ``INT8_PROMPT`` tokens fed one step at a time into an
+    ``init_caches`` int8 cache (``kv_cache_quant``), then ``INT8_NEW``
+    greedy tokens.  The logits after the last prompt token against the
+    bf16 path (a prefill of the first ``INT8_PROMPT - 1`` tokens and one
+    decode step of the last) within ``INT8_REL_LIMIT`` (max-abs relative,
+    the reference's test); beside it the same prompt fed step by step
+    into a bf16 ``init_caches`` cache (the quantization alone); as a
+    control that must FAIL the limit, the last step on a copy of the int8
+    cache with its scales read one kv head off.  Then ``serve_loop`` on
+    the int8 config; the caches' bytes and a decode step's time on each
+    cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.layers import QuantKVCache
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.serve.batching import Batcher
+    from repro_torch.serve.decode import serve_loop
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("phi4_mini_3_8b")
+    cfg_q = replace(cfg, kv_cache_quant=True)
+    params = init_params(steps.model_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(SEED),
+                         cfg.dtype, dev)
+    raw = next(iter(TokenStream(cfg.vocab, INT8_BATCH, INT8_PROMPT,
+                                seed=SEED)))
+    prompt = torch.from_numpy(raw["tokens"]).to(dev)
+    t_max, last = INT8_PROMPT + INT8_NEW, INT8_PROMPT - 1
+    B = INT8_BATCH
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()) \
+            / float(b.float().abs().max())
+
+    with torch.no_grad():
+        _, caches, pos = lm.prefill(params, cfg, prompt[:, :-1], t_max=t_max)
+        ref, _ = lm.decode_step(params, cfg, caches, prompt[:, -1:], pos)
+        cq = lm.init_caches(cfg_q, B, t_max, device=dev)
+        c16 = lm.init_caches(cfg, B, t_max, device=dev)
+        for t in range(last):
+            lm.decode_step(params, cfg_q, cq, prompt[:, t:t + 1], t)
+            lm.decode_step(params, cfg, c16, prompt[:, t:t + 1], t)
+        ctl = [QuantKVCache(c.k.clone(), c.v.clone(),
+                            c.k_scale.roll(1, dims=-1),
+                            c.v_scale.roll(1, dims=-1)) for c in cq]
+        logits_c, _ = lm.decode_step(params, cfg_q, ctl, prompt[:, last:],
+                                     last)
+        del ctl
+        logits, _ = lm.decode_step(params, cfg_q, cq, prompt[:, last:], last)
+        logits16, _ = lm.decode_step(params, cfg, c16, prompt[:, last:],
+                                     last)
+        ids = []
+        token = logits.argmax(-1)[:, None]
+        for i in range(INT8_NEW):
+            ids.append(token)
+            out, _ = lm.decode_step(params, cfg_q, cq, token, INT8_PROMPT + i)
+            token = out.argmax(-1)[:, None]
+        ids = torch.cat(ids, dim=1)
+        tok = prompt[:, :1]
+        ms_q = time_ms(lambda: lm.decode_step(params, cfg_q, cq, tok,
+                                              t_max - 1), 10)
+        ms_16 = time_ms(lambda: lm.decode_step(params, cfg, c16, tok,
+                                               t_max - 1), 10)
+    got = {"vs_bf16_prefill_path": rel(logits, ref),
+           "vs_bf16_stepwise_cache": rel(logits, logits16),
+           "bf16_stepwise_vs_prefill_path": rel(logits16, ref),
+           "control_scales_one_head_off": rel(logits_c, ref)}
+    q_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(cq))
+    b_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(c16))
+    if not (got["vs_bf16_prefill_path"] <= INT8_REL_LIMIT
+            and bool(torch.isfinite(logits).all())
+            and int(ids.min()) >= 0 and int(ids.max()) < cfg.vocab):
+        raise AssertionError(f"int8 kv: {got}")
+    if got["control_scales_one_head_off"] <= INT8_REL_LIMIT:
+        raise AssertionError(f"int8 kv: the scale control passed: {got}")
+    del caches, cq, c16
+    torch.cuda.empty_cache()
+    # launch.serve.run's defaults: 8 requests of 8 tokens, 16 new each
+    rng = torch.Generator().manual_seed(SEED)
+    served = {}
+    for name, c in (("int8", cfg_q), ("bf16", cfg)):
+        batcher = Batcher(max_batch=B)
+        for _ in range(8):
+            batcher.submit(torch.randint(0, c.vocab, (8,),
+                                         generator=rng).tolist(),
+                           max_new_tokens=16)
+        t0 = time.perf_counter()
+        done, n_steps, tps = serve_loop(params, c, batcher, t_max=32)
+        torch.cuda.synchronize()
+        if len(done) != 8 or any(len(r.tokens) != 16 for r in done):
+            raise AssertionError(f"int8 kv: serve_loop {name}: {len(done)}")
+        served[name] = {"requests": len(done), "steps": n_steps,
+                        "tokens_per_s": tps,
+                        "wall_s": time.perf_counter() - t0}
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "B": B, "prompt": INT8_PROMPT,
+            "new_tokens": INT8_NEW, "t_max": t_max, **got,
+            "limit": INT8_REL_LIMIT, "generated": list(ids.shape),
+            "cache_bytes_int8_with_scales": q_bytes,
+            "cache_bytes_bf16": b_bytes,
+            "cache_bytes_ratio": q_bytes / b_bytes,
+            "decode_step_ms_int8": ms_q, "decode_step_ms_bf16": ms_16,
+            "serve_loop": served}
 
 
 def sharded_phase(dev, cfg, fcfg, fused: dict) -> tuple[dict, dict]:
@@ -6039,6 +6708,42 @@ def main() -> int:
         print(f"[{tag}] {smi} {json.dumps(line)}", flush=True)
     w_flash = line                   # [whisper flash]'s, the loop's last
 
+    # 20. the LM zoo's MoE and vision families trained at full width; the
+    # int8 KV cache and the "dots" remat policy
+    torch.cuda.empty_cache()
+    t20 = t0 = time.perf_counter()
+    zt_fwd, zt_dq, zt_dkv = zoo_kernel_rows(dev)
+    for rows_by_arch in (zt_fwd, zt_dq, zt_dkv):
+        for row in rows_by_arch.values():
+            print(f"[kernels] {json.dumps(row)}", flush=True)
+    print(f"[zoo train kernels] {smi} seconds "
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    zoo_train = {}
+    for tag, arch in (("lm train qwen3_moe", "qwen3_moe_235b_a22b"),
+                      ("lm train llama4_scout", "llama4_scout_17b_a16e"),
+                      ("lm train llava", "llava_next_34b")):
+        t0 = time.perf_counter()
+        line, zoo_train[arch] = zoo_train_phase(dev, arch)
+        line["seconds"] = time.perf_counter() - t0
+        print(f"[{tag}] {smi} {json.dumps(line)}", flush=True)
+    for tag, phase in (
+            ("lm train jamba", lambda: jamba_train_phase(
+                dev, (aops.FLASH, aops.FLASH_BWD_DQ, aops.FLASH_BWD_DKV))),
+            ("remat dots", lambda: remat_dots_phase(dev)),
+            ("int8 kv", lambda: int8_kv_phase(dev)),
+            ("zoo train launchers", lambda: {"train": [
+                train_smoke(dev, arch, steps=2) for arch in (
+                    "qwen3_moe_235b_a22b", "llava_next_34b")]})):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        line = phase()
+        line["seconds"] = time.perf_counter() - t0
+        print(f"[{tag}] {smi} {json.dumps(line)}", flush=True)
+        if tag == "lm train jamba":
+            jamba_train = line
+    print(f"[zoo train] {smi} phase 20 seconds "
+          f"{time.perf_counter() - t20:.1f}", flush=True)
+
     serving_launches = launches
     rows = []
     for row, path in ((probe, "serving"), (sample, "training"),
@@ -6132,6 +6837,19 @@ def main() -> int:
                 for name, r in w_fwd.items()}
             row["launches_by_path"].update(_whisper_launches(
                 w_flash, aops.FLASH_TC.symbol, aops.FLASH.symbol))
+            row["zoo_train"] = {arch: {k: r[k] for k in (
+                "kernel", "shape", "max_abs_err", "tol",
+                "bit_identical_rerun", *timing_keys, "bound_by",
+                "control_mask_flip_max_abs_err")}
+                for arch, r in zt_fwd.items()}
+            row["launches_by_path"].update({
+                f"lm train {arch} ({ZOO_TRAIN_STEPS} steps, "
+                f"{ZOO_TRAIN_LAYERS[arch]} layers)":
+                    zoo_train[arch][aops.FLASH_TC.symbol]
+                for arch in ZOO_TRAIN_LAYERS})
+            row["fp32"]["launches_by_path"][
+                "lm train jamba (smoke, one step)"] = \
+                jamba_train["launches"][aops.FLASH.symbol]
         else:
             row["launches_by_path"] = {
                 "lm mamba2 prefill": lm_run["launches"],
@@ -6140,10 +6858,10 @@ def main() -> int:
             row["jamba"] = {k: ssd_jamba[k] for k in (
                 "shape", "max_abs_err", *timing_keys, "bound_by")}
         rows.append(row)
-    for row, nemo_row, w_rows, name, src, tpu, symbol in (
-            (bwd_dq, nemo_dq, w_dq, "flash_attention_bwd_dq",
+    for row, nemo_row, w_rows, zoo_rows, name, src, tpu, symbol in (
+            (bwd_dq, nemo_dq, w_dq, zt_dq, "flash_attention_bwd_dq",
              "attention_bwd_tc.cu", "bwd.py:47", "flash_attention_bwd_dq_tc"),
-            (bwd_dkv, nemo_dkv, w_dkv, "flash_attention_bwd_dkv",
+            (bwd_dkv, nemo_dkv, w_dkv, zt_dkv, "flash_attention_bwd_dkv",
              "attention_bwd_tc.cu", "bwd.py:74",
              "flash_attention_bwd_dkv_tc")):
         row = dict(row, name=name, route="cuda",
@@ -6161,11 +6879,20 @@ def main() -> int:
             "kernel", "shape", "max_abs_err", "bit_identical_rerun",
             *timing_keys, "bound_by", "control_mask_flip_max_abs_err")}
             for shape, r in w_rows.items()}
+        row["zoo_train"] = {arch: {k: r[k] for k in (
+            "kernel", "shape", "max_abs_err", "bit_identical_rerun",
+            *timing_keys, "bound_by", "control_mask_flip_max_abs_err")}
+            for arch, r in zoo_rows.items()}
         row["launches_by_path"] = {
             "lm phi4 train (4 steps)": row["launches"],
             f"lm train nemotron ({NEMOTRON_TRAIN_STEPS} steps)":
                 nemo_train["launches"][symbol],
-            **_whisper_launches(w_flash, symbol, symbol.removesuffix("_tc"))}
+            **_whisper_launches(w_flash, symbol, symbol.removesuffix("_tc")),
+            **{f"lm train {arch} ({ZOO_TRAIN_STEPS} steps, "
+               f"{ZOO_TRAIN_LAYERS[arch]} layers)": zoo_train[arch][symbol]
+               for arch in ZOO_TRAIN_LAYERS},
+            "lm train jamba (smoke, one step; FMA)": jamba_train[
+                "launches"][symbol.removesuffix("_tc")]}
         if row["launches"] < 1:
             raise AssertionError(f"{name} never launched on its path")
         rows.append(row)

@@ -2,7 +2,9 @@
 single-device part of ``src/repro/launch/steps.py``.
 
 ``make_train_step(cfg)`` returns ``train_step(state, batch) -> (state,
-metrics)``: the loss and its gradients by autograd, micro-batched over
+metrics)`` for every config of the registry: the loss and its gradients
+by autograd (MoE blocks included: through the router's renormalized
+gates and the aux term, the experts and the dispatch), micro-batched over
 ``cfg.grad_accum`` with the gradients summed in fp32, then the optimizer
 of ``make_tx(cfg)`` (its own, with the default 100,000-step schedule, as
 the reference builds it).  With one micro-batch the optimizer takes
@@ -23,11 +25,14 @@ embeds and an encoder-decoder config's ``batch["frames"]`` as the audio
 (``models.whisper``: the self caches padded to ``t_max or
 tokens.shape[1]``), and ``decode_step(params, caches, token, pos) ->
 (logits, caches)``, which updates the caches IN PLACE
-(``lm.decode_step``, ``whisper.whisper_decode_step``).  An
-encoder-decoder config trains on ``batch["frames"]``, ``["tokens"]`` and
-``["labels"]`` (``whisper.whisper_loss``).  MoE and vision training
-(``ROADMAP.md`` A7.3) and the abstract sharded inputs of the reference's
-dry-run (A7.7) are not ported.
+(``lm.decode_step``, ``whisper.whisper_decode_step``).  A vision config
+trains on ``batch["patches"]`` [B, frontend_tokens, D] (the prefix
+embeds), ``["tokens"]`` and ``["labels"]`` over the whole sequence (the
+prefix labelled -1); an encoder-decoder config on ``batch["frames"]``,
+``["tokens"]`` and ``["labels"]`` (``whisper.whisper_loss``).  Every
+entry of a batch splits into the micro-batches along its first axis.
+The abstract sharded inputs of the reference's dry-run (``ROADMAP.md``
+A7.7) are not ported.
 """
 
 from __future__ import annotations
@@ -49,26 +54,15 @@ def model_specs(cfg):
     return whisper.whisper_specs(cfg) if cfg.is_encdec else lm.lm_specs(cfg)
 
 
-def untrainable(cfg) -> str | None:
-    """Why the port does not train ``cfg`` yet (``ROADMAP.md`` A7.3), or
-    None."""
-    if cfg.is_encdec:
-        return None
-    if cfg.frontend is not None:
-        return f"training with a {cfg.frontend} frontend"
-    if any(ffn == "moe" for _, ffn in cfg.pattern):
-        return "training MoE blocks"
-    return None
-
-
 def _loss_fn(cfg) -> Callable:
-    why = untrainable(cfg)
-    if why:
-        raise NotImplementedError(f"{cfg.name}: {why} is ROADMAP.md A7.3")
     if cfg.is_encdec:
         def loss(params, batch):
             return whisper.whisper_loss(params, cfg, batch["frames"],
                                         batch["tokens"], batch["labels"])
+    elif cfg.frontend == "vision":
+        def loss(params, batch):
+            return lm.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                              batch["patches"])
     else:
         def loss(params, batch):
             return lm.lm_loss(params, cfg, batch["tokens"], batch["labels"])

@@ -10,16 +10,20 @@ a ring table through ``Client.send_step``, as the reference does).
 As in the reference, the state is initialised with ``make_tx(cfg,
 total_steps=steps)`` but the step builds its own ``make_tx(cfg)`` with
 the default 100,000-step schedule: its first learning rate is
-3e-4 / 2000 = 1.5e-7 (``ROADMAP.md`` §C).
+3e-4 / 2000 = 1.5e-7 (``ROADMAP.md`` §C).  Every decoder-only config
+trains, MoE and vision ones too.  A vision config's batch is the
+reference launcher's: ``patches`` zeros [batch, frontend_tokens,
+d_model] in ``cfg.dtype`` on the device in front of the ``seq_len``
+tokens, and ``labels`` with a -1 prefix of ``frontend_tokens``, so the
+loss counts the text tokens alone.
 
 Runs on the card by default (``--device cpu`` for the plain PyTorch path)
 and at the config's full width (``--full`` spells that default out);
 ``--smoke`` takes the reduced same-family config (the reference's
 launcher defaults to it and takes ``--full`` for the other).  ``attn_impl`` overrides the config's
 attention plan (``"flash"``: the hand-written forward and backward
-kernels).  Training MoE and vision models is ``ROADMAP.md`` A7.3
-(``steps.untrainable``); an encoder-decoder config is refused as the
-reference's launcher refuses it (``SystemExit``): Whisper trains through
+kernels).  An encoder-decoder config is refused as the reference's
+launcher refuses it (``SystemExit``): Whisper trains through
 ``launch.steps.make_train_step``.
 
 Durable checkpoints go through ``train.checkpoint.Checkpointer``, in the
@@ -51,9 +55,9 @@ from ..data.pipeline import PrefetchIterator, TokenStream
 from ..device import resolve_device
 from ..train import checkpoint as ckpt
 from ..train.train_state import TrainState, init_train_state, make_tx
-from .steps import make_train_step, model_specs, untrainable
+from .steps import make_train_step, model_specs
 
-__all__ = ["TrainRun", "run", "parser", "main"]
+__all__ = ["TrainRun", "run", "vision_batch", "parser", "main"]
 
 
 class TrainRun(NamedTuple):
@@ -61,7 +65,7 @@ class TrainRun(NamedTuple):
     losses: list[float]
     grad_norms: list[float]
     step_s: list[float]            # wall time of each step (synchronised)
-    tokens_per_s: float            # over the steps run, their wall time
+    tokens_per_s: float            # text tokens over the steps' wall time
     server: StoreServer | None     # the capture store, with --capture
     start: int = 0                 # the first step run (> 0 on a resume)
 
@@ -77,9 +81,6 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
         cfg = replace(cfg, attn_impl=attn_impl)
     if cfg.is_encdec:
         raise SystemExit("use examples/ for enc-dec training demos")
-    why = untrainable(cfg)
-    if why:
-        raise NotImplementedError(f"{cfg.name}: {why} is ROADMAP.md A7.3")
     specs = model_specs(cfg)
     tx = make_tx(cfg, total_steps=steps)
     state = init_train_state(torch.Generator(device=dev).manual_seed(seed),
@@ -111,6 +112,8 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
     norms: list[float] = []
     try:
         for i, batch_dev in zip(range(start, steps), stream):
+            if cfg.frontend == "vision":
+                batch_dev = vision_batch(cfg, batch_dev)
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch_dev)
             losses.append(float(metrics["loss"]))    # waits for the step
@@ -145,6 +148,18 @@ def run(arch: str, steps: int = 50, batch: int = 4, seq_len: int = 64,
     return TrainRun(state, losses, norms, times,
                     len(times) * batch * seq_len / wall if times else 0.0,
                     server, start)
+
+
+def vision_batch(cfg, batch: dict) -> dict:
+    """The token batch with the stub frontend's patch embeddings in front
+    (zeros [B, frontend_tokens, d_model] in ``cfg.dtype``) and the labels
+    with a -1 prefix over them, on the batch's device."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, P = tokens.shape[0], cfg.frontend_tokens
+    prefix = torch.full((B, P), -1, dtype=labels.dtype, device=labels.device)
+    return {"tokens": tokens, "labels": torch.cat([prefix, labels], dim=1),
+            "patches": torch.zeros((B, P, cfg.d_model), dtype=cfg.dtype,
+                                   device=tokens.device)}
 
 
 def parser() -> argparse.ArgumentParser:

@@ -7,10 +7,10 @@ pairs — e.g. dense GQA = ``(("attn","mlp"),)``, Qwen3-MoE =
 hybrid = 7 mamba + 1 attention with MoE every other layer.  The fields
 are the reference's, so a config carries across field for field;
 ``dtype`` is a ``torch.dtype``.  The port runs every family, the
-encoder-decoder Whisper included; the mesh levers (``pad_heads``) and
-the int8 KV cache (``kv_cache_quant``) are kept so configs stay
-comparable, and the modules that would read them raise (``ROADMAP.md``
-A7.4, A7.5).
+encoder-decoder Whisper included, with the single-device levers
+(``kv_cache_quant``, ``remat_policy="dots"``); the mesh lever
+``pad_heads`` is kept so configs stay comparable, and the attention
+that would read it raises (``ROADMAP.md`` A7.5).
 """
 
 from __future__ import annotations
@@ -80,7 +80,7 @@ class ModelConfig:
     #                                    over their plain versions
     ssd_impl: str = "xla"              # "kernel": intra-chunk SSD kernel
     #                                    ("kernel_interpret" its alias)
-    kv_cache_quant: bool = False       # int8 KV cache (ROADMAP A7.4)
+    kv_cache_quant: bool = False       # int8 KV cache (init_caches)
     moe_ep: bool = True
     serve_replicate_params: bool = False
     serve_2d_tp: bool = False

@@ -18,11 +18,13 @@ Cross-attention (Whisper) is ``attention(..., kv=enc_out)``: q from x,
 k and v from ``kv``, through the same plan, so a flash config sends
 decoder queries (S) against encoder keys (T != S) through the kernels.
 
-Decode attends one query against a fixed-capacity bf16 ``KVCache`` with a
-length mask and writes the new K/V into the cache IN PLACE; with
+Decode attends one query against a fixed-capacity cache with a length
+mask and writes the new K/V into the cache IN PLACE; with
 ``update_cache=False`` (Whisper's precomputed cross K/V) it writes
-nothing.  Softmax
-statistics accumulate in fp32, as in the reference (its
+nothing.  The cache is a ``KVCache`` in the model dtype or the
+reference's int8 ``QuantKVCache`` (per-(token, kv-head) fp32 scales,
+``_quantize_kv``), dequantized to the model dtype before the products.
+Softmax statistics accumulate in fp32, as in the reference (its
 ``preferred_element_type=float32`` dots are fp32 products here).
 
 ``ct_cast`` is the reference's cotangent cast (identity forward; the
@@ -31,8 +33,8 @@ Function.  Torch's autograd already casts every cotangent to its
 tensor's dtype, so in the port it pins what the reference has to pin by
 hand, and changes no number.
 
-Not ported (``ROADMAP.md``): the int8 ``QuantKVCache`` (A7.4) and the TP
-head padding ``_maybe_pad_heads`` (``cfg.pad_heads``, A7.5).
+Not ported (``ROADMAP.md``): the TP head padding ``_maybe_pad_heads``
+(``cfg.pad_heads``, A7.5).
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ from ..parallel.sharding import ParamSpec
 __all__ = ["ct_cast", "rmsnorm", "layernorm", "norm_spec", "apply_norm",
            "rope",
            "attention_specs", "attention", "prefill_attention",
-           "decode_attention", "KVCache", "mlp_specs", "mlp_apply",
+           "decode_attention", "KVCache", "QuantKVCache", "mlp_specs",
+           "mlp_apply",
            "embed_specs"]
 
 NEG_INF = -1e30
@@ -126,6 +129,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 class KVCache(NamedTuple):
     k: torch.Tensor     # [B, T, K·dh] (flattened; see attention_specs)
     v: torch.Tensor
+
+
+class QuantKVCache(NamedTuple):
+    """The reference's int8 KV cache: each (token, kv head) row of dh
+    values stored as int8 with one fp32 scale."""
+    k: torch.Tensor         # int8 [B, T, K·dh]
+    v: torch.Tensor
+    k_scale: torch.Tensor   # fp32 [B, T, K]
+    v_scale: torch.Tensor
+
+    @classmethod
+    def zeros(cls, shape: tuple, n_kv_heads: int, device) -> "QuantKVCache":
+        """A zeroed cache: k, v of ``shape`` (``[..., T, K·dh]``), their
+        scales of ``shape[:-1] + (K,)``."""
+        sshape = tuple(shape[:-1]) + (n_kv_heads,)
+        return cls(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            v_scale=torch.zeros(sshape, dtype=torch.float32, device=device))
 
 
 def attention_specs(cfg, stacked: tuple[int, ...] = (), cross: bool = False
@@ -277,7 +300,17 @@ def prefill_attention(params: dict, cfg, x, positions, use_rope: bool = True):
     return _out_proj(params, out, cfg), cache
 
 
-def decode_attention(params: dict, cfg, x: torch.Tensor, cache: KVCache,
+def _quantize_kv(x: torch.Tensor):
+    """x [B, K, dh] → (int8 [B, K·dh], fp32 scale [B, K]): max|x| over dh
+    / 127, floored at 1e-8, rounded half to even and clipped to ±127, as
+    the reference's ``_quantize_kv``."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8).reshape(x.shape[0], -1), scale
+
+
+def decode_attention(params: dict, cfg, x: torch.Tensor, cache,
                      pos: int, update_cache: bool = True,
                      use_rope: bool = True):
     """One-token decode: x [B,1,D], cache [B,T,K·dh] (flattened), pos int.
@@ -285,28 +318,39 @@ def decode_attention(params: dict, cfg, x: torch.Tensor, cache: KVCache,
     Writes the new K/V at ``pos`` into ``cache`` IN PLACE (the reference
     returns an updated copy; at Phi-4-mini's width a copy per layer and
     step would move the whole cache) and attends over positions ≤ pos.
-    With ``update_cache=False`` it projects q alone, writes nothing and
+    ``cache`` is a ``KVCache`` or a ``QuantKVCache``: into the int8 one
+    the new K/V go quantized, their scales beside them, and the whole
+    cache is read back as ``int8 · scale`` in ``cfg.dtype``.  With
+    ``update_cache=False`` it projects q alone, writes nothing and
     attends over the cache's positions ≤ pos (Whisper's cross K/V, shared
     by every step).  Returns (out, cache).  A ``pos`` past the cache
     raises ``IndexError`` where it writes (the reference's
     ``dynamic_update_slice`` would clamp it).
     """
-    if not isinstance(cache, KVCache):
-        raise NotImplementedError("the int8 QuantKVCache is ROADMAP.md A7.4")
     B = x.shape[0]
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pos = int(pos)
+    quant = isinstance(cache, QuantKVCache)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     if update_cache:
         q, k_new, v_new = _project_qkv(params, cfg, x, positions, use_rope)
-        kd = K * dh
-        cache.k[:, pos] = k_new.reshape(B, kd).to(cache.k.dtype)
-        cache.v[:, pos] = v_new.reshape(B, kd).to(cache.v.dtype)
+        if quant:
+            for new, vals, scales in ((k_new, cache.k, cache.k_scale),
+                                      (v_new, cache.v, cache.v_scale)):
+                qv, sc = _quantize_kv(new.reshape(B, K, dh))
+                vals[:, pos] = qv
+                scales[:, pos] = sc
+        else:
+            cache.k[:, pos] = k_new.reshape(B, K * dh).to(cache.k.dtype)
+            cache.v[:, pos] = v_new.reshape(B, K * dh).to(cache.v.dtype)
     else:
         q = _project_q(params, cfg, x, positions, use_rope)
     T = cache.k.shape[1]
     k = cache.k.reshape(B, T, K, dh)
     v = cache.v.reshape(B, T, K, dh)
+    if quant:
+        k = k.to(cfg.dtype) * cache.k_scale[..., None].to(cfg.dtype)
+        v = v.to(cfg.dtype) * cache.v_scale[..., None].to(cfg.dtype)
     qg = q.reshape(B, K, H // K, dh)
     logits = torch.einsum("bkgd,btkd->bkgt", qg.float(),
                           k.float()) / (dh ** 0.5)

@@ -14,17 +14,21 @@ Entry points:
                  summed over the MoE blocks; 0 without them), each
                  period rematerialized in the backward when ``cfg.remat``
                  (``torch.utils.checkpoint``, non-reentrant: the
-                 reference's ``jax.checkpoint`` policy ``"full"``)
+                 reference's ``jax.checkpoint``; under ``remat_policy=
+                 "dots"`` the products without batch dimensions are kept,
+                 ``DOTS_SAVEABLE``)
   lm_logits    — hidden states → logits
   lm_loss      — causal cross-entropy, full or chunked over the sequence
   prefill      — forward + per-layer KV/Mamba caches for serving
   decode_step  — one-token serve step against the caches (IN PLACE)
-  init_caches  — zeroed caches for the continuous-batching loop
+  init_caches  — zeroed caches for the continuous-batching loop (int8
+                 ``QuantKVCache``s under ``cfg.kv_cache_quant``)
 
 Multimodal prefix (the LLaVA stub): ``extra_embeds`` [B, P, D] is cast
 to ``cfg.dtype`` and concatenated in front of the token embeddings;
 positions run over the whole sequence, and ``prefill`` returns its length
-as ``next_pos``.  The ``"dots"`` remat policy is ``ROADMAP.md`` A7.6.
+as ``next_pos``; a training batch labels the prefix -1, so the loss
+counts the text tokens alone.
 """
 
 from __future__ import annotations
@@ -32,18 +36,39 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
 from . import moe as moe_mod
 from . import ssd as ssd_mod
-from .layers import (KVCache, apply_norm, attention, attention_specs,
-                     ct_cast, decode_attention, embed_specs, mlp_apply,
-                     mlp_specs, norm_spec, prefill_attention)
+from .layers import (KVCache, QuantKVCache, apply_norm, attention,
+                     attention_specs, ct_cast, decode_attention, embed_specs,
+                     mlp_apply, mlp_specs, norm_spec, prefill_attention)
 
 __all__ = ["lm_specs", "forward", "lm_logits", "lm_loss", "prefill",
-           "decode_step", "init_caches"]
+           "decode_step", "init_caches", "DOTS_SAVEABLE"]
+
+# The "dots" remat policy: the outputs of the matrix products without
+# batch dimensions (the projections, the router, the dense MLP) are kept
+# for the backward; everything else is recomputed: ``bmm`` (the plain
+# plan's attention scores, the MoE experts), elementwise ops, and the
+# flash kernels' autograd Functions.  This is what the reference's
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` keeps: a
+# ``pallas_call`` is no dot there, and the experts' ``becd,edf`` has the
+# batch dimension e.
+DOTS_SAVEABLE = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in DOTS_SAVEABLE:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +179,11 @@ def forward(params: dict, cfg, tokens: torch.Tensor,
     Under autograd with ``cfg.remat``, each period runs inside a
     non-reentrant checkpoint: only its input is kept, and the backward
     runs the period's forward again (so the flash kernel launches twice
-    per layer and step).  ``cfg.bf16_grads`` puts ``ct_cast`` at each
+    per layer and step).  With ``remat_policy="dots"`` the checkpoint is
+    selective: the ``DOTS_SAVEABLE`` products' outputs are kept from the
+    forward and the rerun takes them instead of recomputing them; any
+    other policy (``"none"`` too, as in the reference's branch order)
+    keeps the input alone.  ``cfg.bf16_grads`` puts ``ct_cast`` at each
     period's input, as the reference does."""
     x, positions = _embed(params, cfg, tokens, extra_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -171,13 +200,12 @@ def forward(params: dict, cfg, tokens: torch.Tensor,
         return x, a
 
     remat = cfg.remat and torch.is_grad_enabled()
-    if remat and cfg.remat_policy == "dots":
-        raise NotImplementedError("the 'dots' remat policy (save the "
-                                  "matmul outputs) is ROADMAP.md A7.6")
+    extra = {"context_fn": _dots_context} if cfg.remat_policy == "dots" \
+        else {}
     for block_params in _periods(params["blocks"], cfg.n_periods):
         if remat:
             x, a = checkpoint(inner, x, block_params, use_reentrant=False,
-                              preserve_rng_state=False)
+                              preserve_rng_state=False, **extra)
         else:
             x, a = inner(x, block_params)
         aux = aux + a
@@ -253,17 +281,20 @@ def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
 def init_caches(cfg, batch: int, t_max: int, device=None):
     """Zeroed caches: one entry per pattern position, leaves stacked over
     periods.  Attention: ``KVCache`` [n_periods, B, t_max, K·dh] in
-    ``cfg.dtype``; mamba: ``MambaCache``.  ``device`` defaults to the
-    card (``resolve_device``)."""
-    if cfg.kv_cache_quant:
-        raise NotImplementedError("the int8 KV cache (kv_cache_quant) is "
-                                  "ROADMAP.md A7.4")
+    ``cfg.dtype``, or with ``cfg.kv_cache_quant`` the reference's
+    ``QuantKVCache`` (int8 k, v of that shape, fp32 scales [n_periods, B,
+    t_max, K]); mamba: ``MambaCache``.  ``device`` defaults to the card
+    (``resolve_device``)."""
     device = resolve_device(device)
     n = cfg.n_periods
     caches = []
     for mixer, _ in cfg.pattern:
         if mixer == "attn":
             shape = (n, batch, t_max, cfg.n_kv_heads * cfg.head_dim)
+            if cfg.kv_cache_quant:
+                caches.append(QuantKVCache.zeros(shape, cfg.n_kv_heads,
+                                                    device))
+                continue
             caches.append(KVCache(
                 k=torch.zeros(shape, dtype=cfg.dtype, device=device),
                 v=torch.zeros(shape, dtype=cfg.dtype, device=device)))
@@ -317,9 +348,10 @@ def decode_step(params: dict, cfg, caches, token: torch.Tensor, pos):
     """One serve step: token [B,1] at position ``pos`` (an int).
 
     Returns (logits [B,V], caches).  The caches are updated IN PLACE —
-    the new K/V are written at ``pos`` and the mamba conv tails and states
-    replaced — and the same list is returned (the reference returns new
-    caches; copying them each step would move every layer's cache).
+    the new K/V are written at ``pos`` (quantized into an int8
+    ``QuantKVCache``) and the mamba conv tails and states replaced — and
+    the same list is returned (the reference returns new caches; copying
+    them each step would move every layer's cache).
     """
     x = params["embed"][token].to(cfg.dtype)
     cache_periods = [_periods(c, cfg.n_periods) for c in caches]

@@ -28,6 +28,16 @@ first as ``jax.lax.top_k`` returns it (``torch.topk`` promises no order).
 Auxiliary load-balance loss (Switch-style): ``E · Σ_e f_e·P_e`` with f
 the routed fraction and P the mean router probability, in fp32.  A
 Llama-4-style always-on shared expert is ``cfg.shared_expert``.
+
+Under autograd the layer's gradients are ``jax.grad``'s of the
+reference's: to the router through the renormalized gates (the sort's
+backward sends each gate's gradient to the probability it took, as
+``lax.top_k``'s JVP does) and through the aux term's mean probability
+(the routed fraction is a count, with none), to the experts through the
+``bmm``s, to x through the dispatch, the router and the shared expert.
+The dispatch is an out-of-place ``index_add`` and the combine a gather,
+so a dropped pair's zero-weighted row adds to slot C-1's gradient and
+never overwrites it.
 """
 
 from __future__ import annotations
@@ -126,8 +136,8 @@ def moe_apply(params: dict, cfg, x: torch.Tensor,
 
     # ---- dispatch: added, never assigned (see the module docstring) ----
     x_rep = x.repeat_interleave(k, dim=1) * r.keep[..., None].to(x.dtype)
-    buf = torch.zeros((E * B * C, D), dtype=x.dtype, device=x.device)
-    buf.index_add_(0, r.dest.reshape(-1), x_rep.reshape(B * S * k, D))
+    buf = torch.zeros((E * B * C, D), dtype=x.dtype, device=x.device) \
+        .index_add(0, r.dest.reshape(-1), x_rep.reshape(B * S * k, D))
     del x_rep
 
     # ---- expert compute and combine ----

@@ -33,9 +33,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..parallel.sharding import ParamSpec
-from .layers import (KVCache, _full_attention, apply_norm, attention,
-                     attention_specs, decode_attention, mlp_apply, mlp_specs,
-                     norm_spec, prefill_attention)
+from .layers import (KVCache, QuantKVCache, _full_attention, apply_norm,
+                     attention, attention_specs, decode_attention, mlp_apply,
+                     mlp_specs, norm_spec, prefill_attention)
 from .lm import _ce_full, _periods
 
 __all__ = ["CrossCache", "whisper_specs", "encode", "decoder_forward",
@@ -158,14 +158,15 @@ def whisper_loss(params: dict, cfg, frames: torch.Tensor,
 def init_decoder_caches(cfg, batch: int, t_max: int, device=None):
     """Zeroed caches: ``{"self": KVCache [L, B, t_max, K·dh], "cross":
     KVCache [L, B, encoder_ctx, K·dh]}`` in ``cfg.dtype`` on ``device``
-    (default: the card)."""
-    if cfg.kv_cache_quant:
-        raise NotImplementedError("the int8 KV cache (kv_cache_quant) is "
-                                  "ROADMAP.md A7.4")
+    (default: the card); with ``cfg.kv_cache_quant`` both are the
+    reference's int8 ``QuantKVCache`` (fp32 scales [L, B, t, K])."""
     device = resolve_device(device)
     L, kd = cfg.n_layers, cfg.n_kv_heads * cfg.head_dim
 
     def kv(t):
+        if cfg.kv_cache_quant:
+            return QuantKVCache.zeros((L, batch, t, kd), cfg.n_kv_heads,
+                                      device)
         return KVCache(
             k=torch.zeros((L, batch, t, kd), dtype=cfg.dtype, device=device),
             v=torch.zeros((L, batch, t, kd), dtype=cfg.dtype, device=device))

@@ -206,16 +206,27 @@ def test_unported_architectures_and_layouts_raise():
             assert str(got.dtype).split(".")[-1] \
                 == jnp.dtype(want.dtype).name
     cfg = tcfgs.get_smoke_config("phi4_mini_3_8b")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tlm.init_caches(dataclasses.replace(cfg, kv_cache_quant=True), 1, 8)
+    # kv_cache_quant builds the reference's int8 caches, leaf for leaf
+    quant = dataclasses.replace(cfg, kv_cache_quant=True)
+    got = tlm.init_caches(quant, 1, 8, device="cpu")
+    want = jax.eval_shape(lambda: jlm.init_caches(
+        dataclasses.replace(jget_smoke("phi4_mini_3_8b"),
+                            kv_cache_quant=True), 1, 8))
+    assert [type(c).__name__ for c in got] \
+        == [type(c).__name__ for c in want] == ["QuantKVCache"]
+    assert [(tuple(a.shape), str(a.dtype).split(".")[-1])
+            for c in got for a in c] \
+        == [(a.shape, jnp.dtype(a.dtype).name) for c in want for a in c]
     # an encoder-decoder config takes Whisper's specs and steps; MoE and
-    # vision training still name A7
+    # vision configs train: the vision step reads batch["patches"]
     encdec = dataclasses.replace(cfg, encoder_layers=2)
     assert _spec_shapes(tsteps.model_specs(encdec))["enc_pos/"] \
         == (encdec.encoder_ctx, encdec.d_model)
     for arch in ("qwen3_moe_235b_a22b", "llava_next_34b"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            tsteps.make_train_step(tcfgs.get_smoke_config(arch))
+        assert callable(tsteps.make_train_step(tcfgs.get_smoke_config(arch)))
+    with pytest.raises(KeyError, match="patches"):
+        tsteps._loss_fn(tcfgs.get_smoke_config("llava_next_34b"))(
+            {}, {"tokens": None, "labels": None})
     bad = np_lm_params(jget_smoke("phi4_mini_3_8b"), seed=0)
     bad["embed"] = bad["embed"][:, :-1]
     with pytest.raises(ValueError, match="embed"):

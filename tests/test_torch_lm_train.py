@@ -425,16 +425,29 @@ def test_unported_training_options_raise():
                                 torch.Generator().manual_seed(0),
                                 cfg.dtype, device="cpu")
     tokens = torch.zeros((1, 8), dtype=torch.int64)
+    # the "dots" policy trains: the same loss and gradients as "full"
+    # (tests/test_torch_levers.py holds the products it keeps)
     dots = dataclasses.replace(cfg, remat=True, remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tlm.lm_loss(params, dots, tokens, tokens)
+    full = dataclasses.replace(cfg, remat=True)
+    (l_d, _), g_d = value_and_grad(
+        lambda p: tlm.lm_loss(p, dots, tokens, tokens), params, has_aux=True)
+    (l_f, _), g_f = value_and_grad(
+        lambda p: tlm.lm_loss(p, full, tokens, tokens), params, has_aux=True)
+    assert torch.equal(l_d, l_f)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g_d),
+                                                 tree_leaves(g_f)))
     with torch.no_grad():               # serving never rematerializes
         tlm.forward(params, dots, tokens)
     af = tstate.make_tx(dataclasses.replace(cfg, optimizer="adafactor"))
     assert isinstance(af.init(params)[1], topt.AdafactorState)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tsteps.make_train_step(dataclasses.replace(
-            cfg, frontend="vision", frontend_tokens=4))
+    # a vision frontend trains: the patches go in front of the tokens and
+    # the loss counts the text tokens alone
+    vision = dataclasses.replace(cfg, frontend="vision", frontend_tokens=4)
+    patches = torch.zeros((1, 4, cfg.d_model), dtype=cfg.dtype)
+    labels = torch.cat([torch.full((1, 4), -1), tokens], dim=1)
+    _, metrics = tsteps._loss_fn(vision)(
+        params, {"tokens": tokens, "labels": labels, "patches": patches})
+    assert float(metrics["tokens"]) == 8
     x = torch.ones(3, dtype=torch.bfloat16, requires_grad=True)
     y = tlayers.ct_cast(x)
     assert torch.equal(y, x)

@@ -18,7 +18,8 @@ after prefill and after each of 2 decode steps.  Then the reference's
 own decode-vs-forward check (``tests/test_models.py:92-104``) on the port
 at its 3e-3 (the six full configs' parameter counts and spec shapes are
 ``tests/test_torch_lm.py``'s), the expert leaves' initializers, the
-serving launcher on two new ids, and MoE training refused.
+serving launcher on two new ids, and MoE training through the train
+step and the launcher.
 """
 
 import dataclasses
@@ -36,10 +37,11 @@ from repro.models import lm as jlm
 def setup_module():
     """Import torch and the port when this file's tests start, not at
     collection: every xdist worker collects every test file."""
-    global torch, tcfgs, tlm, tshard, tsteps
+    global torch, tcfgs, tlm, tshard, tsteps, tstate
     import torch
     from repro_torch import configs as tcfgs
     from repro_torch.launch import steps as tsteps
+    from repro_torch.train import train_state as tstate
     from repro_torch.models import lm as tlm
     from repro_torch.parallel import sharding as tshard
     torch.set_num_threads(1)
@@ -209,13 +211,24 @@ def test_serve_launcher_runs_the_new_families(arch):
 
 
 def test_moe_training_raises_naming_a7():
-    """MoE training is not ported yet: the train step and the launcher
-    refuse it before building any state."""
+    """MoE training is ported: the train step and the launcher take the
+    MoE configs that they used to refuse (``untrainable`` is gone), and
+    one step moves every expert leaf."""
     from repro_torch.launch import train
     cfg = tcfgs.get_smoke_config("qwen3_moe_235b_a22b")
-    assert tsteps.untrainable(cfg) == "training MoE blocks"
-    assert tsteps.untrainable(tcfgs.get_smoke_config("starcoder2_3b")) is None
-    with pytest.raises(NotImplementedError, match="A7"):
-        tsteps.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="A7"):
-        train.run("llama4_scout_17b_a16e", steps=1, smoke=True, device="cpu")
+    assert not hasattr(tsteps, "untrainable")
+    state = tstate.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                    tsteps.model_specs(cfg),
+                                    tstate.make_tx(cfg), device="cpu")
+    before = {n: a.clone() for n, a in state.params["blocks"][0]["ffn"]
+              .items()}
+    tokens = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    state, metrics = tsteps.make_train_step(cfg)(
+        state, {"tokens": tokens, "labels": tokens})
+    assert float(metrics["aux"]) > 0 and float(metrics["grad_norm"]) > 0
+    for n, a in state.params["blocks"][0]["ffn"].items():
+        assert not torch.equal(a, before[n]), n
+    res = train.run("llama4_scout_17b_a16e", steps=1, smoke=True,
+                    device="cpu")
+    assert len(res.losses) == 1 and np.isfinite(res.losses[0])

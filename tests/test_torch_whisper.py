@@ -336,13 +336,21 @@ def test_train_step_matches_reference(record_property):
 
 
 def test_quantized_cache_raises_and_launchers_refuse():
-    """``kv_cache_quant`` names ``ROADMAP.md`` A7 (the int8 cache is not
-    ported); both launchers refuse an encoder-decoder config with the
-    reference's ``SystemExit``."""
+    """``kv_cache_quant`` builds the reference's int8 decoder caches
+    (``tests/test_torch_levers.py`` decodes on them); both launchers
+    refuse an encoder-decoder config with the reference's
+    ``SystemExit``."""
     cfg = dataclasses.replace(tcfgs.get_smoke_config(ARCH),
                               kv_cache_quant=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        twhisper.init_decoder_caches(cfg, 2, 8, device="cpu")
+    quant = twhisper.init_decoder_caches(cfg, 2, 8, device="cpu")
+    for name, t in (("self", 8), ("cross", cfg.encoder_ctx)):
+        c = quant[name]
+        assert type(c).__name__ == "QuantKVCache"
+        assert c.k.shape == c.v.shape == (2, 2, t, 64)
+        assert c.k.dtype == c.v.dtype == torch.int8
+        assert c.k_scale.shape == c.v_scale.shape == (2, 2, t,
+                                                      cfg.n_kv_heads)
+        assert c.k_scale.dtype == torch.float32
     with pytest.raises(SystemExit, match="enc-dec serving"):
         tserve.run(ARCH, smoke=True, device="cpu")
     with pytest.raises(SystemExit, match="enc-dec training"):
